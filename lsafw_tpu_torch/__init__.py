@@ -1,0 +1,38 @@
+"""PyTorch / CUDA port of lsafw_tpu: global linear stability analysis of
+incompressible flows on an NVIDIA GPU.
+
+This package runs the cylinder leading-eigenpair path: mesh, Taylor-Hood
+assembly, ramped Newton baseflow (host SuperLU inner solves),
+linearized eigensystem, and a shift-invert Krylov-Schur eigensolve
+whose inner solve is a complex64 band LU on the device with f64
+refinement; the band substitution runs as hand-written CUDA kernels
+(``csrc/band_subst.cu``).  It imports nothing of the JAX package.
+
+Entry points take ``device=`` and default to ``"cuda"``; they run on
+the CPU only when the caller passes ``device="cpu"``.
+"""
+
+import torch
+
+# The band factor and its substitution are f32/complex64 preconditioners
+# of an f64 refinement.  TF32 (about three decimal digits) would weaken
+# the factor's refinement contraction, which on this very operator costs
+# 16x when products drop to reduced precision, so every f32 product and
+# convolution runs in full f32.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The torch device an entry point runs on; a CUDA device without a
+    usable GPU raises instead of falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
+__all__ = ["resolve_device"]

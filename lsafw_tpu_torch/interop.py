@@ -1,0 +1,68 @@
+"""Carry state of the JAX package (as numpy arrays) into the port.
+
+Nothing here imports JAX: a caller turns JAX arrays into numpy with
+``np.asarray`` and hands them over.  Used by the parity tests, so that
+both packages run from one mesh, one RCM ordering, one factor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lsafw_tpu_torch.meshing.mesh import CellType, Mesh
+from lsafw_tpu_torch.ops.sparse import CSRMatrix, SparsityPattern
+from lsafw_tpu_torch.solver.band import BandedLU, BandPlan
+
+
+def csr_from_numpy(indptr, indices, data, shape, *, device="cuda") -> CSRMatrix:
+    """A CSRMatrix on ``device`` from CSR arrays (data as f64)."""
+    indptr = np.asarray(indptr, dtype=np.int64)
+    pattern = SparsityPattern(
+        shape=tuple(int(s) for s in shape),
+        indptr=indptr,
+        indices=np.asarray(indices, dtype=np.int32),
+        slots=np.arange(int(indptr[-1]), dtype=np.int32),
+    )
+    return CSRMatrix(pattern, torch.as_tensor(np.asarray(data, dtype=np.float64), device=device))
+
+
+def band_plan_from_numpy(csr, perm, n: int, nb: int, B: int, nblk_pad: int,
+                         chunk: int) -> BandPlan:
+    """The port's plan of ``csr`` (scipy) under a given RCM ``perm``,
+    checked against the geometry the other side planned."""
+    plan = BandPlan.build(csr, nb=nb, chunk=chunk, perm=np.asarray(perm))
+    got = (plan.n, plan.B, plan.nblk_pad)
+    if got != (n, B, nblk_pad):
+        raise ValueError(f"plan geometry (n, B, nblk_pad) = {got}, expected {(n, B, nblk_pad)}")
+    return plan
+
+
+def banded_lu_from_numpy(band_re, band_im, dinv_r, dinv_i, perm, iperm, n: int, nb: int,
+                         B: int, *, device="cuda") -> BandedLU:
+    """A factored (re, im) pair band as the port's complex64 BandedLU."""
+    def c64(re, im):
+        z = np.asarray(re, np.float32) + 1j * np.asarray(im, np.float32)
+        return torch.as_tensor(z.astype(np.complex64), device=device)
+
+    def i64(a):
+        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+
+    return BandedLU(c64(band_re, band_im), c64(dinv_r, dinv_i), i64(perm), i64(iperm),
+                    int(n), int(nb), int(B))
+
+
+def mesh_from_numpy(vertices, cells, cell_type: str, facet_tags=None) -> Mesh:
+    """A port Mesh from vertex/cell arrays and optional (num_facets,)
+    facet markers of the same mesh (facets are numbered from the cells,
+    so both packages number them alike)."""
+    mesh = Mesh(np.asarray(vertices, dtype=np.float64), np.asarray(cells, dtype=np.int64),
+                CellType(cell_type))
+    if facet_tags is not None:
+        mesh.facet_tags = np.asarray(facet_tags)
+    return mesh
+
+
+def state_from_numpy(w, *, device="cuda") -> torch.Tensor:
+    """A mixed (velocity, pressure) state vector, e.g. a baseflow, as f64."""
+    return torch.as_tensor(np.asarray(w, dtype=np.float64), device=device)
