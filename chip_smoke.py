@@ -3,22 +3,40 @@
 
     python3 chip_smoke.py    # needs one CUDA card
 
-Phases, one line each (a failure raises and the exit code is non-zero):
-  1. the card (``nvidia-smi`` name and power limit) and the kernel build;
-  2. the band-substitution kernels K1/K2 against their plain PyTorch
-     versions on the card, on a random band at the 43k cylinder shapes
-     (B = 7, nb = 128, rows_total = 391), scaled by 2e-3 so the
-     recursion stays bounded: relative error <= 1e-5;
-  3. the port's main path: the reduced cylinder (43,671 Taylor-Hood
-     DOFs) at Re = 47, ramped Newton baseflow, eigensystem, shift-invert
-     Krylov-Schur at 0.74j on the pivot-free band factor whose
-     substitution runs through K1/K2.  Launch counts are zeroed just
-     before and read just after; the leading eigenvalue must be within
-     1e-4 of +0.0050+0.7526j with residual <= 1e-8.  The card's factor
-     must contract within 3x of the same factor built in f32 on the host
-     CPU (TF32 or another reduced-precision product would show here);
-  4. K1/K2 against their plain versions on the slice's own factor, and
-     their times (median of CUDA-event timings) beside the bound.
+Phases, one or more lines each (a failure raises and the exit code is
+non-zero):
+  1. the card (``nvidia-smi`` name and power limit) and the kernel build:
+     ``csrc/band_subst.cu`` and ``csrc/spmv_gather.cu``, one nvcc each,
+     started together;
+  2. kernels against their plain PyTorch versions on the card: the band
+     substitution K1/K2 on a random band at the 43k cylinder shapes
+     (B = 7, nb = 128, rows_total = 391; scaled by 2e-3 so the recursion
+     stays bounded), relative error <= 1e-5; the gather G against
+     ``x[idx]`` at the probes' shapes (``run_a``: x 2^17 f32, idx
+     (1024, 16); ``pallas_two_pass``: x (4096, 128) f32, 2^18 x 128
+     lane-unique indices), exact;
+  3. this slice's main path, the reference's device path
+     (``bench.py`` ``_pipeline``): the reduced cylinder (43,671
+     Taylor-Hood DOFs) at Re = 47, ramped Newton baseflow on the banded
+     inner solve (real pivoted band factors, GCR refinement whose
+     matvecs run through S), eigensystem, and the shift-invert
+     Krylov-Schur at 0.74j on the default pivoted complex factor with the
+     fused (A, M) refinement matvecs (S).  Host LU is patched to raise.
+     Launch counts are zeroed just before and read after each stage: the
+     leading eigenvalue must be within 1e-4 of +0.0050+0.7526j with
+     residual <= 1e-8, and S and G must launch in the baseflow and in the
+     eigen stage;
+  3b. the pivot-free path on the same (A, M): ``LSAFW_PIVOT_MEM_GB=0``
+     takes the pivot-free factor, whose substitution runs through K1/K2 (counts
+     zeroed just before, read after): the same sigma and residual gates,
+     K1/K2 launched, and the card's factor contracting within 3x of the
+     same factor built in f32 on the host CPU;
+  4. S against its plain version on the slice's (A, M) at sigma = 0.74j
+     in each mode (relative error <= 1e-12), K1/K2 against theirs on the
+     slice's pivot-free factor, and the times (median of CUDA-event
+     timings) of K1, K2, G and S beside their plain versions, bounds and
+     library calls; the pivoted factor and one pivoted substitution
+     (torch ops) are timed too.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -27,17 +45,22 @@ kernel numbers, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 SIGMA_REF = 0.0050 + 0.7526j  # reduced cylinder at Re = 47, recorded to 4 digits
+TARGET = 0.74j
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+FP64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 REL_TOL = 1e-5
+SPMV_REL_TOL = 1e-12
 
 
 def log(msg: str) -> None:
@@ -69,10 +92,82 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Median device time of one call of ``fn``: ``calls`` calls captured
+    in one CUDA graph (so no host launch overhead between them), replayed
+    ``reps`` times between CUDA events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def device_busy(fn) -> tuple[float, float]:
+    """(wall ms, device-busy ms) of one synchronised call of ``fn`` under
+    ``torch.profiler``: the kernels' summed self time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()) / 1e3
+    return wall, busy
+
+
 def rel_err(got, ref) -> tuple[float, float]:
     """(max abs error, max abs error / max |ref|)."""
     err = float((got - ref).abs().max())
     return err, err / max(float(ref.abs().max()), 1e-300)
+
+
+def bound(nbytes: float, ops: float, flops_per_s: float) -> tuple[float, str]:
+    """(least ms, what bounds it) from the bytes moved and the operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / flops_per_s * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def build_all() -> None:
+    """nvcc on both CUDA sources at once."""
+    from lsafw_tpu_torch.ops import spmv_cuda
+    from lsafw_tpu_torch.solver import band_cuda
+    from lsafw_tpu_torch.utils.cuda_build import BUILD_LOGS
+
+    t0 = time.time()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        libs = list(pool.map(lambda m: m.build(), (band_cuda, spmv_cuda)))
+    log(f"phase 1: built {', '.join(p.name for p in libs)} in {time.time() - t0:.1f} s")
+    for src, text in BUILD_LOGS.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {src}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# K1/K2
+# ---------------------------------------------------------------------------
 
 
 def check_kernels(band, dinv, b, what: str) -> dict:
@@ -108,8 +203,78 @@ def random_band(B: int, nb: int, rows_total: int, nblk: int, device):
     return band, dinv.contiguous(), c64((nblk, nb), 1.0)
 
 
-def cylinder_slice(device):
-    """bench.py's reduced-cylinder pipeline, through the port."""
+def band_bounds(B: int, nb: int, rows_total: int, nblk: int) -> dict:
+    """Least time of K1 and K2 from the bytes they must move (each input
+    read once, each output written once) and their float32 operations."""
+    c = 8  # bytes of one complex64
+    band_part = rows_total * B * nb * nb * c
+    flops = rows_total * B * nb * nb * 8  # one complex multiply-add is 8 flops
+    fwd_bytes = band_part + nblk * nb * c + rows_total * nb * c
+    bwd_bytes = band_part + nblk * nb * nb * c + rows_total * nb * c + nblk * nb * c
+    bwd_flops = flops + nblk * nb * nb * 8
+    return {"fwd": bound(fwd_bytes, flops, FP32_FLOPS_PER_S),
+            "bwd": bound(bwd_bytes, bwd_flops, FP32_FLOPS_PER_S)}
+
+
+# ---------------------------------------------------------------------------
+# G
+# ---------------------------------------------------------------------------
+
+
+def gather_inputs(device, *, Na: int = 1 << 17, R: int = 1024, W: int = 16, N: int = 1 << 19,
+                  M: int = 1 << 18) -> dict:
+    """The probes' inputs from seeds: ``run_a`` (flat) and
+    ``pallas_two_pass`` (lane-unique rows of 128, as the probe builds them),
+    at the probes' sizes by default."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(0)
+    xa = torch.randn(Na, generator=g, device=device)
+    idx = torch.randint(0, Na, (R, W), generator=g, device=device, dtype=torch.int32)
+    x = torch.randn(N, generator=g, device=device)
+    rows = torch.randint(0, N // 128, (M, 128), generator=g, device=device, dtype=torch.int32)
+    perm = torch.argsort(torch.rand((M, 128), generator=g, device=device), dim=1)
+    lanes = perm.to(torch.int32)  # a shuffle of 0..127 per row
+    rowsel = torch.gather(rows, 1, torch.argsort(perm, dim=1)).contiguous()
+    flat = (rows.long() * 128 + lanes).to(torch.int32)
+    return dict(xa=xa, idx=idx, x=x, x2d=x.view(N // 128, 128), rowsel=rowsel, lanesel=lanes,
+                flat=flat)
+
+
+def check_gather(gi: dict) -> dict:
+    """G against ``x[idx]`` in both forms: exact."""
+    import torch
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+
+    out = {}
+    ya = sc.gather(gi["xa"], gi["idx"])
+    y2 = sc.gather_two_pass(gi["x2d"], gi["rowsel"], gi["lanesel"])
+    torch.cuda.synchronize()
+    for name, got, refs in (
+        ("flat", ya, (sc.gather_plain(gi["xa"], gi["idx"]),)),
+        ("two_pass", y2, (sc.gather_two_pass_plain(gi["x2d"], gi["rowsel"], gi["lanesel"]),
+                          gi["x"][gi["flat"]])),
+    ):
+        err = max(float((got - r).abs().max()) for r in refs)
+        log(f"  G {name}: {got.numel()} values, max abs err {err:.1e}")
+        if err != 0.0:
+            raise RuntimeError(f"G ({name}) disagrees with x[idx]: max abs err {err}")
+        out[name] = err
+    return out
+
+
+def gather_bound(x_touched: int, index_bytes: int, count: int) -> tuple[float, str]:
+    """The x elements this run's indices touch, the indices, the output."""
+    return bound(4 * x_touched + index_bytes + 4 * count, 0, FP32_FLOPS_PER_S)
+
+
+# ---------------------------------------------------------------------------
+# The cylinder
+# ---------------------------------------------------------------------------
+
+
+def cylinder_case(device) -> dict:
+    """bench.py's reduced cylinder: mesh, spaces, BCs, assembly context."""
     import torch
     from lsafw_tpu_torch.config import BoundaryConditionsConfig, CylinderFlowGeometryConfig
     from lsafw_tpu_torch.fem.assembly import AssemblyContext
@@ -117,12 +282,7 @@ def cylinder_slice(device):
     from lsafw_tpu_torch.fem.spaces import define_spaces
     from lsafw_tpu_torch.meshing.geometries import cylinder_flow_mesh
     from lsafw_tpu_torch.meshing.tags import mark_boundary_facets
-    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
-    from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
-    from lsafw_tpu_torch.solver.eigen import (
-        EigenSolver, EigensolverConfig, STType, eigen_residuals)
 
-    stages = {}
     t0 = time.time()
     geo = CylinderFlowGeometryConfig(
         dim=2, cylinder_radius=0.5, cylinder_center=(0.0, 0.0),
@@ -157,36 +317,113 @@ def cylinder_slice(device):
     ])
     ctx = AssemblyContext.build(spaces, device=device)
     torch.cuda.synchronize()
-    stages["mesh"] = time.time() - t0
+    return dict(mesh=mesh, spaces=spaces, bcs_base=bcs_base, bcs_pert=bcs_pert, ctx=ctx,
+                seconds=time.time() - t0)
 
-    t0 = time.time()
-    w = BaseFlowSolver(ctx, mesh, bcs_base, re=47.0).solve(
-        ramp=True, steps=3, tol=1e-8, max_it=40)
-    torch.cuda.synchronize()
-    stages["baseflow"] = time.time() - t0
 
-    t0 = time.time()
-    A, M = LinearizedNavierStokesAssembler(w, ctx, 47.0, bcs_pert, mesh).assemble_eigensystem()
-    torch.cuda.synchronize()
-    stages["assemble"] = time.time() - t0
+def forbid_host_lu() -> None:
+    """Make every host LU of the port raise: the device path must not use it."""
+    from lsafw_tpu_torch.solver import baseflow, direct, newton
+
+    def no_host_lu(*args, **kw):
+        raise RuntimeError("host LU called on the device path")
+
+    for mod, name in ((direct, "SparseLU"), (direct, "direct_solve"), (newton, "SparseLU"),
+                      (baseflow, "direct_solve")):
+        setattr(mod, name, no_host_lu)
+
+
+def counts() -> dict:
+    from lsafw_tpu_torch.ops import spmv_cuda
+    from lsafw_tpu_torch.solver import band_cuda
+
+    return {**band_cuda.LAUNCHES, **spmv_cuda.LAUNCHES}
+
+
+def reset_counts() -> None:
+    from lsafw_tpu_torch.ops import spmv_cuda
+    from lsafw_tpu_torch.solver import band_cuda
+
+    band_cuda.reset_launches()
+    spmv_cuda.reset_launches()
+
+
+def leading_pair(A, M):
+    import torch
+    from lsafw_tpu_torch.solver.eigen import (
+        EigenSolver, EigensolverConfig, STType, eigen_residuals)
 
     t0 = time.time()
     es = EigenSolver(A, M, EigensolverConfig(num_eig=1, atol=1e-8, ncv=16))
     es.set_st_type(STType.SINVERT)
-    es.set_target(0.0 + 0.74j)
+    es.set_target(TARGET)
     es.set_st_pc_type("banded")
     pairs = es.solve()
     torch.cuda.synchronize()
-    stages["eigen"] = time.time() - t0
-    stages["factor"] = es.operator.factor_seconds
-    resid = float(eigen_residuals(A, M, pairs)[0])
-    return spaces.num_dofs, stages, pairs[0][0], resid, es.operator
+    seconds = time.time() - t0
+    return pairs[0][0], float(eigen_residuals(A, M, pairs)[0]), es.operator, seconds
+
+
+def gate_sigma(what: str, sigma: complex, resid: float) -> None:
+    if abs(sigma - SIGMA_REF) > 1e-4:
+        raise RuntimeError(f"{what}: sigma {sigma} is not within 1e-4 of {SIGMA_REF}")
+    if not resid <= 1e-8:
+        raise RuntimeError(f"{what}: eigen residual {resid:.2e} > 1e-8")
+
+
+def main_path(case) -> dict:
+    """Phase 3: banded baseflow, eigensystem, pivoted shift-invert."""
+    import torch
+    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
+
+    reset_counts()
+    t0 = time.time()
+    solver = BaseFlowSolver(case["ctx"], case["mesh"], case["bcs_base"], re=47.0)
+    w = solver.solve(ramp=True, steps=3, tol=1e-8, max_it=40, linear_solver="banded")
+    torch.cuda.synchronize()
+    t_base = time.time() - t0
+    base_counts = counts()
+    t0 = time.time()
+    A, M = LinearizedNavierStokesAssembler(w, case["ctx"], 47.0, case["bcs_pert"],
+                                           case["mesh"]).assemble_eigensystem()
+    torch.cuda.synchronize()
+    t_asm = time.time() - t0
+    reset_counts()
+    sigma, resid, op, t_eig = leading_pair(A, M)
+    eig_counts = counts()
+    st = solver.stats
+    log(f"phase 3: {case['spaces'].num_dofs} DOFs; stages mesh {case['seconds']:.2f} s, "
+        f"baseflow {t_base:.2f} s (factor {st['factor_s']:.2f} s in {st['factors']}, "
+        f"band solves {st['solve_s']:.2f} s in {st['solves']}, SpMV {st['spmv_s']:.2f} s in "
+        f"{st['spmvs']}), assemble {t_asm:.2f} s, eigen {t_eig:.2f} s (factor "
+        f"{op.factor_seconds:.2f} s)")
+    log(f"phase 3: Newton iterations {[r.iterations for r in solver.newton_results]}, "
+        f"GCR iterations {st['gcr_its']}, real pivoted factors {st['pivoted']}/{st['factors']}")
+    log(f"phase 3: sigma = {sigma.real:+.6f}{sigma.imag:+.6f}j, residual {resid:.2e}; "
+        f"pivoted factor {op.pivoted}, contraction {op.rho:.2e}, refinement cap "
+        f"{op.refine_its}, {op.applies} shift-invert applies")
+    log(f"phase 3: launches in baseflow {base_counts}; in eigen {eig_counts}")
+    gate_sigma("phase 3", sigma, resid)
+    if not op.pivoted or op.device_op.Cop is None:
+        raise RuntimeError("phase 3 did not take the pivoted factor with the fused matvecs")
+    if st["pivoted"] != st["factors"] or st["factors"] == 0:
+        raise RuntimeError(f"the baseflow did not factor pivoted on the card: {st}")
+    if min(base_counts["spmv_real"], base_counts["gather"]) <= 0:
+        raise RuntimeError(f"S or G never launched in the baseflow: {base_counts}")
+    if min(eig_counts["spmv_shifted"], eig_counts["spmv_complex"], eig_counts["gather"]) <= 0:
+        raise RuntimeError(f"S or G never launched in the eigen stage: {eig_counts}")
+    launches = {k: base_counts[k] + eig_counts[k] for k in base_counts}
+    stages = dict(mesh=case["seconds"], baseflow=t_base, assemble=t_asm, eigen=t_eig,
+                  factor=op.factor_seconds)
+    return dict(A=A, M=M, op=op, launches=launches, stages=stages, newton=st,
+                sigma=sigma, resid=resid)
 
 
 def host_contraction(op) -> float:
-    """Calibration contraction of the main path's shift-invert operator
-    with its band factored on the host CPU (true f32 products): the
-    yardstick for the card's factor precision."""
+    """Calibration contraction of the pivot-free shift-invert operator with
+    its band factored on the host CPU (true f32 products): the yardstick
+    for the card's factor precision."""
     from lsafw_tpu_torch.ops.sparse import CSRMatrix
     from lsafw_tpu_torch.solver.eigen import ShiftInvertOperator
 
@@ -196,19 +433,87 @@ def host_contraction(op) -> float:
     return ShiftInvertOperator(cpu(op.A), cpu(op.M), op.sigma).rho
 
 
-def kernel_bounds(B: int, nb: int, rows_total: int, nblk: int) -> dict:
-    """Least time of K1 and K2 from the bytes they must move (each input
-    read once, each output written once) and their float32 operations."""
-    c = 8  # bytes of one complex64
-    band_part = rows_total * B * nb * nb * c
-    flops = rows_total * B * nb * nb * 8  # one complex multiply-add is 8 flops
-    fwd_bytes = band_part + nblk * nb * c + rows_total * nb * c
-    bwd_bytes = band_part + nblk * nb * nb * c + rows_total * nb * c + nblk * nb * c
-    bwd_flops = flops + nblk * nb * nb * 8
+def pivot_free_path(A, M) -> dict:
+    """Phase 3b: the pivot-free factor, its substitution through K1/K2."""
+    os.environ["LSAFW_PIVOT_MEM_GB"] = "0"
+    try:
+        reset_counts()
+        sigma, resid, op, t_eig = leading_pair(A, M)
+        launches = counts()
+        log(f"phase 3b: pivot-free: sigma = {sigma.real:+.6f}{sigma.imag:+.6f}j, residual "
+            f"{resid:.2e}, eigen {t_eig:.2f} s (factor {op.factor_seconds:.2f} s), contraction "
+            f"{op.rho:.2e}, {op.applies} applies; launches {launches}")
+        gate_sigma("phase 3b", sigma, resid)
+        if op.pivoted or min(launches["fwd"], launches["bwd"]) <= 0:
+            raise RuntimeError(
+                f"phase 3b did not run the pivot-free factor through K1/K2: {launches}")
+        t0 = time.time()
+        rho_host = host_contraction(op)
+    finally:
+        del os.environ["LSAFW_PIVOT_MEM_GB"]
+    log(f"phase 3b: the same factor built in f32 on the host CPU contracts by {rho_host:.2e} "
+        f"(card {op.rho:.2e}; {time.time() - t0:.1f} s)")
+    if not op.rho <= 3 * rho_host:
+        raise RuntimeError("the card's factor contracts far worse than the host's f32 factor: "
+                           "check the matmul precision (TF32)")
+    return dict(op=op, launches=launches)
+
+
+# ---------------------------------------------------------------------------
+# S
+# ---------------------------------------------------------------------------
+
+
+def spmv_modes(cop, A, M, device) -> dict:
+    """S's modes on the slice's (A, M): (kernel call, plain call, cuSPARSE
+    call, bytes, flops) on permuted inputs made from a seed."""
+    import torch
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+    from lsafw_tpu_torch.ops.sparse import spmv
+
+    ix = cop.plan.on(device)
+    crow, col, rows = ix["crow"], ix["col"], ix["rows"]
+    n, nnz = cop.plan.n, cop.plan.nnz
+    g = torch.Generator(device=device).manual_seed(2)
+    xr = torch.randn(n, generator=g, device=device, dtype=torch.float64)
+    xc = torch.complex(xr, torch.randn(n, generator=g, device=device, dtype=torch.float64))
+    s = cop.sigma
+    structure = (n + 1) * 8 + nnz * 4
+    return {
+        "real": (lambda: sc.csr_spmv(crow, col, rows, cop.vA, xr),
+                 lambda: sc.csr_spmv_plain(crow, col, rows, cop.vA, xr),
+                 lambda: spmv(A, xr),
+                 structure + nnz * 8 + 2 * n * 8, 2 * nnz),
+        "shifted": (lambda: sc.csr_shifted_spmv(crow, col, rows, cop.vA, cop.vM, xc, s),
+                    lambda: sc.csr_spmv_plain(crow, col, rows, cop.vA, xc, cop.vM, s),
+                    lambda: spmv(A, xc) - s * spmv(M, xc),
+                    structure + 2 * nnz * 8 + 2 * n * 16, 8 * nnz + 8 * n),
+        "shifted_mass": (
+            lambda: sc.csr_shifted_spmv(crow, col, rows, cop.vA, cop.vM, xc, s, mass=True),
+            lambda: sc.csr_spmv_plain(crow, col, rows, cop.vA, xc, cop.vM, s, mass=True),
+            lambda: (lambda m: (spmv(A, xc) - s * m, m))(spmv(M, xc)),
+            structure + 2 * nnz * 8 + 3 * n * 16, 8 * nnz + 8 * n),
+        "mass": (lambda: sc.csr_spmv(crow, col, rows, cop.vM, xc),
+                 lambda: sc.csr_spmv_plain(crow, col, rows, cop.vM, xc),
+                 lambda: spmv(M, xc),
+                 structure + nnz * 8 + 2 * n * 16, 4 * nnz),
+    }
+
+
+def check_spmv(modes: dict) -> dict:
+    """S against its plain version in every mode: rel <= 1e-12."""
+    import torch
+
     out = {}
-    for k, nbytes, ops in (("fwd", fwd_bytes, flops), ("bwd", bwd_bytes, bwd_flops)):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
-        out[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    for name, (kern, plain, *_rest) in modes.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+        a, r = (max(v) for v in zip(*(rel_err(g_, r_) for g_, r_ in pairs)))
+        log(f"  S {name}: max abs err {a:.3e}, rel {r:.3e}")
+        if not np.isfinite(r) or r > SPMV_REL_TOL:
+            raise RuntimeError(f"S ({name}) disagrees with its plain version (rel {r:.3e})")
+        out[name] = a
     return out
 
 
@@ -218,79 +523,143 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+    from lsafw_tpu_torch.solver import band as tband
     from lsafw_tpu_torch.solver import band_cuda
 
+    t_start = time.time()
     dev = torch.device("cuda")
     name_power = card()
     log(f"phase 1: card {name_power}; torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.time()
-    lib = band_cuda.build()
-    log(f"phase 1: built {lib.name} in {time.time() - t0:.1f} s")
-    for line in band_cuda.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    build_all()
 
     B, nb, rows_total, nblk = 7, 128, 391, 384
     band, dinv, b = random_band(B, nb, rows_total, nblk, dev)
     errs = check_kernels(band, dinv, b, "phase 2 random band")
     del band, dinv, b
-    log("phase 2: K1/K2 match their plain versions on a random band at B=7 nb=128 rows=391")
+    gi = gather_inputs(dev)
+    g_errs = check_gather(gi)
+    log("phase 2: K1/K2 match their plain versions on a random band at B=7 nb=128 rows=391; "
+        "G matches x[idx] at the probes' shapes")
 
-    band_cuda.reset_launches()
-    ndofs, stages, sigma, resid, op = cylinder_slice(dev)
-    launches = dict(band_cuda.LAUNCHES)
-    blu = op.device_op.blu
-    log(f"phase 3: {ndofs} DOFs, B={blu.B} nb={blu.nb} rows_total={blu.band.shape[0]}, "
-        f"stages " + ", ".join(f"{k} {v:.2f} s" for k, v in stages.items())
-        + f"; contraction {op.rho:.2e}, refinement cap {op.refine_its}, "
-        f"{op.applies} shift-invert applies")
-    log(f"phase 3: sigma = {sigma.real:+.6f}{sigma.imag:+.6f}j, residual {resid:.2e}, "
-        f"launches K1 {launches['fwd']} K2 {launches['bwd']}")
-    if abs(sigma - SIGMA_REF) > 1e-4:
-        raise RuntimeError(f"sigma {sigma} is not within 1e-4 of {SIGMA_REF}")
-    if not resid <= 1e-8:
-        raise RuntimeError(f"eigen residual {resid:.2e} > 1e-8")
-    if min(launches.values()) <= 0:
-        raise RuntimeError(f"a kernel of the main path never launched: {launches}")
+    forbid_host_lu()
+    case = cylinder_case(dev)
+    mp = main_path(case)
+    pf = pivot_free_path(mp["A"], mp["M"])
 
-    t0 = time.time()
-    rho_host = host_contraction(op)
-    log(f"phase 3: the same factor built in f32 on the host CPU contracts by {rho_host:.2e} "
-        f"(card {op.rho:.2e}; {time.time() - t0:.1f} s)")
-    if not op.rho <= 3 * rho_host:
-        raise RuntimeError("the card's factor contracts far worse than the host's f32 factor: "
-                           "check the matmul precision (TF32)")
-
+    # phase 4: agreement and times
+    cop = mp["op"].device_op.Cop
+    modes = spmv_modes(cop, mp["A"], mp["M"], dev)
+    s_errs = check_spmv(modes)
+    blu = pf["op"].device_op.blu
     band, dinv = blu.band, blu.dinv
     B, nb, rows_total, nblk = blu.B, blu.nb, band.shape[0], dinv.shape[0]
     rng = np.random.default_rng(1)
     z = rng.standard_normal((nblk, nb, 2), dtype=np.float32)
     b = torch.view_as_complex(torch.from_numpy(z)).to(dev)
-    real = check_kernels(band, dinv, b, "phase 4 slice factor")
+    slice_errs = check_kernels(band, dinv, b, "phase 4 slice factor")
     y = band_cuda.fwd_substitute_plain(band, b)
-    bounds = kernel_bounds(B, nb, rows_total, nblk)
-    result = {}
-    timings = {
-        "fwd": (cuda_ms(lambda: band_cuda.fwd_substitute(band, b), 20),
-                cuda_ms(lambda: band_cuda.fwd_substitute_plain(band, b), 3)),
-        "bwd": (cuda_ms(lambda: band_cuda.bwd_substitute(band, dinv, y), 20),
-                cuda_ms(lambda: band_cuda.bwd_substitute_plain(band, dinv, y), 3)),
-    }
-    for k in ("fwd", "bwd"):
-        ms, plain_ms = timings[k]
-        bound_ms, bound_by = bounds[k]
-        result[k] = dict(
-            launches=launches[k], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-            bound_by=bound_by, max_abs_err=max(errs[k][0], real[k][0]))
-        log(f"phase 4: {k} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of bound")
+    kernels = []
     src = "lsafw_tpu_torch/csrc/band_subst.cu"
-    kernels = [
-        dict(name="band_fwd_kernel (K1)", route="cuda", source=src,
-             replaces="lsafw_tpu/solver/band_pallas.py:92", library_ms=None, **result["fwd"]),
-        dict(name="band_bwd_kernel (K2)", route="cuda", source=src,
-             replaces="lsafw_tpu/solver/band_pallas.py:191", library_ms=None, **result["bwd"]),
-    ]
+    bounds = band_bounds(B, nb, rows_total, nblk)
+    for k, name, line, kern, plain in (
+        ("fwd", "band_fwd_kernel (K1)", "lsafw_tpu/solver/band_pallas.py:92",
+         lambda: band_cuda.fwd_substitute(band, b),
+         lambda: band_cuda.fwd_substitute_plain(band, b)),
+        ("bwd", "band_bwd_kernel (K2)", "lsafw_tpu/solver/band_pallas.py:191",
+         lambda: band_cuda.bwd_substitute(band, dinv, y),
+         lambda: band_cuda.bwd_substitute_plain(band, dinv, y)),
+    ):
+        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
+        bound_ms, bound_by = bounds[k]
+        kernels.append(dict(name=name, route="cuda", source=src, replaces=line,
+                            launches=pf["launches"][k],
+                            max_abs_err=max(errs[k][0], slice_errs[k][0]), ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                            library_ms=None))
+    del band, dinv, y
+
+    src = "lsafw_tpu_torch/csrc/spmv_gather.cu"
+    ga_bound = gather_bound(int(torch.unique(gi["idx"]).numel()), gi["idx"].numel() * 4,
+                            gi["idx"].numel())
+    g2_bound = gather_bound(int(torch.unique(gi["flat"]).numel()), gi["rowsel"].numel() * 8,
+                            gi["rowsel"].numel())
+    for form, line, kern, plain, lib, (bound_ms, bound_by) in (
+        ("flat form at run_a's shapes", "scripts/dev_pallas_gather.py:55",
+         lambda: sc.gather(gi["xa"], gi["idx"]), lambda: sc.gather_plain(gi["xa"], gi["idx"]),
+         lambda: gi["xa"][gi["idx"]], ga_bound),
+        ("two-pass form at pallas_two_pass's shapes", "scripts/dev_pallas_gather2.py:111",
+         lambda: sc.gather_two_pass(gi["x2d"], gi["rowsel"], gi["lanesel"]),
+         lambda: sc.gather_two_pass_plain(gi["x2d"], gi["rowsel"], gi["lanesel"]),
+         lambda: gi["x"][gi["flat"]], g2_bound),
+    ):
+        err = g_errs["flat" if form.startswith("flat") else "two_pass"]
+        kernels.append(dict(name=f"gather_kernel (G), {form}", route="cuda", source=src,
+                            replaces=line, launches=mp["launches"]["gather"], max_abs_err=err,
+                            ms=graph_ms(kern), plain_ms=graph_ms(plain), bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=graph_ms(lib)))
+        log(f"phase 4: G {form}: one call with its host overhead (CUDA events) "
+            f"{cuda_ms(kern, 20):.4f} ms, x[idx] {cuda_ms(lib, 20):.4f} ms")
+    s_lines = {"real": ("lsafw_tpu/ops/bcsr.py:388", "spmv_real"),
+               "shifted": ("lsafw_tpu/ops/bcsr.py:615", "spmv_shifted"),
+               "shifted_mass": ("lsafw_tpu/ops/bcsr.py:587", "spmv_shifted"),
+               "mass": ("lsafw_tpu/ops/bcsr.py:622", "spmv_complex")}
+    for mode, (kern, plain, lib, nbytes, ops) in modes.items():
+        bound_ms, bound_by = bound(nbytes, ops, FP64_FLOPS_PER_S)
+        line, key = s_lines[mode]
+        entry = dict(name=f"csr_shifted_spmv_kernel (S), {mode.replace('_', '+')}", route="cuda",
+                     source=src, replaces=line, launches=mp["launches"][key],
+                     max_abs_err=s_errs[mode], ms=graph_ms(kern), plain_ms=graph_ms(plain),
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=graph_ms(lib))
+        log(f"phase 4: S {mode}: one call with its host overhead (CUDA events) "
+            f"{cuda_ms(kern, 20):.4f} ms, cuSPARSE {cuda_ms(lib, 20):.4f} ms")
+        if mode != "shifted_mass":  # the main path never asks for both outputs at once
+            kernels.append(entry)
+        else:
+            log(f"phase 4: S shifted+mass (not on the main path): {entry['ms']:.4f} ms, plain "
+                f"{entry['plain_ms']:.4f} ms, cuSPARSE {entry['library_ms']:.4f} ms, bound "
+                f"{bound_ms:.4f} ms")
+    for e in kernels:
+        log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
+            f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+            f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound, {e['launches']} launches")
+
+    # the pivoted factors and substitutions (torch ops), and the panel LU
+    A, M, s = mp["A"], mp["M"], mp["op"].sigma
+    dre, dim = A.data - s.real * M.data, -s.imag * M.data
+    for real in (True, False):
+        plan = tband.plan_for_csr(A, real=real)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        plu = tband.factor_auto(plan, dre, None if real else dim)[0]
+        torch.cuda.synchronize()
+        t_factor = time.time() - t0
+        m = 1
+        dt = torch.float32 if real else torch.complex64
+        bp = torch.randn((plu.L1inv.shape[0], nb, m), dtype=dt, device=dev)
+        t_subst = cuda_ms(lambda: tband._solve_pivoted_cols(plu.band, plu.L2, plu.L1inv, plu.Uinv,
+                                                            plu.perms, bp), 5)
+        wall, busy = device_busy(lambda: tband._solve_pivoted_cols(
+            plu.band, plu.L2, plu.L1inv, plu.Uinv, plu.perms, bp))
+        log(f"phase 4: {type(plu).__name__}: factor {t_factor:.3f} s (host clock, synchronised); "
+            f"one substitution {t_subst:.3f} ms (torch ops, median of 5), under the profiler "
+            f"{wall:.1f} ms wall with the card busy {busy:.2f} ms")
+        panel = torch.randn(((plu.B + 1) * nb, nb), dtype=dt, device=dev)
+        times = {}
+        for lib in ("default", "cusolver"):
+            torch.backends.cuda.preferred_linalg_library(lib)
+            times[lib] = cuda_ms(lambda: torch.linalg.lu_factor_ex(panel), 20)
+        torch.backends.cuda.preferred_linalg_library("default")
+        log(f"phase 4: one {tuple(panel.shape)} {dt} panel LU: PyTorch's default backend "
+            f"{times['default']:.3f} ms, cuSOLVER {times['cusolver']:.3f} ms")
+        del plu
+    v = torch.randn(A.shape[0], dtype=torch.complex128, device=dev)
+    wall, busy = device_busy(lambda: mp["op"].apply(v))
+    log(f"phase 4: one pivoted shift-invert apply under the profiler: {wall:.1f} ms wall, the "
+        f"card busy {busy:.2f} ms ({100 * busy / wall:.1f}%)")
+    log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
+
     log(name_power)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,12 +1,17 @@
 """PyTorch / CUDA port of lsafw_tpu: global linear stability analysis of
 incompressible flows on an NVIDIA GPU.
 
-This package runs the cylinder leading-eigenpair path: mesh, Taylor-Hood
-assembly, ramped Newton baseflow (host SuperLU inner solves),
-linearized eigensystem, and a shift-invert Krylov-Schur eigensolve
-whose inner solve is a complex64 band LU on the device with f64
-refinement; the band substitution runs as hand-written CUDA kernels
-(``csrc/band_subst.cu``).  It imports nothing of the JAX package.
+This package runs the cylinder leading-eigenpair path of the reference
+(``bench.py``'s pipeline): mesh, Taylor-Hood assembly on the device,
+ramped Newton baseflow whose steps solve on the device band LU (real,
+panel-pivoted) with f64 GCR refinement, linearized eigensystem, and a
+shift-invert Krylov-Schur eigensolve on the complex band LU (pivoted
+within ``LSAFW_PIVOT_MEM_GB``, else pivot-free) with f64 refinement.
+Hand-written CUDA kernels carry the pivot-free band substitution
+(``csrc/band_subst.cu``) and the refinement matvecs and permutation
+gathers (``csrc/spmv_gather.cu``).  It imports nothing of the JAX
+package.  ``solver/direct.py`` keeps host SuperLU for
+``linear_solver="lu"``.
 
 Entry points take ``device=`` and default to ``"cuda"``; they run on
 the CPU only when the caller passes ``device="cpu"``.

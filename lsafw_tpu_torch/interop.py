@@ -12,7 +12,12 @@ import torch
 
 from lsafw_tpu_torch.meshing.mesh import CellType, Mesh
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, SparsityPattern
-from lsafw_tpu_torch.solver.band import BandedLU, BandPlan
+from lsafw_tpu_torch.solver.band import (
+    BandedLU,
+    BandPlan,
+    PivotedBandedLU,
+    RealPivotedBandedLU,
+)
 
 
 def csr_from_numpy(indptr, indices, data, shape, *, device="cuda") -> CSRMatrix:
@@ -38,18 +43,44 @@ def band_plan_from_numpy(csr, perm, n: int, nb: int, B: int, nblk_pad: int,
     return plan
 
 
+def _c64(re, im, device) -> torch.Tensor:
+    z = np.asarray(re, np.float32) + 1j * np.asarray(im, np.float32)
+    return torch.as_tensor(z.astype(np.complex64), device=device)
+
+
+def _int(a, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(a, dtype=dtype), device=device)
+
+
 def banded_lu_from_numpy(band_re, band_im, dinv_r, dinv_i, perm, iperm, n: int, nb: int,
                          B: int, *, device="cuda") -> BandedLU:
     """A factored (re, im) pair band as the port's complex64 BandedLU."""
-    def c64(re, im):
-        z = np.asarray(re, np.float32) + 1j * np.asarray(im, np.float32)
-        return torch.as_tensor(z.astype(np.complex64), device=device)
-
-    def i64(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
-
-    return BandedLU(c64(band_re, band_im), c64(dinv_r, dinv_i), i64(perm), i64(iperm),
+    return BandedLU(_c64(band_re, band_im, device), _c64(dinv_r, dinv_i, device),
+                    _int(perm, np.int32, device), _int(iperm, np.int32, device),
                     int(n), int(nb), int(B))
+
+
+def pivoted_lu_from_numpy(band_re, band_im, L2r, L2i, L1inv_r, L1inv_i, Uinv_r, Uinv_i, perms,
+                          perm, iperm, n: int, nb: int, B: int, *,
+                          device="cuda") -> PivotedBandedLU:
+    """The leaves of a panel-pivoted (re, im) pair factor as the port's
+    complex64 PivotedBandedLU."""
+    return PivotedBandedLU(
+        _c64(band_re, band_im, device), _c64(L2r, L2i, device), _c64(L1inv_r, L1inv_i, device),
+        _c64(Uinv_r, Uinv_i, device), _int(perms, np.int64, device),
+        _int(perm, np.int32, device), _int(iperm, np.int32, device), int(n), int(nb), int(B))
+
+
+def real_pivoted_lu_from_numpy(band, L2, L1inv, Uinv, perms, perm, iperm, n: int, nb: int,
+                               B: int, *, device="cuda") -> RealPivotedBandedLU:
+    """The leaves of a real panel-pivoted factor as the port's f32
+    RealPivotedBandedLU."""
+    def f32(a):
+        return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+
+    return RealPivotedBandedLU(
+        f32(band), f32(L2), f32(L1inv), f32(Uinv), _int(perms, np.int64, device),
+        _int(perm, np.int32, device), _int(iperm, np.int32, device), int(n), int(nb), int(B))
 
 
 def mesh_from_numpy(vertices, cells, cell_type: str, facet_tags=None) -> Mesh:

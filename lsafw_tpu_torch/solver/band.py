@@ -1,4 +1,4 @@
-"""Blocked band LU of a complex operator on the device, pivot-free.
+"""Blocked band LU on the device: pivoted and pivot-free, complex and real.
 
 Design:
   * RCM-permute the operator (host, once per sparsity pattern, through
@@ -7,32 +7,48 @@ Design:
     ``B = ceil(b / nb)``.
   * The band is filled on the device by scattering CSR data through a
     precomputed :class:`BandPlan`, into a (rows_total, 2B+1, nb, nb)
-    complex64 tensor; slot r of block row K holds block (K, K + r - B).
-  * Right-looking blocked LU without cross-block pivoting, in place in
-    the band: a Python loop over block rows, each step one nb x nb
-    complex inverse of the diagonal block, the L = E D^-1 panel and the
-    B x B Schur update as one batched matmul.  LU of a banded matrix
-    without cross-block pivoting fills only inside the band.
-  * The factor is complex64: it preconditions f64 iterative refinement
-    (mixed-precision direct-iterative solve).  Its substitution runs
-    through the CUDA kernels of :mod:`lsafw_tpu_torch.solver.band_cuda`.
+    tensor (complex64, or float32 for a real operator); slot r of block
+    row K holds block (K, K + r - B).
+  * :class:`PivotedBandedLU` / :class:`RealPivotedBandedLU` (the default
+    of :func:`factor_auto` whenever their memory fits): per block row,
+    an LU with partial pivoting of the (B+1)·nb x nb panel of block
+    column K, then the composed row permutation applied to the trailing
+    2B block columns and their Schur update.  U widens to 2B upper
+    blocks inside the same band; L2 panels, the L1 and U diagonal-block
+    inverses and the permutations are stored beside it.
+  * :class:`BandedLU` / :class:`RealBandedLU` (over the pivot budget):
+    pivot-free elimination in place in the band, with saddle
+    regularization of the zero pressure diagonals.  LU of a banded
+    matrix without cross-block pivoting fills only inside the band.
+  * Every factor is f32/complex64: it preconditions an f64 iterative
+    refinement (mixed-precision direct-iterative solve).  The pivot-free
+    complex substitution runs through the CUDA kernels K1/K2 of
+    :mod:`lsafw_tpu_torch.solver.band_cuda`; the pivoted and real
+    substitutions are loops of torch ops over block rows.  Vectors enter
+    and leave the band's order through the G gather of
+    :mod:`lsafw_tpu_torch.ops.spmv_cuda`.
 
-The pivoted factor of the reference package is not ported yet, so
-:func:`factor_auto` always takes the pivot-free branch (with saddle
-regularization), the branch the reference takes when the pivoted
-factor's extra memory is over budget.
+Pivot rule: the panel LU is ``torch.linalg.lu_factor_ex`` (LAPACK on the
+host, cuSOLVER on the card).  For complex panels LAPACK and cuSOLVER
+pick the pivot of largest |re| + |im| (icamax); the reference picks
+largest |z|^2.  So complex pivots, and with them the complex factor's
+arrays, may differ from the reference's; the factor is held to the
+reference at the level of its solves.  For real panels both pick
+largest |x|.
 """
 
 from __future__ import annotations
 
 import os
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
 import scipy.sparse as sp
 import torch
 
+from lsafw_tpu_torch.ops import spmv_cuda
 from lsafw_tpu_torch.ops.native import rcm_native
 from lsafw_tpu_torch.ops.sparse import CSRMatrix
 from lsafw_tpu_torch.solver import band_cuda
@@ -54,7 +70,8 @@ class BandPlan:
     ``pos_row``/``pos_off`` place each CSR entry (in the CSR's own
     order) at block row ``pos_row`` and flat offset ``pos_off`` inside
     the (R, nb, nb) row; entries outside a budget-clipped band carry
-    ``pos_row = rows_total`` and are dropped at fill time."""
+    ``pos_row = rows_total`` and are dropped at fill time.  ``real``: the
+    plan was sized for one real band (no imaginary channel)."""
 
     n: int
     nb: int
@@ -62,6 +79,7 @@ class BandPlan:
     nblk_pad: int
     chunk: int
     band_dtype: str  # "f32" | "bf16" (bf16 at-rest storage is not ported)
+    real: bool
     perm: np.ndarray  # (n,) permuted index -> original
     pos_row: np.ndarray  # (nnz,) band block row of each CSR entry
     pos_off: np.ndarray  # (nnz,) offset within the block row
@@ -91,21 +109,22 @@ class BandPlan:
 
     def on(self, device) -> dict[str, torch.Tensor]:
         """Device index tensors of the plan (cached per device): flat band
-        positions of the kept CSR entries and of the identity padding."""
+        positions of the kept CSR entries and of the identity padding, and
+        the int32 permutations the G gather takes."""
         key = str(torch.device(device))
         hit = self._device.get(key)
         if hit is None:
             row_len = self.R * self.nb * self.nb
             keep = np.flatnonzero(self.pos_row < self.rows_total)
 
-            def t(a):
-                return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+            def t(a, dtype=np.int64):
+                return torch.as_tensor(np.asarray(a, dtype=dtype), device=device)
 
             hit = dict(
                 keep=t(keep),
                 flat=t(self.pos_row[keep].astype(np.int64) * row_len + self.pos_off[keep]),
                 pad=t(self.pad_row.astype(np.int64) * row_len + self.pad_off),
-                perm_pad=t(self.perm_pad), iperm=t(self.iperm),
+                perm_pad=t(self.perm_pad, np.int32), iperm=t(self.iperm, np.int32),
             )
             self._device[key] = hit
         return hit
@@ -119,12 +138,16 @@ class BandPlan:
         chunk: int = 128,
         perm: np.ndarray | None = None,
         max_bytes: int | None = None,
+        real: bool = False,
+        force_f32: bool = False,
     ) -> "BandPlan":
         """Plan the band of the (pattern of) ``csr``; data values are
-        ignored.  ``max_bytes`` is the budget of the complex band: over
-        it the plan first asks for bf16 storage, then clips B (entries
-        outside the clipped band are dropped; the factor is then a
-        preconditioner of the band-truncated operator)."""
+        ignored.  ``max_bytes`` is the budget of the band (4 bytes per
+        entry for a real plan, 8 for a complex one).  Over it the plan
+        first asks for bf16 storage (2 or 4 bytes), and where even that
+        does not fit, clips B; ``force_f32`` clips B at f32 storage
+        instead.  Entries outside a clipped band are dropped: the factor
+        then preconditions the band-truncated operator."""
         t0 = time.time()
         csr = csr.tocsr()
         n = csr.shape[0]
@@ -146,12 +169,17 @@ class BandPlan:
         nblk_pad = -(-nblk // chunk) * chunk
         band_dtype = "f32"
         if max_bytes is not None:
+            f32_b, bf16_b = (4, 2) if real else (8, 4)
+
             def _bytes(B_, per_entry):
                 return (nblk_pad + B_) * (2 * B_ + 1) * nb * nb * per_entry
 
-            if _bytes(B, 8) > max_bytes:
+            if force_f32:
+                while B > 1 and _bytes(B, f32_b) > max_bytes:
+                    B -= 1
+            elif _bytes(B, f32_b) > max_bytes:
                 band_dtype = "bf16"
-                while B > 1 and _bytes(B, 4) > max_bytes:
+                while B > 1 and _bytes(B, bf16_b) > max_bytes:
                     B -= 1
         I = pi // nb
         d_blk = pj // nb - I
@@ -163,18 +191,24 @@ class BandPlan:
             off = np.where(out, 0, off)
         pad = np.arange(n, (nblk_pad + B) * nb, dtype=np.int64)
         logger.info(
-            "BandPlan: n=%d bandwidth=%d B=%d nblk=%d (band %.2f GB %s, %.1fs plan%s)",
-            n, bw, B, nblk, (nblk_pad + B) * (2 * B + 1) * nb * nb * 8 / 1e9, band_dtype,
-            time.time() - t0, f"; {dropped} entries outside the band dropped" if dropped else "",
+            "BandPlan: n=%d bandwidth=%d B=%d nblk=%d (%sband %.2f GB %s, %.1fs plan%s)",
+            n, bw, B, nblk, "real " if real else "",
+            (nblk_pad + B) * (2 * B + 1) * nb * nb * (4 if real else 8)
+            / (2 if band_dtype == "bf16" else 1) / 1e9, band_dtype, time.time() - t0,
+            f"; {dropped} entries outside the band dropped" if dropped else "",
         )
         return cls(
-            n=n, nb=nb, B=B, nblk_pad=nblk_pad, chunk=chunk, band_dtype=band_dtype,
+            n=n, nb=nb, B=B, nblk_pad=nblk_pad, chunk=chunk, band_dtype=band_dtype, real=real,
             perm=perm, pos_row=I, pos_off=off,
             pad_row=pad // nb, pad_off=B * nb * nb + (pad % nb) * nb + (pad % nb),
         )
 
 
+# Plans keyed by id(pattern) with a strong reference to the pattern, in a
+# small LRU: the Newton (real) and shift-invert (complex) plans of one
+# pattern stay cached side by side.
 _PLAN_CACHE: dict = {}
+_PLAN_CACHE_MAX = 4
 
 
 def band_mem_budget() -> int:
@@ -184,20 +218,25 @@ def band_mem_budget() -> int:
 
 
 def plan_for_csr(A: CSRMatrix, *, nb: int = 128, chunk: int = 128,
-                 max_bytes: int | None = None) -> BandPlan:
-    """:class:`BandPlan` of a CSRMatrix's pattern, cached per pattern."""
+                 max_bytes: int | None = None, real: bool = False,
+                 force_f32: bool = False) -> BandPlan:
+    """:class:`BandPlan` of a CSRMatrix's pattern, cached per (pattern,
+    nb, chunk, budget, real, force_f32)."""
     if max_bytes is None:
         max_bytes = band_mem_budget()
-    key = (id(A.pattern), nb, chunk, max_bytes)
+    key = (id(A.pattern), nb, chunk, max_bytes, real, force_f32)
     hit = _PLAN_CACHE.get(key)
     if hit is not None and hit[0] is A.pattern:
+        _PLAN_CACHE[key] = _PLAN_CACHE.pop(key)
         return hit[1]
     pat = A.pattern
     csr = sp.csr_matrix(
         (np.ones(pat.nnz, np.int8), pat.indices.copy(), pat.indptr.copy()), shape=pat.shape
     )
-    plan = BandPlan.build(csr, nb=nb, chunk=chunk, max_bytes=max_bytes)
-    _PLAN_CACHE.clear()
+    plan = BandPlan.build(csr, nb=nb, chunk=chunk, max_bytes=max_bytes, real=real,
+                          force_f32=force_f32)
+    while len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:
+        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
     _PLAN_CACHE[key] = (A.pattern, plan)
     return plan
 
@@ -217,24 +256,74 @@ def regularize_saddle_data(dre: torch.Tensor, dim_: torch.Tensor | None, diag_sl
 
 
 def fill_band(plan: BandPlan, data: torch.Tensor) -> torch.Tensor:
-    """Scatter complex CSR data into a fresh complex64 band on the
-    data's device, with identity on the padding diagonal."""
+    """Scatter CSR data into a fresh band on the data's device (complex64
+    for complex data, float32 for real data), with identity on the
+    padding diagonal."""
     if plan.band_dtype != "f32":
         raise NotImplementedError(
             "bf16 at-rest band storage (band over the memory budget) is not ported")
     ix = plan.on(data.device)
-    band = torch.zeros((plan.rows_total, plan.R, plan.nb, plan.nb),
-                       dtype=torch.complex64, device=data.device)
+    dtype = torch.complex64 if data.is_complex() else torch.float32
+    band = torch.zeros((plan.rows_total, plan.R, plan.nb, plan.nb), dtype=dtype,
+                       device=data.device)
     flat = band.view(-1)
-    flat[ix["flat"]] = data[ix["keep"]].to(torch.complex64)
+    flat[ix["flat"]] = data[ix["keep"]].to(dtype)
     flat[ix["pad"]] = 1.0
     return band
 
 
+def _complex_data(data_re: torch.Tensor, data_im: torch.Tensor | None) -> torch.Tensor:
+    if data_im is None:
+        return data_re.to(torch.complex128)
+    return torch.complex(data_re.to(torch.float64), data_im.to(torch.float64))
+
+
+def _ridge_scale(D: torch.Tensor) -> torch.Tensor:
+    """Mean |Re| of a diagonal block's diagonal: the unit of ``delta``."""
+    return D.diagonal().real.abs().mean() + 1e-30
+
+
+def _sync(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+# ---------------------------------------------------------------------------
+# Permutation in and out of the band's order (G gathers)
+# ---------------------------------------------------------------------------
+
+
+def _permute_in(b: torch.Tensor, perm: torch.Tensor, n: int, nblk: int, nb: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """(nblk, nb) blocks of ``b`` in the band's order, cast to ``dtype``."""
+    bp = torch.zeros(nblk * nb, dtype=b.dtype, device=b.device)
+    bp[:n] = b
+    return spmv_cuda.gather(bp, perm).to(dtype).reshape(nblk, nb)
+
+
+def _permute_out(x: torch.Tensor, iperm: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The band-order solution back in the original order, as ``dtype``."""
+    return spmv_cuda.gather(x.reshape(-1).to(dtype), iperm)
+
+
+def _solve_real_vector(solve_cols, b: torch.Tensor) -> torch.Tensor:
+    """A real factor on a real or complex vector: a complex vector rides
+    the same band pass as two columns."""
+    if not b.is_complex():
+        return solve_cols(b[:, None])[:, 0]
+    x = solve_cols(torch.stack([b.real, b.imag], dim=1))
+    return torch.complex(x[:, 0], x[:, 1])
+
+
+# ---------------------------------------------------------------------------
+# Pivot-free factor (complex BandedLU with K1/K2, and RealBandedLU)
+# ---------------------------------------------------------------------------
+
+
 def factor_band(band: torch.Tensor, nblk_pad: int, *, delta: float = 0.0) -> torch.Tensor:
-    """Pivot-free blocked LU of a filled band, in place; returns the
-    (nblk_pad, nb, nb) inverse diagonal blocks.  ``delta`` is a ridge
-    relative to the mean |Re| of each diagonal block's diagonal."""
+    """Pivot-free blocked LU of a filled band (complex or real), in place;
+    returns the (nblk_pad, nb, nb) inverse diagonal blocks.  ``delta`` is
+    a ridge relative to the mean |Re| of each diagonal block's diagonal."""
     B = (band.shape[1] - 1) // 2
     nb = band.shape[2]
     dev = band.device
@@ -246,8 +335,7 @@ def factor_band(band: torch.Tensor, nblk_pad: int, *, delta: float = 0.0) -> tor
     for K in range(nblk_pad):
         D = band[K, B]
         if delta:
-            s = D.diagonal().real.abs().mean() + 1e-30
-            D = D + (delta * s) * eye
+            D = D + (delta * _ridge_scale(D)) * eye
         X, _ = torch.linalg.inv_ex(D)
         dinv[K] = X
         L = band[K + i, B - i] @ X  # (B, nb, nb): L_i = E_i D^-1
@@ -260,12 +348,13 @@ def factor_band(band: torch.Tensor, nblk_pad: int, *, delta: float = 0.0) -> tor
 
 @dataclass(eq=False)
 class BandedLU:
-    """Factored complex band on a device; :meth:`solve` applies C^-1."""
+    """Factored pivot-free complex band on a device; :meth:`solve`
+    applies C^-1 through the K1/K2 substitution kernels."""
 
     band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) complex64, factored
     dinv: torch.Tensor  # (nblk_pad, nb, nb) complex64
-    perm: torch.Tensor  # (nblk_pad * nb,) int64: padded permuted index -> original
-    iperm: torch.Tensor  # (n,) int64: original -> permuted position
+    perm: torch.Tensor  # (nblk_pad * nb,) int32: padded permuted index -> original
+    iperm: torch.Tensor  # (n,) int32: original -> permuted position
     n: int
     nb: int
     B: int
@@ -275,37 +364,311 @@ class BandedLU:
                *, delta: float = 0.0) -> "BandedLU":
         """Fill the band from CSR data (the plan's CSR order) and factor it."""
         t0 = time.time()
-        data = data_re.to(torch.complex128)
-        if data_im is not None:
-            data = torch.complex(data_re, data_im)
-        band = fill_band(plan, data)
+        band = fill_band(plan, _complex_data(data_re, data_im))
         dinv = factor_band(band, plan.nblk_pad, delta=delta)
-        if band.is_cuda:
-            torch.cuda.synchronize(band.device)
+        _sync(band)
         logger.info("BandedLU: factored n=%d B=%d in %.2f s", plan.n, plan.B, time.time() - t0)
         ix = plan.on(band.device)
         return cls(band, dinv, ix["perm_pad"], ix["iperm"], plan.n, plan.nb, plan.B)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """x ~= C^-1 b for a complex128 vector (unpermuted), through the
-        complex64 band substitution."""
-        nblk_pad = self.dinv.shape[0]
-        bp = torch.zeros(nblk_pad * self.nb, dtype=torch.complex128, device=b.device)
-        bp[: self.n] = b
-        bp = bp[self.perm].to(torch.complex64).reshape(nblk_pad, self.nb)
-        x = band_cuda.solve_banded(self.band, self.dinv, bp)
-        return x.reshape(-1).to(torch.complex128)[self.iperm]
+        """x ~= C^-1 b for an f64 or complex128 vector (original order; a
+        real b gives the real part)."""
+        nblk = self.dinv.shape[0]
+        bp = _permute_in(b.to(torch.complex128), self.perm, self.n, nblk, self.nb,
+                         torch.complex64)
+        x = _permute_out(band_cuda.solve_banded(self.band, self.dinv, bp), self.iperm,
+                         torch.complex128)
+        return x if b.is_complex() else x.real.contiguous()
+
+
+def _solve_banded_real(band: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Real forward + backward substitution through a pivot-free factor;
+    ``b`` is (nblk, nb, m) f32 blocks in the band's order (m columns in
+    one band pass).  The B lookahead rows take a zero right-hand side and
+    Dinv = I."""
+    rows_total, R, nb, _ = band.shape
+    B = (R - 1) // 2
+    nblk, m = b.shape[0], b.shape[2]
+    y = torch.zeros((B + rows_total, nb, m), dtype=b.dtype, device=b.device)  # B zero rows first
+    y[B:B + nblk] = b
+    for k in range(rows_total):
+        y[B + k] -= torch.bmm(band[k, :B], y[k:k + B]).sum(0)
+    x = torch.zeros((rows_total + B, nb, m), dtype=b.dtype, device=b.device)  # B zero rows last
+    for k in range(rows_total - 1, -1, -1):
+        z = y[B + k] - torch.bmm(band[k, B + 1:], x[k + 1:k + 1 + B]).sum(0)
+        x[k] = dinv[k] @ z if k < nblk else z
+    return x[:nblk]
+
+
+@dataclass(eq=False)
+class RealBandedLU:
+    """Pivot-free factor of a real operator: one f32 band (half the memory
+    of the complex band); the substitution is :func:`_solve_banded_real`."""
+
+    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) float32, factored
+    dinv: torch.Tensor  # (nblk_pad, nb, nb) float32
+    perm: torch.Tensor  # (nblk_pad * nb,) int32
+    iperm: torch.Tensor  # (n,) int32
+    n: int
+    nb: int
+    B: int
+
+    @classmethod
+    def factor(cls, plan: BandPlan, data_re: torch.Tensor, *, delta: float = 0.0) -> "RealBandedLU":
+        t0 = time.time()
+        band = fill_band(plan, data_re.to(torch.float64))
+        dinv = factor_band(band, plan.nblk_pad, delta=delta)
+        _sync(band)
+        logger.info("RealBandedLU: factored n=%d B=%d in %.2f s", plan.n, plan.B, time.time() - t0)
+        ix = plan.on(band.device)
+        return cls(band, dinv, ix["perm_pad"], ix["iperm"], plan.n, plan.nb, plan.B)
+
+    def _solve_cols(self, b: torch.Tensor) -> torch.Tensor:
+        nblk = self.dinv.shape[0]
+        cols = [_permute_in(b[:, j].contiguous(), self.perm, self.n, nblk, self.nb, torch.float32)
+                for j in range(b.shape[1])]
+        x = _solve_banded_real(self.band, self.dinv, torch.stack(cols, dim=2))
+        return torch.stack([_permute_out(x[:, :, j], self.iperm, torch.float64)
+                            for j in range(b.shape[1])], dim=1)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """x ~= A^-1 b for an f64 or complex128 vector (original order)."""
+        return _solve_real_vector(self._solve_cols, b)
+
+    solve_vec = solve
+
+
+# ---------------------------------------------------------------------------
+# Panel-pivoted factor (PivotedBandedLU, RealPivotedBandedLU)
+# ---------------------------------------------------------------------------
+
+
+def _wide(rows: torch.Tensor) -> torch.Tensor:
+    """(c, nb, nb) blocks of one block row -> the (nb, c * nb) matrix."""
+    return rows.permute(1, 0, 2).reshape(rows.shape[1], -1)
+
+
+@contextmanager
+def _panel_lu_library(device: torch.device):
+    """Run the panel LUs on cuSOLVER on a card.  For one (B+1)·nb x nb
+    panel PyTorch's default choice launches a batched column-by-column
+    kernel chain, about ten times slower than cuSOLVER's getrf
+    (``chip_smoke.py`` phase 4 times both); the setting is restored
+    afterwards."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def _pfactor(band: torch.Tensor, nblk_pad: int, delta: float):
+    """Panel-pivoted blocked LU of a filled band (complex or real), in
+    place: band row K becomes the U row of block row K over block columns
+    K..K+2B.  Returns (L2, L1inv, Uinv, perms).
+
+    The window ``W`` holds block rows K..K+B over block columns K..K+2B
+    as one ((B+1)·nb, (2B+1)·nb) matrix.  Step K takes the fresh band row
+    K+B into its last block row, factors the panel W[:, :nb] with partial
+    pivoting (P^T panel = L U, so row i of L U is panel row perm[i]),
+    forms U's off-diagonal blocks T0 = L1^-1 T[:nb] and the Schur update
+    T[nb:] - L2 T0 of the row-permuted trailing columns T, and shifts the
+    updated rows up as the next window."""
+    rows_total, R, nb, _ = band.shape
+    B = (R - 1) // 2
+    m = (B + 1) * nb
+    dev, dt = band.device, band.dtype
+    W = torch.zeros((m, R * nb), dtype=dt, device=dev)
+    for i in range(min(B, nblk_pad)):  # rows 0..B-1 anchored at K = 0
+        W[i * nb:(i + 1) * nb, :(B + i + 1) * nb] = _wide(band[i, B - i:])
+    L2 = torch.empty((nblk_pad, B, nb, nb), dtype=dt, device=dev)
+    L1inv = torch.empty((nblk_pad, nb, nb), dtype=dt, device=dev)
+    Uinv = torch.empty_like(L1inv)
+    perms = torch.empty((nblk_pad, m), dtype=torch.int64, device=dev)
+    eye = torch.eye(nb, dtype=dt, device=dev)
+    shape_only = torch.empty((m, nb), dtype=torch.float32, device=dev)  # P in a real dtype
+    with _panel_lu_library(dev):
+        for K in range(nblk_pad):
+            W[B * nb:] = _wide(band[K + B])
+            LU, piv, _ = torch.linalg.lu_factor_ex(W[:, :nb])
+            P, _, _ = torch.lu_unpack(shape_only, piv, unpack_data=False)
+            perm = P.argmax(0)
+            perms[K] = perm
+            Up = torch.triu(LU[:nb])
+            L2[K] = LU[nb:].view(B, nb, nb)
+            L1inv[K] = torch.linalg.solve_triangular(LU[:nb], eye, upper=False, unitriangular=True)
+            D = Up + (delta * _ridge_scale(Up)) * eye if delta else Up
+            Uinv[K] = torch.linalg.solve_triangular(D, eye, upper=True)
+            T = W[:, nb:].index_select(0, perm)
+            T0 = L1inv[K] @ T[:nb]
+            Tl = torch.addmm(T[nb:], L2[K].view(B * nb, nb), T0, alpha=-1)
+            band[K, 0] = Up
+            band[K, 1:] = T0.view(nb, 2 * B, nb).transpose(0, 1)
+            W[:B * nb, :2 * B * nb] = Tl
+            W[:B * nb, 2 * B * nb:] = 0
+    return L2, L1inv, Uinv, perms
+
+
+def _solve_pivoted_cols(band, L2, L1inv, Uinv, perms, b: torch.Tensor) -> torch.Tensor:
+    """Substitution through the panel-pivoted factors; ``b`` is
+    (nblk, nb, m) blocks in the band's order.
+
+    Forward, per block row K: permute the right-hand side window (rows
+    K..K+B, updated in place in ``work``) by the panel permutation,
+    y_K = L1^-1 f[:nb], and rows K+1..K+B become f[nb:] - L2 y_K.
+    Backward: x_K = U_KK^-1 (y_K - sum_j U_{K,K+j} x_{K+j}), j = 1..2B."""
+    nblk, nb, m = b.shape
+    B = L2.shape[1]
+    work = torch.zeros(((nblk + B + 1) * nb, m), dtype=b.dtype, device=b.device)
+    work[:nblk * nb] = b.reshape(nblk * nb, m)
+    y = torch.empty((nblk, nb, m), dtype=b.dtype, device=b.device)
+    L2m = L2.view(nblk, B * nb, nb)
+    for k in range(nblk):
+        win = work[k * nb:(k + B + 1) * nb]
+        f = win.index_select(0, perms[k])
+        torch.mm(L1inv[k], f[:nb], out=y[k])
+        torch.addmm(f[nb:], L2m[k], y[k], alpha=-1, out=win[nb:])
+    x = torch.zeros(((nblk + 2 * B) * nb, m), dtype=b.dtype, device=b.device)
+    for k in range(nblk - 1, -1, -1):
+        X = x[(k + 1) * nb:(k + 1 + 2 * B) * nb].view(2 * B, nb, m)
+        z = y[k] - torch.bmm(band[k, 1:], X).sum(0)
+        torch.mm(Uinv[k], z, out=x[k * nb:(k + 1) * nb])
+    return x[:nblk * nb].view(nblk, nb, m)
+
+
+def _solve_pivoted(band, L2, L1inv, Uinv, perms, b: torch.Tensor) -> torch.Tensor:
+    """Complex substitution of one (nblk, nb) complex64 right-hand side."""
+    return _solve_pivoted_cols(band, L2, L1inv, Uinv, perms, b[:, :, None])[:, :, 0]
+
+
+def _solve_pivoted_real(band, L2, L1inv, Uinv, perms, b: torch.Tensor) -> torch.Tensor:
+    """Real substitution of (nblk, nb, m) f32 right-hand sides (m columns
+    in one band pass)."""
+    return _solve_pivoted_cols(band, L2, L1inv, Uinv, perms, b)
+
+
+@dataclass(eq=False)
+class PivotedBandedLU:
+    """Panel-pivoted complex band factor (the robust device direct
+    solver, :func:`factor_auto`'s default): no saddle regularization, so
+    its contraction is that of an f32 LU."""
+
+    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) complex64: U rows (cols K..K+2B)
+    L2: torch.Tensor  # (nblk_pad, B, nb, nb) complex64
+    L1inv: torch.Tensor  # (nblk_pad, nb, nb) complex64
+    Uinv: torch.Tensor  # (nblk_pad, nb, nb) complex64
+    perms: torch.Tensor  # (nblk_pad, (B+1)*nb) int64
+    perm: torch.Tensor  # (nblk_pad * nb,) int32
+    iperm: torch.Tensor  # (n,) int32
+    n: int
+    nb: int
+    B: int
+
+    @classmethod
+    def factor(cls, plan: BandPlan, data_re: torch.Tensor, data_im: torch.Tensor | None = None,
+               *, delta: float = 0.0) -> "PivotedBandedLU":
+        """Fill the band from CSR data and factor it with panel pivoting."""
+        t0 = time.time()
+        band = fill_band(plan, _complex_data(data_re, data_im))
+        L2, L1inv, Uinv, perms = _pfactor(band, plan.nblk_pad, delta)
+        _sync(band)
+        logger.info("PivotedBandedLU: factored n=%d B=%d in %.2f s", plan.n, plan.B,
+                    time.time() - t0)
+        ix = plan.on(band.device)
+        return cls(band, L2, L1inv, Uinv, perms, ix["perm_pad"], ix["iperm"],
+                   plan.n, plan.nb, plan.B)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """x ~= C^-1 b for an f64 or complex128 vector (original order; a
+        real b gives the real part)."""
+        nblk = self.L1inv.shape[0]
+        bp = _permute_in(b.to(torch.complex128), self.perm, self.n, nblk, self.nb,
+                         torch.complex64)
+        x = _solve_pivoted(self.band, self.L2, self.L1inv, self.Uinv, self.perms, bp)
+        x = _permute_out(x, self.iperm, torch.complex128)
+        return x if b.is_complex() else x.real.contiguous()
+
+
+@dataclass(eq=False)
+class RealPivotedBandedLU:
+    """Real panel-pivoted factor (Newton Jacobians, Stokes): f32 band,
+    half the memory of the complex one."""
+
+    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) float32: U rows
+    L2: torch.Tensor  # (nblk_pad, B, nb, nb) float32
+    L1inv: torch.Tensor  # (nblk_pad, nb, nb) float32
+    Uinv: torch.Tensor  # (nblk_pad, nb, nb) float32
+    perms: torch.Tensor  # (nblk_pad, (B+1)*nb) int64
+    perm: torch.Tensor  # (nblk_pad * nb,) int32
+    iperm: torch.Tensor  # (n,) int32
+    n: int
+    nb: int
+    B: int
+
+    @classmethod
+    def factor(cls, plan: BandPlan, data_re: torch.Tensor, *,
+               delta: float = 0.0) -> "RealPivotedBandedLU":
+        t0 = time.time()
+        band = fill_band(plan, data_re.to(torch.float64))
+        L2, L1inv, Uinv, perms = _pfactor(band, plan.nblk_pad, delta)
+        _sync(band)
+        logger.info("RealPivotedBandedLU: factored n=%d B=%d in %.2f s", plan.n, plan.B,
+                    time.time() - t0)
+        ix = plan.on(band.device)
+        return cls(band, L2, L1inv, Uinv, perms, ix["perm_pad"], ix["iperm"],
+                   plan.n, plan.nb, plan.B)
+
+    def _solve_cols(self, b: torch.Tensor) -> torch.Tensor:
+        nblk = self.L1inv.shape[0]
+        cols = [_permute_in(b[:, j].contiguous(), self.perm, self.n, nblk, self.nb, torch.float32)
+                for j in range(b.shape[1])]
+        x = _solve_pivoted_real(self.band, self.L2, self.L1inv, self.Uinv, self.perms,
+                                torch.stack(cols, dim=2))
+        return torch.stack([_permute_out(x[:, :, j], self.iperm, torch.float64)
+                            for j in range(b.shape[1])], dim=1)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """x ~= A^-1 b for an f64 or complex128 vector (original order)."""
+        return _solve_real_vector(self._solve_cols, b)
+
+    solve_vec = solve
+
+
+def pivoted_extra_bytes(plan: BandPlan) -> int:
+    """Device bytes the pivoted factor needs beyond the band: the L2
+    panels, the two block inverses and the permutations, counted as the
+    reference counts them (one channel for a real plan, two otherwise)."""
+    nb, B = plan.nb, plan.B
+    chan = 1 if plan.real else 2
+    per_row = (B * nb * nb + 2 * nb * nb) * chan * 4 + (B + 1) * nb * 4
+    return plan.nblk_pad * per_row
 
 
 def factor_auto(plan: BandPlan, data_re: torch.Tensor, data_im: torch.Tensor | None = None,
                 *, diag_slots=None, delta: float = 0.0):
-    """Factor C = data_re + i data_im on the plan; returns ``(lu, pivoted)``.
-
-    The pivoted factor is not ported yet, so this always takes the
-    pivot-free branch with saddle regularization of the zero diagonals
-    (the reference's branch for a pivoted factor over budget)."""
-    logger.info("factor_auto: pivot-free BandedLU with saddle regularization "
-                "(the pivoted factor is not ported)")
+    """Factor with the pivoted elimination when the band plus its extra
+    memory fits ``LSAFW_PIVOT_MEM_GB`` (default 8), else pivot-free with
+    saddle regularization of the zero diagonals.  Returns ``(lu,
+    pivoted)``.  A ``real`` plan takes the real factors and refuses
+    complex data."""
+    budget = float(os.environ.get("LSAFW_PIVOT_MEM_GB", "8")) * 1e9
+    if plan.real:
+        if data_im is not None:
+            raise ValueError("real band plan cannot factor complex data")
+        band_bytes = plan.rows_total * plan.R * plan.nb * plan.nb * 4
+        if band_bytes + pivoted_extra_bytes(plan) <= budget:
+            return RealPivotedBandedLU.factor(plan, data_re, delta=delta), True
+        if diag_slots is not None:
+            data_re = regularize_saddle_data(data_re, None, diag_slots)
+        return RealBandedLU.factor(plan, data_re, delta=delta), False
+    band_bytes = plan.rows_total * plan.R * plan.nb * plan.nb * 8
+    if band_bytes + pivoted_extra_bytes(plan) <= budget:
+        return PivotedBandedLU.factor(plan, data_re, data_im, delta=delta), True
     if diag_slots is not None:
         data_re = regularize_saddle_data(data_re, data_im, diag_slots)
     return BandedLU.factor(plan, data_re, data_im, delta=delta), False

@@ -18,56 +18,23 @@ rows past nblk take a zero right-hand side and Dinv = I.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
+from lsafw_tpu_torch.utils.cuda_build import CSRC, compile_library, raise_on, stream
+
 LAUNCHES = {"fwd": 0, "bwd": 0}
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "band_subst.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+_SRC = CSRC / "band_subst.cu"
 _SMEM_MAX = 232_448  # bytes of shared memory one H100 block may use
 _lib: ctypes.CDLL | None = None
-BUILD_LOG = ""  # nvcc's -Xptxas -v report of the last build (registers, spills)
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
 def build() -> Path:
     """Compile ``band_subst.cu`` for sm_90a (once per source version) and
     return the shared library's path."""
-    src = _SRC.read_bytes()
-    out = _BUILD_DIR / f"libband_subst_{hashlib.sha256(src).hexdigest()[:12]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(_SRC),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    global BUILD_LOG
-    BUILD_LOG = proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return compile_library(_SRC)
 
 
 def _load() -> ctypes.CDLL:
@@ -119,15 +86,6 @@ def _check_bwd(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor) -> tuple
     return _check(band, y[: dinv.shape[0]], dinv)
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed with CUDA error {err}")
-
-
 # ---------------------------------------------------------------------------
 # Plain versions: the step-by-step recursion in torch
 # ---------------------------------------------------------------------------
@@ -174,8 +132,8 @@ def fwd_substitute(band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     B, nb = _check(band, b)
     y = torch.empty((band.shape[0], nb), dtype=torch.complex64, device=band.device)
     err = _load().band_fwd(band.data_ptr(), b.data_ptr(), y.data_ptr(),
-                           band.shape[0], b.shape[0], B, nb, _stream())
-    _raise_on(err, "band_fwd")
+                           band.shape[0], b.shape[0], B, nb, stream())
+    raise_on(err, "band_fwd")
     LAUNCHES["fwd"] += 1
     return y
 
@@ -189,8 +147,8 @@ def bwd_substitute(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor) -> t
     B, nb = _check_bwd(band, dinv, y)
     x = torch.empty((nblk, nb), dtype=torch.complex64, device=band.device)
     err = _load().band_bwd(band.data_ptr(), dinv.data_ptr(), y.data_ptr(), x.data_ptr(),
-                           band.shape[0], nblk, B, nb, _stream())
-    _raise_on(err, "band_bwd")
+                           band.shape[0], nblk, B, nb, stream())
+    raise_on(err, "band_bwd")
     LAUNCHES["bwd"] += 1
     return x
 

@@ -1,6 +1,11 @@
 """Baseflow (steady Navier-Stokes) solve: Stokes solve as the Newton
 initial guess, optional Reynolds ramp 1.0 -> Re, damped Newton per
-step, and the recirculation-length diagnostic."""
+step, and the recirculation-length diagnostic.
+
+``linear_solver="banded"`` runs the Stokes solve and every Newton step
+on the device band LU with f64 GCR refinement (one real band plan,
+shared by the Stokes operator and the Jacobians of the same pattern);
+a stalled banded Stokes solve raises.  ``"lu"`` solves on the host."""
 
 from __future__ import annotations
 
@@ -14,7 +19,8 @@ from lsafw_tpu_torch.models.navier_stokes import (
     StokesAssembler,
 )
 from lsafw_tpu_torch.solver.direct import direct_solve
-from lsafw_tpu_torch.solver.newton import NewtonResult, NewtonSolver
+from lsafw_tpu_torch.solver.band import plan_for_csr
+from lsafw_tpu_torch.solver.newton import NewtonResult, NewtonSolver, banded_solve, new_stats
 from lsafw_tpu_torch.utils.logging import get_logger, timed
 
 logger = get_logger(__name__)
@@ -29,10 +35,18 @@ class BaseFlowSolver:
         self._mesh = mesh
         self._bcs = bcs
         self._re = re
+        self.stats = new_stats()  # banded inner solves: device seconds and counts
+        self.newton_results: list[NewtonResult] = []
 
-    def _solve_stokes_flow(self) -> np.ndarray:
+    def _solve_stokes_flow(self, linear_solver: str = "lu") -> np.ndarray:
         logger.info("Solving Stokes flow as Newton initial guess.")
         A, b = StokesAssembler(self._ctx, self._mesh, self._bcs, re=self._re).get_matrix_forms()
+        if linear_solver == "banded":
+            res = banded_solve(A, b, plan_for_csr(A, real=True), tol=1e-10, stats=self.stats)
+            if not res.converged:
+                raise RuntimeError(f"banded Stokes solve stalled (relative residual "
+                                   f"{res.residual:.2e})")
+            return res.x.cpu().numpy()
         return direct_solve(A, b.cpu().numpy())
 
     def solve(
@@ -51,14 +65,15 @@ class BaseFlowSolver:
         )
         newton = NewtonSolver(
             StationaryNavierStokesAssembler(self._ctx, self._mesh, self._bcs),
-            damping=damping_factor, linear_solver=linear_solver,
+            damping=damping_factor, linear_solver=linear_solver, stats=self.stats,
         )
-        sol = self._solve_stokes_flow()
+        sol = self._solve_stokes_flow(linear_solver)
         result: NewtonResult | None = None
         for re in re_ramp:
             logger.info("Solving stationary Navier-Stokes at Re=%.2f", re)
             with timed(logger, f"Newton at Re={re:.1f}"):
                 result = newton.solve(sol, re, max_it=max_it, tol=tol)
+            self.newton_results.append(result)
             sol = result.w
         if result is not None and not result.converged:
             logger.warning("Final Newton residual %.3e > tol %.1e", result.residual_norm, tol)

@@ -2,9 +2,13 @@
 
 The Krylov basis lives on the device as a complex128 (ncv+1, n)
 tensor; orthogonalization is CGS2 as dense basis products.  The
-shift-invert apply y = (A - sigma M)^-1 M v is the complex64 band
-factor of :mod:`lsafw_tpu_torch.solver.band` with f64 GCR refinement
-against the assembled CSR pair.  The (ncv x ncv) Hessenberg
+shift-invert apply y = (A - sigma M)^-1 M v is the band factor of
+:mod:`lsafw_tpu_torch.solver.band` (``factor_auto``: pivoted complex64
+within ``LSAFW_PIVOT_MEM_GB``, else pivot-free with the K1/K2 kernels;
+a real shift takes the real factors) with f64 GCR refinement, whose
+C = A - sigma M and M applies run through the S kernel on the permuted
+CSR of (A, M) (``ops/bcsr.py`` ``BCSRShiftedOp``, sigma a kernel
+argument).  The (ncv x ncv) Hessenberg
 bookkeeping, sorted Schur restarts and Ritz extraction run on the host
 in numpy/scipy complex128.
 
@@ -14,6 +18,7 @@ lambda = sigma + 1/theta.
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from enum import Enum
@@ -24,8 +29,9 @@ import scipy.linalg as sla
 import torch
 
 from lsafw_tpu_torch import resolve_device
+from lsafw_tpu_torch.ops.bcsr import BCSRShiftedOp, plan_for_pattern
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
-from lsafw_tpu_torch.solver.band import BandedLU, factor_auto, plan_for_csr
+from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
 from lsafw_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -67,17 +73,29 @@ class EigensolverConfig:
 @dataclass(eq=False)
 class BandedSIOp:
     """Shift-invert operator state: the CSR pair, the band factor of
-    C = A - sigma M and the shift."""
+    C = A - sigma M (any factor of :mod:`~lsafw_tpu_torch.solver.band`),
+    the shift, and ``Cop``, the fused (A, M) operator of the refinement
+    matvecs (None: the CSR pair applies them)."""
 
     A: CSRMatrix
     M: CSRMatrix
-    blu: BandedLU
+    blu: object
     sigma: complex
+    Cop: BCSRShiftedOp | None = None
 
 
 def _si_apply_C(op: BandedSIOp, x: torch.Tensor) -> torch.Tensor:
-    """(A - sigma M) x through the assembled CSR pair."""
+    """(A - sigma M) x."""
+    if op.Cop is not None:
+        return op.Cop.matvec_pair(x)
     return spmv(op.A, x) - op.sigma * spmv(op.M, x)
+
+
+def _si_apply_M(op: BandedSIOp, x: torch.Tensor) -> torch.Tensor:
+    """M x, from Cop's storage where there is a Cop."""
+    if op.Cop is not None:
+        return op.Cop.mass_pair(x)
+    return spmv(op.M, x)
 
 
 def banded_solve_raw(op: BandedSIOp, b: torch.Tensor, *, tol: float = 1e-9,
@@ -115,7 +133,17 @@ def banded_solve_raw(op: BandedSIOp, b: torch.Tensor, *, tol: float = 1e-9,
 def banded_si_apply(op: BandedSIOp, v: torch.Tensor, *, tol: float = 1e-9,
                     max_its: int = 16) -> torch.Tensor:
     """y ~= (A - sigma M)^-1 (M v)."""
-    return banded_solve_raw(op, spmv(op.M, v), tol=tol, max_its=max_its)
+    return banded_solve_raw(op, _si_apply_M(op, v), tol=tol, max_its=max_its)
+
+
+def _device_memory_bytes(device: torch.device) -> float:
+    """Memory of the device the operators live on: env ``LSAFW_HBM_GB``
+    where set, else the card's total memory (the host's for the CPU)."""
+    if "LSAFW_HBM_GB" in os.environ:
+        return float(os.environ["LSAFW_HBM_GB"]) * 1e9
+    if device.type == "cuda":
+        return float(torch.cuda.get_device_properties(device).total_memory)
+    return float(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
 
 
 class ShiftInvertOperator:
@@ -139,13 +167,16 @@ class ShiftInvertOperator:
         self._n = A.shape[0]
         self.applies = 0
         t0 = time.time()
-        self.device_op = BandedSIOp(A, M, self._factor_banded(), self.sigma)
+        blu = self._factor_banded()
         self.factor_seconds = time.time() - t0
+        band_bytes = sum(t.numel() * t.element_size() for t in vars(blu).values()
+                         if isinstance(t, torch.Tensor))
+        self.device_op = BandedSIOp(A, M, blu, self.sigma, self._build_bcsr_ops(band_bytes))
         rng = np.random.default_rng(11)
         b0 = rng.standard_normal(self._n)
         b0 /= np.linalg.norm(b0)
         b0 = torch.as_tensor(b0, dtype=torch.complex128, device=A.device)
-        x0 = self.device_op.blu.solve(b0)
+        x0 = blu.solve(b0)
         rho = float(torch.linalg.vector_norm(b0 - _si_apply_C(self.device_op, x0)))
         self.rho = rho
         if not np.isfinite(rho):
@@ -161,18 +192,39 @@ class ShiftInvertOperator:
         logger.info("Banded shift-invert: contraction %.2e -> refinement cap %d for tol %.0e",
                     rho, self.refine_its, inner_tol)
 
-    def _factor_banded(self) -> BandedLU:
-        """Factor C = A - sigma M on the shared pattern of A and M, with
-        the saddle regularization of its zero pressure diagonals."""
+    def _factor_banded(self):
+        """Factor C = A - sigma M on the shared pattern of A and M through
+        ``factor_auto``: pivoted within its memory budget, else pivot-free
+        with the saddle regularization of the zero pressure diagonals.  A
+        real shift factors one real band."""
         A, M = self.A, self.M
         if M is None or M.pattern is not A.pattern:
             raise NotImplementedError("A and M must share one sparsity pattern")
-        if self.sigma.imag == 0.0:
-            raise NotImplementedError("the real band factor (real shift) is not ported")
         dre = A.data - self.sigma.real * M.data
+        if self.sigma.imag == 0.0:
+            blu, self.pivoted = factor_auto(plan_for_csr(A, real=True), dre,
+                                            diag_slots=A.pattern.diag_slots)
+            return blu
         dim = (-self.sigma.imag) * M.data
-        blu, _ = factor_auto(plan_for_csr(A), dre, dim, diag_slots=A.pattern.diag_slots)
+        blu, self.pivoted = factor_auto(plan_for_csr(A), dre, dim, diag_slots=A.pattern.diag_slots)
         return blu
+
+    def _build_bcsr_ops(self, band_bytes: int = 0) -> BCSRShiftedOp | None:
+        """The fused (A, M) operator of the refinement matvecs, or None (the
+        CSR pair applies them) when its values do not fit beside the factor:
+        the budget is min(``LSAFW_BCSR_MEM_GB``, default 6, the device's
+        memory less the factor and a 3.5 GB margin)."""
+        A, M = self.A, self.M
+        plan = plan_for_pattern(A)
+        budget = min(float(os.environ.get("LSAFW_BCSR_MEM_GB", "6")) * 1e9,
+                     _device_memory_bytes(A.device) - float(band_bytes) - 3.5e9)
+        need = 2 * plan.bytes_per_matrix + plan.index_bytes
+        if need > budget:
+            logger.info("CSR (A, M) operator (%.2f GB) over budget %.1f GB; applying the CSR pair.",
+                        need / 1e9, budget / 1e9)
+            return None
+        logger.info("Refinement matvecs on the permuted CSR of (A, M): %.3f GB", need / 1e9)
+        return BCSRShiftedOp.from_csr(A, M, self.sigma, plan)
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
         self.applies += 1

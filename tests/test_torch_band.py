@@ -56,19 +56,19 @@ def system():
 @pytest.fixture(scope="module")
 def factors(system):
     """Both packages' pivot-free factors of the same regularized data,
-    through each ``factor_auto`` (JAX with a zero pivot budget)."""
+    through each ``factor_auto`` under a zero pivot budget."""
     s = system
+    plan = interop.band_plan_from_numpy(
+        s["csr"], s["jplan"].perm, s["jplan"].n, 128, s["jplan"].B, s["jplan"].nblk_pad, 128)
     mp = pytest.MonkeyPatch()
     mp.setenv("LSAFW_PIVOT_MEM_GB", "0")
     try:
         jlu, jpiv = jband.factor_auto(
             s["jplan"], jnp.asarray(s["dre"].numpy()), jnp.asarray(s["dim"].numpy()),
             diag_slots=s["diag"])
+        tlu, tpiv = tband.factor_auto(plan, s["dre"], s["dim"], diag_slots=s["diag"])
     finally:
         mp.undo()
-    plan = interop.band_plan_from_numpy(
-        s["csr"], s["jplan"].perm, s["jplan"].n, 128, s["jplan"].B, s["jplan"].nblk_pad, 128)
-    tlu, tpiv = tband.factor_auto(plan, s["dre"], s["dim"], diag_slots=s["diag"])
     assert (jpiv, tpiv) == (False, False)
     return jlu, tlu, plan
 
