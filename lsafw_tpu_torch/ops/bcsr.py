@@ -34,12 +34,11 @@ import scipy.sparse as sp
 import torch
 
 from lsafw_tpu_torch.ops import spmv_cuda
+from lsafw_tpu_torch.ops.sparse import pattern_csr, per_pattern
+from lsafw_tpu_torch.solver.band import pattern_permutation, rcm_permutation
 from lsafw_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
-
-_PLAN_CACHE: dict = {}
-_PLAN_CACHE_MAX = 8
 
 
 @dataclass(eq=False)
@@ -89,8 +88,6 @@ class BCSRPlan:
     def build(cls, A: sp.spmatrix, *, perm: np.ndarray | None = None) -> "BCSRPlan":
         """Plan the (pattern of) scipy ``A``; ``perm`` defaults to the native
         RCM ordering the band planner uses."""
-        from lsafw_tpu_torch.solver.band import rcm_permutation
-
         A = sp.csr_matrix(A)
         n = A.shape[0]
         if perm is None:
@@ -110,20 +107,12 @@ class BCSRPlan:
 
 
 def plan_for_pattern(A) -> BCSRPlan:
-    """Cached plan per pattern identity (small LRU): Newton refills and
-    sigma sweeps share one plan."""
-    key = id(A.pattern)
-    hit = _PLAN_CACHE.get(key)
-    if hit is not None and hit[0] is A.pattern:
-        _PLAN_CACHE[key] = _PLAN_CACHE.pop(key)
-        return hit[1]
+    """The plan of ``A``'s pattern in the band's RCM ordering, cached per
+    pattern beside the band plans: Newton refills and sigma sweeps share
+    one plan."""
     pat = A.pattern
-    csr = sp.csr_matrix((np.ones(pat.nnz), pat.indices.copy(), pat.indptr.copy()), shape=pat.shape)
-    plan = BCSRPlan.build(csr)
-    while len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:
-        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
-    _PLAN_CACHE[key] = (A.pattern, plan)
-    return plan
+    return per_pattern(pat, ("csr",), lambda: BCSRPlan.build(
+        pattern_csr(pat), perm=pattern_permutation(pat)))
 
 
 def _values(plan: BCSRPlan, data: torch.Tensor) -> torch.Tensor:

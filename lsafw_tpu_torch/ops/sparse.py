@@ -73,6 +73,34 @@ class SparsityPattern:
         return hit
 
 
+_PER_PATTERN: dict = {}
+_PER_PATTERN_MAX = 8
+
+
+def per_pattern(pattern: SparsityPattern, key: tuple, build):
+    """``build()`` for one pattern, cached in a small LRU by the pattern's
+    identity and ``key``.  Each entry holds the pattern, so its id is not
+    reused while the entry lives.  The RCM ordering, the real (Newton) and
+    complex (shift-invert) band plans and the permuted-CSR plan of a
+    pattern stay cached side by side."""
+    full = (id(pattern),) + key
+    hit = _PER_PATTERN.get(full)
+    if hit is not None and hit[0] is pattern:
+        _PER_PATTERN[full] = _PER_PATTERN.pop(full)
+        return hit[1]
+    value = build()
+    while len(_PER_PATTERN) >= _PER_PATTERN_MAX:
+        _PER_PATTERN.pop(next(iter(_PER_PATTERN)))
+    _PER_PATTERN[full] = (pattern, value)
+    return value
+
+
+def pattern_csr(pattern: SparsityPattern) -> sp.csr_matrix:
+    """The pattern as a scipy CSR matrix of ones (int8)."""
+    return sp.csr_matrix((np.ones(pattern.nnz, np.int8), pattern.indices.copy(),
+                          pattern.indptr.copy()), shape=pattern.shape)
+
+
 def build_sparsity(
     rows_per_cell: np.ndarray,
     cols_per_cell: np.ndarray | None = None,

@@ -7,8 +7,11 @@ takes CUDA tensors to its kernel and CPU tensors to the plain PyTorch
 version beside it (``*_plain``); a CUDA launch that fails raises, and
 nothing falls back.  ``LAUNCHES`` counts kernel launches:
 
-* ``gather``: G, flat or two-pass (the permutation gathers of the band
-  solves and of the CSR matvecs, and the CSR value refill);
+* ``gather_f32``, ``gather_f64``, ``gather_c128``: G's flat form by
+  element type (f64: the CSR value refill and the real permutation
+  gathers; complex128: the complex permutation gathers; f32 is only the
+  probes' type);
+* ``gather_two_pass``: G's two-pass form (the probe's layout only);
 * ``spmv_real``: S on an f64 x, one matrix (Newton's J x);
 * ``spmv_complex``: S on a complex128 x, one matrix (the shift-invert
   right-hand side M x);
@@ -30,7 +33,8 @@ import torch
 
 from lsafw_tpu_torch.utils.cuda_build import CSRC, compile_library, raise_on, stream
 
-LAUNCHES = {"gather": 0, "spmv_real": 0, "spmv_complex": 0, "spmv_shifted": 0}
+LAUNCHES = {"gather_f32": 0, "gather_f64": 0, "gather_c128": 0, "gather_two_pass": 0,
+            "spmv_real": 0, "spmv_complex": 0, "spmv_shifted": 0}
 
 _SRC = CSRC / "spmv_gather.cu"
 _lib: ctypes.CDLL | None = None
@@ -114,7 +118,7 @@ def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     err = getattr(_load(), _GATHER_FN[x.dtype])(
         x.data_ptr(), idx.data_ptr(), None, y.data_ptr(), idx.numel(), 0, stream())
     raise_on(err, "gather")
-    LAUNCHES["gather"] += 1
+    LAUNCHES[_GATHER_FN[x.dtype]] += 1
     return y
 
 
@@ -133,7 +137,7 @@ def gather_two_pass(x2d: torch.Tensor, rowsel: torch.Tensor, lanesel: torch.Tens
         x2d.data_ptr(), rowsel.data_ptr(), lanesel.data_ptr(), y.data_ptr(), rowsel.numel(), W,
         stream())
     raise_on(err, "gather")
-    LAUNCHES["gather"] += 1
+    LAUNCHES["gather_two_pass"] += 1
     return y
 
 

@@ -50,7 +50,7 @@ import torch
 
 from lsafw_tpu_torch.ops import spmv_cuda
 from lsafw_tpu_torch.ops.native import rcm_native
-from lsafw_tpu_torch.ops.sparse import CSRMatrix
+from lsafw_tpu_torch.ops.sparse import CSRMatrix, SparsityPattern, pattern_csr, per_pattern
 from lsafw_tpu_torch.solver import band_cuda
 from lsafw_tpu_torch.utils.logging import get_logger
 
@@ -204,11 +204,15 @@ class BandPlan:
         )
 
 
-# Plans keyed by id(pattern) with a strong reference to the pattern, in a
-# small LRU: the Newton (real) and shift-invert (complex) plans of one
-# pattern stay cached side by side.
-_PLAN_CACHE: dict = {}
-_PLAN_CACHE_MAX = 4
+def pattern_permutation(pattern: SparsityPattern) -> np.ndarray:
+    """RCM ordering of a pattern (symmetrized), computed once per pattern:
+    the band plans and the permuted CSR of :mod:`lsafw_tpu_torch.ops.bcsr`
+    share it."""
+    def build():
+        pat = pattern_csr(pattern)
+        return rcm_permutation(pat + pat.T)
+
+    return per_pattern(pattern, ("rcm",), build)
 
 
 def band_mem_budget() -> int:
@@ -224,21 +228,10 @@ def plan_for_csr(A: CSRMatrix, *, nb: int = 128, chunk: int = 128,
     nb, chunk, budget, real, force_f32)."""
     if max_bytes is None:
         max_bytes = band_mem_budget()
-    key = (id(A.pattern), nb, chunk, max_bytes, real, force_f32)
-    hit = _PLAN_CACHE.get(key)
-    if hit is not None and hit[0] is A.pattern:
-        _PLAN_CACHE[key] = _PLAN_CACHE.pop(key)
-        return hit[1]
     pat = A.pattern
-    csr = sp.csr_matrix(
-        (np.ones(pat.nnz, np.int8), pat.indices.copy(), pat.indptr.copy()), shape=pat.shape
-    )
-    plan = BandPlan.build(csr, nb=nb, chunk=chunk, max_bytes=max_bytes, real=real,
-                          force_f32=force_f32)
-    while len(_PLAN_CACHE) >= _PLAN_CACHE_MAX:
-        _PLAN_CACHE.pop(next(iter(_PLAN_CACHE)))
-    _PLAN_CACHE[key] = (A.pattern, plan)
-    return plan
+    return per_pattern(pat, ("band", nb, chunk, max_bytes, real, force_f32), lambda: BandPlan.build(
+        pattern_csr(pat), nb=nb, chunk=chunk, perm=pattern_permutation(pat), max_bytes=max_bytes,
+        real=real, force_f32=force_f32))
 
 
 def regularize_saddle_data(dre: torch.Tensor, dim_: torch.Tensor | None, diag_slots,
@@ -306,13 +299,37 @@ def _permute_out(x: torch.Tensor, iperm: torch.Tensor, dtype: torch.dtype) -> to
     return spmv_cuda.gather(x.reshape(-1).to(dtype), iperm)
 
 
-def _solve_real_vector(solve_cols, b: torch.Tensor) -> torch.Tensor:
-    """A real factor on a real or complex vector: a complex vector rides
-    the same band pass as two columns."""
-    if not b.is_complex():
-        return solve_cols(b[:, None])[:, 0]
-    x = solve_cols(torch.stack([b.real, b.imag], dim=1))
-    return torch.complex(x[:, 0], x[:, 1])
+class _PermutedSolve:
+    """The calling contract every factor shares (``banded_solve_raw`` and
+    ``_banded_mr`` take any of them): ``solve(b)``, alias ``solve_vec``,
+    returns x ~= C^-1 b in the original order for an f64 or complex128
+    vector.  b is gathered into the band's order, ``_substitute`` runs on
+    its (nblk, nb, m) blocks in the factor's dtype, and the result is
+    gathered back.  A complex factor takes b as one complex column (a
+    real b gives the real part); a real factor takes a complex b as two
+    real columns in one band pass."""
+
+    def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        cplx = self.band.is_complex()
+        if cplx:
+            cols = [b.to(torch.complex128)]
+        else:
+            cols = [b.real, b.imag] if b.is_complex() else [b]
+        nblk = self.perm.numel() // self.nb
+        bp = torch.stack([_permute_in(c.contiguous(), self.perm, self.n, nblk, self.nb,
+                                      self.band.dtype) for c in cols], dim=2)
+        x = self._substitute(bp)
+        out = [_permute_out(x[:, :, j], self.iperm, torch.complex128 if cplx else torch.float64)
+               for j in range(len(cols))]
+        if cplx:
+            return out[0] if b.is_complex() else out[0].real.contiguous()
+        return torch.complex(out[0], out[1]) if b.is_complex() else out[0]
+
+    def solve_vec(self, b: torch.Tensor) -> torch.Tensor:
+        return self.solve(b)
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +364,7 @@ def factor_band(band: torch.Tensor, nblk_pad: int, *, delta: float = 0.0) -> tor
 
 
 @dataclass(eq=False)
-class BandedLU:
+class BandedLU(_PermutedSolve):
     """Factored pivot-free complex band on a device; :meth:`solve`
     applies C^-1 through the K1/K2 substitution kernels."""
 
@@ -371,15 +388,8 @@ class BandedLU:
         ix = plan.on(band.device)
         return cls(band, dinv, ix["perm_pad"], ix["iperm"], plan.n, plan.nb, plan.B)
 
-    def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """x ~= C^-1 b for an f64 or complex128 vector (original order; a
-        real b gives the real part)."""
-        nblk = self.dinv.shape[0]
-        bp = _permute_in(b.to(torch.complex128), self.perm, self.n, nblk, self.nb,
-                         torch.complex64)
-        x = _permute_out(band_cuda.solve_banded(self.band, self.dinv, bp), self.iperm,
-                         torch.complex128)
-        return x if b.is_complex() else x.real.contiguous()
+    def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
+        return band_cuda.solve_banded(self.band, self.dinv, bp[:, :, 0])[:, :, None]
 
 
 def _solve_banded_real(band: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -402,7 +412,7 @@ def _solve_banded_real(band: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor) 
 
 
 @dataclass(eq=False)
-class RealBandedLU:
+class RealBandedLU(_PermutedSolve):
     """Pivot-free factor of a real operator: one f32 band (half the memory
     of the complex band); the substitution is :func:`_solve_banded_real`."""
 
@@ -424,19 +434,8 @@ class RealBandedLU:
         ix = plan.on(band.device)
         return cls(band, dinv, ix["perm_pad"], ix["iperm"], plan.n, plan.nb, plan.B)
 
-    def _solve_cols(self, b: torch.Tensor) -> torch.Tensor:
-        nblk = self.dinv.shape[0]
-        cols = [_permute_in(b[:, j].contiguous(), self.perm, self.n, nblk, self.nb, torch.float32)
-                for j in range(b.shape[1])]
-        x = _solve_banded_real(self.band, self.dinv, torch.stack(cols, dim=2))
-        return torch.stack([_permute_out(x[:, :, j], self.iperm, torch.float64)
-                            for j in range(b.shape[1])], dim=1)
-
-    def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """x ~= A^-1 b for an f64 or complex128 vector (original order)."""
-        return _solve_real_vector(self._solve_cols, b)
-
-    solve_vec = solve
+    def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
+        return _solve_banded_real(self.band, self.dinv, bp)
 
 
 # ---------------------------------------------------------------------------
@@ -553,7 +552,7 @@ def _solve_pivoted_real(band, L2, L1inv, Uinv, perms, b: torch.Tensor) -> torch.
 
 
 @dataclass(eq=False)
-class PivotedBandedLU:
+class PivotedBandedLU(_PermutedSolve):
     """Panel-pivoted complex band factor (the robust device direct
     solver, :func:`factor_auto`'s default): no saddle regularization, so
     its contraction is that of an f32 LU."""
@@ -583,19 +582,12 @@ class PivotedBandedLU:
         return cls(band, L2, L1inv, Uinv, perms, ix["perm_pad"], ix["iperm"],
                    plan.n, plan.nb, plan.B)
 
-    def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """x ~= C^-1 b for an f64 or complex128 vector (original order; a
-        real b gives the real part)."""
-        nblk = self.L1inv.shape[0]
-        bp = _permute_in(b.to(torch.complex128), self.perm, self.n, nblk, self.nb,
-                         torch.complex64)
-        x = _solve_pivoted(self.band, self.L2, self.L1inv, self.Uinv, self.perms, bp)
-        x = _permute_out(x, self.iperm, torch.complex128)
-        return x if b.is_complex() else x.real.contiguous()
+    def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
+        return _solve_pivoted_cols(self.band, self.L2, self.L1inv, self.Uinv, self.perms, bp)
 
 
 @dataclass(eq=False)
-class RealPivotedBandedLU:
+class RealPivotedBandedLU(_PermutedSolve):
     """Real panel-pivoted factor (Newton Jacobians, Stokes): f32 band,
     half the memory of the complex one."""
 
@@ -623,20 +615,8 @@ class RealPivotedBandedLU:
         return cls(band, L2, L1inv, Uinv, perms, ix["perm_pad"], ix["iperm"],
                    plan.n, plan.nb, plan.B)
 
-    def _solve_cols(self, b: torch.Tensor) -> torch.Tensor:
-        nblk = self.L1inv.shape[0]
-        cols = [_permute_in(b[:, j].contiguous(), self.perm, self.n, nblk, self.nb, torch.float32)
-                for j in range(b.shape[1])]
-        x = _solve_pivoted_real(self.band, self.L2, self.L1inv, self.Uinv, self.perms,
-                                torch.stack(cols, dim=2))
-        return torch.stack([_permute_out(x[:, :, j], self.iperm, torch.float64)
-                            for j in range(b.shape[1])], dim=1)
-
-    def solve(self, b: torch.Tensor) -> torch.Tensor:
-        """x ~= A^-1 b for an f64 or complex128 vector (original order)."""
-        return _solve_real_vector(self._solve_cols, b)
-
-    solve_vec = solve
+    def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
+        return _solve_pivoted_real(self.band, self.L2, self.L1inv, self.Uinv, self.perms, bp)
 
 
 def pivoted_extra_bytes(plan: BandPlan) -> int:

@@ -22,7 +22,7 @@ from lsafw_tpu_torch.solver import band as tband
 from lsafw_tpu_torch.solver import band_cuda
 from lsafw_tpu_torch.solver.direct import direct_solve
 from lsafw_tpu_torch.solver.eigen import BandedSIOp, banded_solve_raw
-from tests.test_torch_fem import RE, cylinder_case
+from tests.test_torch_fem import RE, cylinder_case, one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 

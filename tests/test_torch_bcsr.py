@@ -21,8 +21,9 @@ from lsafw_tpu.ops.sparse import CSRMatrix as JCSRMatrix
 from lsafw_tpu_torch import interop
 from lsafw_tpu_torch.ops import bcsr, spmv_cuda
 from lsafw_tpu_torch.ops.sparse import CSRMatrix
-from lsafw_tpu_torch.solver.band import rcm_permutation
+from lsafw_tpu_torch.solver.band import plan_for_csr, rcm_permutation
 from lsafw_tpu_torch.solver.eigen import BandedSIOp, _si_apply_M
+from tests.test_torch_fem import one_blas_thread  # noqa: F401
 from tests.unit.test_bcsr import fem_like_matrix
 
 torch.set_num_threads(1)
@@ -84,9 +85,13 @@ def test_bcsr_permuted_space_roundtrip():
 
 
 def test_bcsr_shares_band_rcm():
+    """One RCM pass per pattern serves the band plans and the CSR plan."""
     A = fem_like_matrix(400, seed=6)
-    plan = bcsr.plan_for_pattern(_csr(A))
+    Am = _csr(A)
+    plan = bcsr.plan_for_pattern(Am)
     np.testing.assert_array_equal(plan.perm, rcm_permutation(A))
+    assert plan_for_csr(Am, chunk=16).perm is plan.perm
+    assert plan_for_csr(Am, chunk=16, real=True).perm is plan.perm
 
 
 def test_bcsr_shifted_op():

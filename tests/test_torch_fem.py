@@ -12,12 +12,23 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
+from threadpoolctl import threadpool_limits
 
 from lsafw_tpu_torch import interop
 from lsafw_tpu_torch.fem.spaces import define_spaces
 from lsafw_tpu_torch.ops.sparse import spmv
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_blas_thread():
+    """One BLAS thread while a port test module runs (each port test
+    module imports this fixture).  The tests share the machine with other
+    pytest workers, and OpenBLAS's idle worker threads busy-wait between
+    the small dense products these tests make."""
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
 
 RE = 47.0
 X0, X1, Y0, Y1 = -5.0, 15.0, -5.0, 5.0

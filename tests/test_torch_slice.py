@@ -26,7 +26,7 @@ from lsafw_tpu_torch.solver import baseflow as tbaseflow
 from lsafw_tpu_torch.solver import eigen as teigen
 from lsafw_tpu_torch.solver import newton as tnewton
 from lsafw_tpu_torch.solver.band import PivotedBandedLU
-from tests.test_torch_fem import RE, cylinder_case
+from tests.test_torch_fem import RE, cylinder_case, one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
 
