@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py    # needs one CUDA card
+    python3 chip_smoke.py            # needs one CUDA card
+    python3 chip_smoke.py --kernels  # phases 1 and 2 only, no result lines
 
 Phases, one or more lines each (a failure raises and the exit code is
 non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the kernel build:
      ``csrc/band_subst.cu`` and ``csrc/spmv_gather.cu``, one nvcc each,
      started together;
-  2. kernels against their plain PyTorch versions on the card: the band
-     substitution K1/K2 on a random band at the 43k cylinder shapes
-     (B = 7, nb = 128, rows_total = 391; scaled by 2e-3 so the recursion
-     stays bounded), relative error <= 1e-5; the gather G against
+  2. kernels against their plain PyTorch versions on the card, relative
+     error <= 1e-5: the band substitution K1/K2 in both modes and every
+     type (complex64; float32 with one and two columns) on random factors
+     at the 43k cylinder shapes (B = 7, nb = 128, 384 block rows) and at
+     the 167k mesh's B = 26 with 32 block rows: pivot-free on a random
+     band scaled by 2e-3, pivoted on a random band that needs pivoting
+     within and across block rows, factored on the card by the port's
+     ``_pfactor`` (each pair is timed once); the gather G against
      ``x[idx]`` at the probes' shapes (``run_a``: x 2^17 f32, idx
      (1024, 16); ``pallas_two_pass``: x (4096, 128) f32, 2^18 x 128
      lane-unique indices), exact;
@@ -21,26 +26,34 @@ non-zero):
      inner solve (real pivoted band factors, GCR refinement whose
      matvecs run through S), eigensystem, and the shift-invert
      Krylov-Schur at 0.74j on the default pivoted complex factor with the
-     fused (A, M) refinement matvecs (S).  Host LU is patched to raise.
-     Launch counts are zeroed just before and read after each stage: the
-     leading eigenvalue must be within 1e-4 of +0.0050+0.7526j with
-     residual <= 1e-8, and S and G must launch in the baseflow and in the
-     eigen stage;
+     fused (A, M) refinement matvecs (S).  Host LU and the torch
+     substitution loops are patched to raise (the loops on a CUDA
+     tensor).  Launch counts are zeroed just before and read after each
+     stage: the leading eigenvalue must be within 1e-4 of +0.0050+0.7526j
+     and within 5e-7 of the card's recorded +0.004991+0.752636j, with
+     residual <= 1e-8; S and G must launch in the baseflow and in the
+     eigen stage, and K1/K2 once per band solve, pivoted f32 with one
+     column in the baseflow and pivoted complex64 in the eigen stage;
   3b. the pivot-free path on the same (A, M): ``LSAFW_PIVOT_MEM_GB=0``
-     takes the pivot-free factor, whose substitution runs through K1/K2 (counts
-     zeroed just before, read after): the same sigma and residual gates,
-     K1/K2 launched, and the card's factor contracting within 3x of the
-     same factor built in f32 on the host CPU;
+     takes the pivot-free factor, whose substitution runs through K1/K2
+     pivot-free (counts zeroed just before, read after): sigma within
+     1e-8 of phase 3's, the residual gate, K1/K2 once per band solve, and
+     the card's factor contracting within 3x of the same factor built in
+     f32 on the host CPU;
   4. S against its plain version on the slice's (A, M) at sigma = 0.74j
      in each mode (relative error <= 1e-12); G against ``x[idx]`` on the
      main path's own inputs, exact: the f64 CSR value refill (nnz
-     indices) and the complex128 band permutations in and out; K1/K2
-     against theirs on the slice's pivot-free factor; and the times
-     (median of CUDA-event timings; G and S with the L2 cache evicted
-     before each call, as the main path's band solves leave it) of K1,
-     K2, G (each type and form, with its own launch count) and S beside
-     their plain versions, bounds and library calls; the pivoted factor
-     and one pivoted substitution (torch ops) are timed too.
+     indices) and the complex128 band permutations in and out; K1/K2 in
+     each mode and type against their plain versions on the main path's
+     own factors (the eigen stage's pivoted factor, phase 3b's pivot-free
+     one, and a real pivoted and pivot-free factor on the baseflow's
+     plan), and the times (medians of CUDA-event timings: K1/K2 one call
+     at a time, each band being larger than L2; G and S with the L2 cache
+     evicted before each call, as the main path's band solves leave it)
+     of every kernel beside its plain version, bound and library call;
+     one pivoted solve against the torch loops, K1/K2 in clusters of 8
+     against 16, the panel LU backends, and the card's busy share of one
+     pivoted shift-invert apply under ``torch.profiler``.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -55,15 +68,20 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
+from types import SimpleNamespace
 
 import numpy as np
 
 SIGMA_REF = 0.0050 + 0.7526j  # reduced cylinder at Re = 47, recorded to 4 digits
+SIGMA_CARD = 0.004991 + 0.752636j  # the port's sigma on the H100, as printed to 6 digits
 TARGET = 0.74j
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FP64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 REL_TOL = 1e-5
+DEVICE = "cuda"
+PHASE2_SHAPES = ((7, 384), (26, 32))  # (B, nblk): the 43k cylinder's, the 167k mesh's B with few rows
 SPMV_REL_TOL = 1e-12
 
 
@@ -191,50 +209,204 @@ def build_all() -> None:
 # ---------------------------------------------------------------------------
 
 
-def check_kernels(band, dinv, b, what: str) -> dict:
-    """K1 and K2 against their plain versions on the same inputs (K2 takes
-    the plain forward result for both)."""
-    import torch
-    from lsafw_tpu_torch.solver import band_cuda
+def kinds(factor) -> tuple[str, ...]:
+    """The right-hand-side types a factor takes: one complex64 column, or
+    one or two float32 columns."""
+    return ("c64",) if factor.band.is_complex() else ("f32x1", "f32x2")
 
-    y_ref = band_cuda.fwd_substitute_plain(band, b)
-    y = band_cuda.fwd_substitute(band, b)
-    x_ref = band_cuda.bwd_substitute_plain(band, dinv, y_ref)
-    x = band_cuda.bwd_substitute(band, dinv, y_ref)
+
+def mode_of(factor) -> str:
+    return "pivoted" if hasattr(factor, "perms") else "pivot_free"
+
+
+def rhs(kind: str, nblk: int, nb: int, device, seed: int):
+    """(nblk, nb) complex64 or (nblk, nb, m) float32 blocks from a seed."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    if kind == "c64":
+        return torch.randn((nblk, nb), dtype=torch.complex64, generator=g, device=device)
+    return torch.randn((nblk, nb, int(kind[-1])), generator=g, device=device)
+
+
+def substitutions(f) -> tuple:
+    """(K1, K1 plain, K2, K2 plain) of a factor in its mode: K1 takes b,
+    K2 takes K1's result."""
+    from lsafw_tpu_torch.solver import band_cuda as bc
+
+    if mode_of(f) == "pivoted":
+        return (lambda b, **kw: bc.fwd_substitute_pivoted(f.L2, f.L1inv, f.perms, b, **kw),
+                lambda b: bc.fwd_substitute_pivoted_plain(f.L2, f.L1inv, f.perms, b),
+                lambda y, **kw: bc.bwd_substitute_pivoted(f.band, f.Uinv, y, **kw),
+                lambda y: bc.bwd_substitute_pivoted_plain(f.band, f.Uinv, y))
+    return (lambda b, **kw: bc.fwd_substitute(f.band, b, **kw),
+            lambda b: bc.fwd_substitute_plain(f.band, b),
+            lambda y, **kw: bc.bwd_substitute(f.band, f.dinv, y, **kw),
+            lambda y: bc.bwd_substitute_plain(f.band, f.dinv, y))
+
+
+def check_kernels(f, b, what: str, tol: float = REL_TOL) -> dict:
+    """K1 and K2 of the factor's mode against their plain versions on the
+    same inputs (K2 takes the plain forward result for both)."""
+    import torch
+
+    fwd, fwd_plain, bwd, bwd_plain = substitutions(f)
+    y_ref = fwd_plain(b)
+    y = fwd(b)
+    x_ref = bwd_plain(y_ref)
+    x = bwd(y_ref)
     torch.cuda.synchronize()
-    out = {"fwd": rel_err(y, y_ref), "bwd": rel_err(x, x_ref)}
+    out = {"K1": rel_err(y, y_ref), "K2": rel_err(x, x_ref)}
     for k, (a, r) in out.items():
-        log(f"  {what}: {k} max abs err {a:.3e}, rel {r:.3e}")
-        if not np.isfinite(r) or r > REL_TOL:
-            raise RuntimeError(f"{what}: {k} kernel disagrees with its plain version (rel {r:.3e})")
+        log(f"  {what}: {k} {mode_of(f)} {kind_name(b)}: max abs err {a:.3e}, rel {r:.3e} "
+            f"(limit {tol:.0e})")
+        if not np.isfinite(r) or r > tol:
+            raise RuntimeError(f"{what}: {k} ({mode_of(f)}, {kind_name(b)}) disagrees with its plain "
+                               f"version (rel {r:.3e})")
     return out
 
 
-def random_band(B: int, nb: int, rows_total: int, nblk: int, device):
+def kind_name(b) -> str:
+    return "c64" if b.is_complex() else f"f32x{b.shape[2]}"
+
+
+def random_band(B: int, nb: int, rows_total: int, nblk: int, device, real: bool = False):
+    """A random factored pivot-free band and Dinv (scaled by 2e-3 so the
+    recursion stays bounded)."""
     import torch
 
     rng = np.random.default_rng(0)
 
-    def c64(shape, scale):
-        z = rng.standard_normal(shape + (2,), dtype=np.float32) * np.float32(scale)
-        return torch.view_as_complex(torch.from_numpy(z)).to(device)
+    def rand(shape, scale):
+        z = rng.standard_normal(shape + (1 if real else 2,), dtype=np.float32) * np.float32(scale)
+        t = torch.from_numpy(z[..., 0] if real else z)
+        return (t if real else torch.view_as_complex(t)).to(device)
 
-    band = c64((rows_total, 2 * B + 1, nb, nb), 2e-3)
-    dinv = c64((nblk, nb, nb), 2e-3) + torch.eye(nb, dtype=torch.complex64, device=device)
-    return band, dinv.contiguous(), c64((nblk, nb), 1.0)
+    eye = torch.eye(nb, dtype=torch.float32 if real else torch.complex64, device=device)
+    return SimpleNamespace(band=rand((rows_total, 2 * B + 1, nb, nb), 2e-3),
+                           dinv=(rand((nblk, nb, nb), 2e-3) + eye).contiguous())
 
 
-def band_bounds(B: int, nb: int, rows_total: int, nblk: int) -> dict:
-    """Least time of K1 and K2 from the bytes they must move (each input
-    read once, each output written once) and their float32 operations."""
-    c = 8  # bytes of one complex64
-    band_part = rows_total * B * nb * nb * c
-    flops = rows_total * B * nb * nb * 8  # one complex multiply-add is 8 flops
-    fwd_bytes = band_part + nblk * nb * c + rows_total * nb * c
-    bwd_bytes = band_part + nblk * nb * nb * c + rows_total * nb * c + nblk * nb * c
-    bwd_flops = flops + nblk * nb * nb * 8
-    return {"fwd": bound(fwd_bytes, flops, FP32_FLOPS_PER_S),
-            "bwd": bound(bwd_bytes, bwd_flops, FP32_FLOPS_PER_S)}
+def random_pivoted(B: int, nb: int, nblk: int, device, real: bool = False):
+    """A random band that needs pivoting, factored on the card by the
+    port's ``_pfactor``.  The matrix is a row permutation of I + 0.005 N
+    (N standard normal, zero in the band's two outermost slots): half the
+    rows of each even block row trade places with rows of the next block
+    row, and the rows inside each diagonal block are shuffled.  So the
+    panel LU pivots within and across block rows, and the factor is well
+    conditioned: f32 solves agree with f64 to about 3e-7 (a CPU run at
+    B = 7, 24 block rows)."""
+    import torch
+    from lsafw_tpu_torch.solver import band as tband
+
+    g = torch.Generator().manual_seed(0)
+    rows_total, R = nblk + B, 2 * B + 1
+
+    def noise():
+        return torch.randn((rows_total, R, nb, nb), generator=g) * 0.005
+
+    band = noise() if real else torch.complex(noise(), noise())
+    band[:, 0] = 0
+    band[:, 2 * B] = 0
+    band[:, B] += torch.eye(nb)
+    band = band.to(device)
+    for K in range(0, nblk - 1, 2):
+        a, a2 = (torch.randperm(nb, generator=g)[:nb // 2].to(device) for _ in range(2))
+        row_a, row_b = band[K, :, a].clone(), band[K + 1, :, a2].clone()
+        band[K, :, a] = torch.cat([torch.zeros_like(row_b[:1]), row_b[:-1]])  # one slot right
+        band[K + 1, :, a2] = torch.cat([row_a[1:], torch.zeros_like(row_a[:1])])  # one slot left
+    for K in range(nblk):
+        band[K] = band[K][:, torch.randperm(nb, generator=g).to(device)]
+    L2, L1inv, Uinv, perms = tband._pfactor(band, nblk, 0.0)
+    return SimpleNamespace(band=band, L2=L2, L1inv=L1inv, Uinv=Uinv, perms=perms)
+
+
+def subst_bounds(f, kind: str) -> dict:
+    """Least time of K1 and K2 of a factor in its mode from the bytes they
+    must move (each factor input read once, right-hand side and result
+    once each) and their float32 operations (a complex multiply-add is 8
+    flops, a real one 2 per column)."""
+    e = f.band.element_size()
+    v = 8 if kind == "c64" else 4 * int(kind[-1])
+    per_entry = 8 if kind == "c64" else 2 * int(kind[-1])
+    nb = f.band.shape[-1]
+    B = (f.band.shape[1] - 1) // 2
+    if mode_of(f) == "pivoted":
+        nblk = f.L1inv.shape[0]
+        fwd_entries = nblk * (B + 1) * nb * nb  # L2 and L1inv
+        fwd_bytes = fwd_entries * e + f.perms.numel() * 8 + 2 * nblk * nb * v
+        bwd_entries = nblk * (2 * B + 1) * nb * nb  # 2B U slots and Uinv
+        bwd_bytes = bwd_entries * e + 2 * nblk * nb * v
+    else:
+        rows_total, nblk = f.band.shape[0], f.dinv.shape[0]
+        fwd_entries = rows_total * B * nb * nb
+        fwd_bytes = fwd_entries * e + (nblk + rows_total) * nb * v
+        bwd_entries = fwd_entries + nblk * nb * nb
+        bwd_bytes = bwd_entries * e + (rows_total + nblk) * nb * v
+    return {"K1": bound(fwd_bytes, fwd_entries * per_entry, FP32_FLOPS_PER_S),
+            "K2": bound(bwd_bytes, bwd_entries * per_entry, FP32_FLOPS_PER_S)}
+
+
+PLAIN_LOOPS = ("fwd_substitute_plain", "bwd_substitute_plain", "fwd_substitute_pivoted_plain",
+               "bwd_substitute_pivoted_plain")
+
+
+@contextmanager
+def plain_loops_forbidden():
+    """While the block runs, the torch substitution loops raise on a CUDA
+    tensor: the card path must run the kernels.  (The host-f32 factor of
+    phase 3b takes them on CPU tensors.)"""
+    from lsafw_tpu_torch.solver import band_cuda as bc
+
+    saved = {name: getattr(bc, name) for name in PLAIN_LOOPS}
+
+    def guard(name, plain):
+        def no_loop_on_card(*args):
+            if any(getattr(a, "is_cuda", False) for a in args):
+                raise RuntimeError(f"band_cuda.{name} ran on a CUDA tensor")
+            return plain(*args)
+
+        return no_loop_on_card
+
+    for name, plain in saved.items():
+        setattr(bc, name, guard(name, plain))
+    try:
+        yield
+    finally:
+        for name, plain in saved.items():
+            setattr(bc, name, plain)
+
+
+@contextmanager
+def band_solves():
+    """Count band solves (``solve`` of any band factor) per factor class
+    while the block runs."""
+    from lsafw_tpu_torch.solver import band as tband
+
+    seen: dict = {}
+    solve = tband._PermutedSolve.solve
+
+    def counted(self, b):
+        seen[type(self).__name__] = seen.get(type(self).__name__, 0) + 1
+        return solve(self, b)
+
+    tband._PermutedSolve.solve = counted
+    try:
+        yield seen
+    finally:
+        tband._PermutedSolve.solve = solve
+
+
+def gate_band_launches(what: str, launches: dict, key: str, solves: int) -> None:
+    """K1 and K2 in one mode and type launched once per band solve, and no
+    other band substitution launched."""
+    from lsafw_tpu_torch.solver import band_cuda as bc
+
+    k1, k2 = launches[f"K1.{key}"], launches[f"K2.{key}"]
+    others = {k: launches[k] for k in bc.LAUNCHES if key not in k and launches[k]}
+    if not (k1 == k2 == solves > 0) or others:
+        raise RuntimeError(f"{what}: K1/K2 {key} launched {k1}/{k2} times for {solves} band "
+                           f"solves (other band launches {others})")
 
 
 # ---------------------------------------------------------------------------
@@ -428,6 +600,8 @@ def leading_pair(A, M):
 def gate_sigma(what: str, sigma: complex, resid: float) -> None:
     if abs(sigma - SIGMA_REF) > 1e-4:
         raise RuntimeError(f"{what}: sigma {sigma} is not within 1e-4 of {SIGMA_REF}")
+    if abs(sigma - SIGMA_CARD) > 5e-7:
+        raise RuntimeError(f"{what}: sigma {sigma} is not within 5e-7 of {SIGMA_CARD}")
     if not resid <= 1e-8:
         raise RuntimeError(f"{what}: eigen residual {resid:.2e} > 1e-8")
 
@@ -436,13 +610,15 @@ def main_path(case) -> dict:
     """Phase 3: banded baseflow, eigensystem, pivoted shift-invert."""
     import torch
     from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.solver import band_cuda
     from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
 
     reset_counts()
     t0 = time.time()
-    solver = BaseFlowSolver(case["ctx"], case["mesh"], case["bcs_base"], re=47.0)
-    w = solver.solve(ramp=True, steps=3, tol=1e-8, max_it=40, linear_solver="banded")
-    torch.cuda.synchronize()
+    with band_solves() as base_solves:
+        solver = BaseFlowSolver(case["ctx"], case["mesh"], case["bcs_base"], re=47.0)
+        w = solver.solve(ramp=True, steps=3, tol=1e-8, max_it=40, linear_solver="banded")
+        torch.cuda.synchronize()
     t_base = time.time() - t0
     base_counts = counts()
     t0 = time.time()
@@ -451,7 +627,8 @@ def main_path(case) -> dict:
     torch.cuda.synchronize()
     t_asm = time.time() - t0
     reset_counts()
-    sigma, resid, op, t_eig = leading_pair(A, M)
+    with band_solves() as eig_solves:
+        sigma, resid, op, t_eig = leading_pair(A, M)
     eig_counts = counts()
     st = solver.stats
     log(f"phase 3: {case['spaces'].num_dofs} DOFs; stages mesh {case['seconds']:.2f} s, "
@@ -461,11 +638,19 @@ def main_path(case) -> dict:
         f"{op.factor_seconds:.2f} s)")
     log(f"phase 3: Newton iterations {[r.iterations for r in solver.newton_results]}, "
         f"GCR iterations {st['gcr_its']}, real pivoted factors {st['pivoted']}/{st['factors']}")
-    log(f"phase 3: sigma = {sigma.real:+.6f}{sigma.imag:+.6f}j, residual {resid:.2e}; "
+    log(f"phase 3: sigma = {sigma.real:+.12f}{sigma.imag:+.12f}j, residual {resid:.2e}; "
         f"pivoted factor {op.pivoted}, contraction {op.rho:.2e}, refinement cap "
         f"{op.refine_its}, {op.applies} shift-invert applies")
+    log(f"phase 3: band solves in baseflow {base_solves}, in eigen {eig_solves}; K1/K2 ran in "
+        f"clusters of {band_cuda.last_cluster()} blocks")
     log(f"phase 3: launches in baseflow {base_counts}; in eigen {eig_counts}")
     gate_sigma("phase 3", sigma, resid)
+    gate_band_launches("phase 3 baseflow", base_counts, "pivoted.f32x1",
+                       base_solves.get("RealPivotedBandedLU", 0))
+    if base_solves.get("RealPivotedBandedLU", 0) != st["solves"]:
+        raise RuntimeError(f"baseflow band solves {base_solves} against its count {st['solves']}")
+    gate_band_launches("phase 3 eigen", eig_counts, "pivoted.c64",
+                       eig_solves.get("PivotedBandedLU", 0))
     if not op.pivoted or op.device_op.Cop is None:
         raise RuntimeError("phase 3 did not take the pivoted factor with the fused matvecs")
     if st["pivoted"] != st["factors"] or st["factors"] == 0:
@@ -495,20 +680,24 @@ def host_contraction(op) -> float:
     return ShiftInvertOperator(cpu(op.A), cpu(op.M), op.sigma).rho
 
 
-def pivot_free_path(A, M) -> dict:
+def pivot_free_path(A, M, sigma_main: complex) -> dict:
     """Phase 3b: the pivot-free factor, its substitution through K1/K2."""
     os.environ["LSAFW_PIVOT_MEM_GB"] = "0"
     try:
         reset_counts()
-        sigma, resid, op, t_eig = leading_pair(A, M)
+        with band_solves() as solves, plain_loops_forbidden():
+            sigma, resid, op, t_eig = leading_pair(A, M)
         launches = counts()
-        log(f"phase 3b: pivot-free: sigma = {sigma.real:+.6f}{sigma.imag:+.6f}j, residual "
+        log(f"phase 3b: pivot-free: sigma = {sigma.real:+.12f}{sigma.imag:+.12f}j, residual "
             f"{resid:.2e}, eigen {t_eig:.2f} s (factor {op.factor_seconds:.2f} s), contraction "
-            f"{op.rho:.2e}, {op.applies} applies; launches {launches}")
+            f"{op.rho:.2e}, {op.applies} applies, band solves {solves}; launches {launches}")
         gate_sigma("phase 3b", sigma, resid)
-        if op.pivoted or min(launches["fwd"], launches["bwd"]) <= 0:
-            raise RuntimeError(
-                f"phase 3b did not run the pivot-free factor through K1/K2: {launches}")
+        if abs(sigma - sigma_main) > 1e-8:
+            raise RuntimeError(f"phase 3b: sigma {sigma} is not within 1e-8 of phase 3's "
+                               f"{sigma_main}")
+        if op.pivoted:
+            raise RuntimeError("phase 3b did not take the pivot-free factor")
+        gate_band_launches("phase 3b", launches, "pivot_free.c64", solves.get("BandedLU", 0))
         t0 = time.time()
         rho_host = host_contraction(op)
     finally:
@@ -579,6 +768,82 @@ def check_spmv(modes: dict) -> dict:
     return out
 
 
+def main_path_factors(mp: dict, pf: dict) -> list:
+    """The band factors of the main path's operators, one per mode and
+    type: the eigen stage's pivoted complex factor (phase 3), phase 3b's
+    pivot-free complex factor, and a real pivoted and a real pivot-free
+    factor of A - Re(sigma) M on the baseflow's real plan (the Newton
+    Jacobians' pattern and geometry)."""
+    import torch
+    from lsafw_tpu_torch.solver import band as tband
+
+    A, M, s = mp["A"], mp["M"], mp["op"].sigma
+    dre = A.data - s.real * M.data
+    plan = tband.plan_for_csr(A, real=True)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    real_pivoted = tband.factor_auto(plan, dre)[0]
+    torch.cuda.synchronize()
+    t_factor = time.time() - t0
+    os.environ["LSAFW_PIVOT_MEM_GB"] = "0"
+    try:
+        real_pivot_free = tband.factor_auto(plan, dre, diag_slots=A.pattern.diag_slots)[0]
+    finally:
+        del os.environ["LSAFW_PIVOT_MEM_GB"]
+    log(f"phase 4: {type(real_pivoted).__name__}: factor {t_factor:.3f} s (host clock, "
+        f"synchronised); the eigen stage's complex factor took {mp['op'].factor_seconds:.3f} s")
+    return [mp["op"].device_op.blu, pf["op"].device_op.blu, real_pivoted, real_pivot_free]
+
+
+def band_kernels(mp: dict, pf: dict, errs: dict, device) -> list:
+    """K1/K2 in each mode and type on the main path's own factors: held
+    against their plain versions, then timed one call at a time with CUDA
+    events (each band exceeds the 50 MB L2, so every call is cold) beside
+    the plain loops and the bounds.  Returns the kernels-line entries."""
+    from lsafw_tpu_torch.solver import band_cuda as bc
+
+    launches = {k: mp["launches"][k] + pf["launches"][k] for k in bc.LAUNCHES}
+    names = {"K1": "band_fwd_kernel (K1)", "K2": "band_bwd_kernel (K2)"}
+    out = []
+    for f in main_path_factors(mp, pf):
+        fwd, fwd_plain, bwd, bwd_plain = substitutions(f)
+        md, nb = mode_of(f), f.band.shape[-1]
+        nblk = f.L1inv.shape[0] if md == "pivoted" else f.dinv.shape[0]
+        for seed, kind in enumerate(kinds(f)):
+            b = rhs(kind, nblk, nb, device, 10 + seed)
+            res = check_kernels(f, b, f"phase 4 {type(f).__name__}")
+            for k, (a, _) in res.items():
+                errs[f"{k}.{md}.{kind}"] = max(errs.get(f"{k}.{md}.{kind}", 0.0), a)
+            y = fwd_plain(b)
+            times = {"K1": (cuda_ms(lambda: fwd(b), 20), cuda_ms(lambda: fwd_plain(b), 3)),
+                     "K2": (cuda_ms(lambda: bwd(y), 20), cuda_ms(lambda: bwd_plain(y), 3))}
+            bounds = subst_bounds(f, kind)
+            for k, (ms, plain_ms) in times.items():
+                if md == "pivoted":  # the XLA scans of the reference's pivoted factors
+                    line = "lsafw_tpu/solver/band.py:" + ("1035" if kind == "c64" else "839")
+                else:
+                    line = "lsafw_tpu/solver/band_pallas.py:" + ("92" if k == "K1" else "191")
+                key = f"{k}.{md}.{kind}"
+                out.append(dict(name=f"{names[k]}, {md.replace('_', '-')}, {kind}", route="cuda",
+                                source="lsafw_tpu_torch/csrc/band_subst.cu", replaces=line,
+                                launches=launches[key], max_abs_err=errs[key], ms=ms,
+                                plain_ms=plain_ms, bound_ms=bounds[k][0], bound_by=bounds[k][1],
+                                library_ms=None))
+            if kind in ("c64", "f32x1"):
+                plain_solve = cuda_ms(lambda: bwd_plain(fwd_plain(b)), 3)
+                solve = cuda_ms(lambda: bwd(fwd(b)), 10)
+                log(f"phase 4: one {md} {kind} solve (K1 + K2) {solve:.4f} ms, the torch loops "
+                    f"{plain_solve:.3f} ms: {plain_solve / solve:.1f}x; bound "
+                    f"{bounds['K1'][0] + bounds['K2'][0]:.4f} ms")
+            if md == "pivoted" and kind == "c64":
+                size = bc.last_cluster()
+                c8 = (cuda_ms(lambda: fwd(b, cluster=8), 20), cuda_ms(lambda: bwd(y, cluster=8), 20))
+                log(f"phase 4: pivoted c64 in clusters of 8 blocks: K1 {c8[0]:.4f} ms, K2 "
+                    f"{c8[1]:.4f} ms (in clusters of {size}: {times['K1'][0]:.4f} / "
+                    f"{times['K2'][0]:.4f} ms)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -586,28 +851,48 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     from lsafw_tpu_torch.ops import spmv_cuda as sc
-    from lsafw_tpu_torch.solver import band as tband
     from lsafw_tpu_torch.solver import band_cuda
 
     t_start = time.time()
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     name_power = card()
     log(f"phase 1: card {name_power}; torch {torch.__version__} cuda {torch.version.cuda}")
     build_all()
 
-    B, nb, rows_total, nblk = 7, 128, 391, 384
-    band, dinv, b = random_band(B, nb, rows_total, nblk, dev)
-    errs = check_kernels(band, dinv, b, "phase 2 random band")
-    del band, dinv, b
+    nb = 128
+    errs: dict = {}  # "K1.pivoted.c64", ... -> max abs error over phases 2 and 4
+
+    def note(out: dict, f, kind: str) -> None:
+        for k, (a, _) in out.items():
+            key = f"{k}.{mode_of(f)}.{kind}"
+            errs[key] = max(errs.get(key, 0.0), a)
+
+    for B, nblk in PHASE2_SHAPES:
+        for real in (False, True):
+            for pivoted in (False, True):
+                f = (random_pivoted(B, nb, nblk, dev, real) if pivoted
+                     else random_band(B, nb, nblk + B, nblk, dev, real))
+                for seed, kind in enumerate(kinds(f)):
+                    b = rhs(kind, nblk, nb, dev, seed)
+                    note(check_kernels(f, b, f"phase 2 random B={B} nblk={nblk}"), f, kind)
+                    fwd, _, bwd, _ = substitutions(f)
+                    y = fwd(b)
+                    log(f"  phase 2 random B={B} nblk={nblk}: {mode_of(f)} {kind}: K1 "
+                        f"{cuda_ms(lambda: fwd(b), 5):.4f} ms, K2 {cuda_ms(lambda: bwd(y), 5):.4f} ms")
+                del f
     gi = gather_inputs(dev)
     g_errs = check_gather(gi)
-    log("phase 2: K1/K2 match their plain versions on a random band at B=7 nb=128 rows=391; "
-        "G matches x[idx] at the probes' shapes")
+    log(f"phase 2: K1/K2 match their plain versions in both modes and every type at (B, block "
+        f"rows) {PHASE2_SHAPES}, clusters of {band_cuda.last_cluster()} blocks; G matches x[idx] "
+        f"at the probes' shapes")
+    if "--kernels" in sys.argv[1:]:
+        return 0
 
     forbid_host_lu()
     case = cylinder_case(dev)
-    mp = main_path(case)
-    pf = pivot_free_path(mp["A"], mp["M"])
+    with plain_loops_forbidden():
+        mp = main_path(case)
+    pf = pivot_free_path(mp["A"], mp["M"], mp["sigma"])
 
     # phase 4: agreement and times
     cop = mp["op"].device_op.Cop
@@ -615,33 +900,7 @@ def main() -> int:
     s_errs = check_spmv(modes)
     mg = main_path_gathers(mp["A"], cop, dev)
     mg_errs = check_main_gathers(mg)
-    blu = pf["op"].device_op.blu
-    band, dinv = blu.band, blu.dinv
-    B, nb, rows_total, nblk = blu.B, blu.nb, band.shape[0], dinv.shape[0]
-    rng = np.random.default_rng(1)
-    z = rng.standard_normal((nblk, nb, 2), dtype=np.float32)
-    b = torch.view_as_complex(torch.from_numpy(z)).to(dev)
-    slice_errs = check_kernels(band, dinv, b, "phase 4 slice factor")
-    y = band_cuda.fwd_substitute_plain(band, b)
-    kernels = []
-    src = "lsafw_tpu_torch/csrc/band_subst.cu"
-    bounds = band_bounds(B, nb, rows_total, nblk)
-    for k, name, line, kern, plain in (
-        ("fwd", "band_fwd_kernel (K1)", "lsafw_tpu/solver/band_pallas.py:92",
-         lambda: band_cuda.fwd_substitute(band, b),
-         lambda: band_cuda.fwd_substitute_plain(band, b)),
-        ("bwd", "band_bwd_kernel (K2)", "lsafw_tpu/solver/band_pallas.py:191",
-         lambda: band_cuda.bwd_substitute(band, dinv, y),
-         lambda: band_cuda.bwd_substitute_plain(band, dinv, y)),
-    ):
-        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
-        bound_ms, bound_by = bounds[k]
-        kernels.append(dict(name=name, route="cuda", source=src, replaces=line,
-                            launches=pf["launches"][k],
-                            max_abs_err=max(errs[k][0], slice_errs[k][0]), ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=None))
-    del band, dinv, y
+    kernels = band_kernels(mp, pf, errs, dev)
 
     src = "lsafw_tpu_torch/csrc/spmv_gather.cu"
     run_a, two_pass = "scripts/dev_pallas_gather.py:55", "scripts/dev_pallas_gather2.py:111"
@@ -704,27 +963,9 @@ def main() -> int:
             f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
             f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound, {e['launches']} launches")
 
-    # the pivoted factors and substitutions (torch ops), and the panel LU
-    A, M, s = mp["A"], mp["M"], mp["op"].sigma
-    dre, dim = A.data - s.real * M.data, -s.imag * M.data
-    for real in (True, False):
-        plan = tband.plan_for_csr(A, real=real)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        plu = tband.factor_auto(plan, dre, None if real else dim)[0]
-        torch.cuda.synchronize()
-        t_factor = time.time() - t0
-        m = 1
-        dt = torch.float32 if real else torch.complex64
-        bp = torch.randn((plu.L1inv.shape[0], nb, m), dtype=dt, device=dev)
-        t_subst = cuda_ms(lambda: tband._solve_pivoted_cols(plu.band, plu.L2, plu.L1inv, plu.Uinv,
-                                                            plu.perms, bp), 5)
-        wall, busy = device_busy(lambda: tband._solve_pivoted_cols(
-            plu.band, plu.L2, plu.L1inv, plu.Uinv, plu.perms, bp))
-        log(f"phase 4: {type(plu).__name__}: factor {t_factor:.3f} s (host clock, synchronised); "
-            f"one substitution {t_subst:.3f} ms (torch ops, median of 5), under the profiler "
-            f"{wall:.1f} ms wall with the card busy {busy:.2f} ms")
-        panel = torch.randn(((plu.B + 1) * nb, nb), dtype=dt, device=dev)
+    # the panel LU backends
+    for dt in (torch.float32, torch.complex64):
+        panel = torch.randn(((mp["op"].device_op.blu.B + 1) * nb, nb), dtype=dt, device=dev)
         times = {}
         for lib in ("default", "cusolver"):
             torch.backends.cuda.preferred_linalg_library(lib)
@@ -732,8 +973,7 @@ def main() -> int:
         torch.backends.cuda.preferred_linalg_library("default")
         log(f"phase 4: one {tuple(panel.shape)} {dt} panel LU: PyTorch's default backend "
             f"{times['default']:.3f} ms, cuSOLVER {times['cusolver']:.3f} ms")
-        del plu
-    v = torch.randn(A.shape[0], dtype=torch.complex128, device=dev)
+    v = torch.randn(mp["A"].shape[0], dtype=torch.complex128, device=dev)
     wall, busy = device_busy(lambda: mp["op"].apply(v))
     log(f"phase 4: one pivoted shift-invert apply under the profiler: {wall:.1f} ms wall, the "
         f"card busy {busy:.2f} ms ({100 * busy / wall:.1f}%)")

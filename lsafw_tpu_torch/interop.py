@@ -17,6 +17,8 @@ from lsafw_tpu_torch.solver.band import (
     BandPlan,
     PivotedBandedLU,
     RealPivotedBandedLU,
+    fold_pivot_free,
+    fold_pivoted,
 )
 
 
@@ -54,8 +56,10 @@ def _int(a, dtype, device) -> torch.Tensor:
 
 def banded_lu_from_numpy(band_re, band_im, dinv_r, dinv_i, perm, iperm, n: int, nb: int,
                          B: int, *, device="cuda") -> BandedLU:
-    """A factored (re, im) pair band as the port's complex64 BandedLU."""
-    return BandedLU(_c64(band_re, band_im, device), _c64(dinv_r, dinv_i, device),
+    """A factored (re, im) pair band as the port's complex64 BandedLU, its
+    U blocks folded as the port stores them."""
+    dinv = _c64(dinv_r, dinv_i, device)
+    return BandedLU(fold_pivot_free(_c64(band_re, band_im, device), dinv), dinv,
                     _int(perm, np.int32, device), _int(iperm, np.int32, device),
                     int(n), int(nb), int(B))
 
@@ -64,22 +68,25 @@ def pivoted_lu_from_numpy(band_re, band_im, L2r, L2i, L1inv_r, L1inv_i, Uinv_r, 
                           perm, iperm, n: int, nb: int, B: int, *,
                           device="cuda") -> PivotedBandedLU:
     """The leaves of a panel-pivoted (re, im) pair factor as the port's
-    complex64 PivotedBandedLU."""
+    complex64 PivotedBandedLU, folded as the port stores them."""
+    L1inv, Uinv = _c64(L1inv_r, L1inv_i, device), _c64(Uinv_r, Uinv_i, device)
+    band, L2 = fold_pivoted(_c64(band_re, band_im, device), _c64(L2r, L2i, device), L1inv, Uinv)
     return PivotedBandedLU(
-        _c64(band_re, band_im, device), _c64(L2r, L2i, device), _c64(L1inv_r, L1inv_i, device),
-        _c64(Uinv_r, Uinv_i, device), _int(perms, np.int64, device),
+        band, L2, L1inv, Uinv, _int(perms, np.int64, device),
         _int(perm, np.int32, device), _int(iperm, np.int32, device), int(n), int(nb), int(B))
 
 
 def real_pivoted_lu_from_numpy(band, L2, L1inv, Uinv, perms, perm, iperm, n: int, nb: int,
                                B: int, *, device="cuda") -> RealPivotedBandedLU:
     """The leaves of a real panel-pivoted factor as the port's f32
-    RealPivotedBandedLU."""
+    RealPivotedBandedLU, folded as the port stores them."""
     def f32(a):
         return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
 
+    L1inv, Uinv = f32(L1inv), f32(Uinv)
+    band, L2 = fold_pivoted(f32(band), f32(L2), L1inv, Uinv)
     return RealPivotedBandedLU(
-        f32(band), f32(L2), f32(L1inv), f32(Uinv), _int(perms, np.int64, device),
+        band, L2, L1inv, Uinv, _int(perms, np.int64, device),
         _int(perm, np.int32, device), _int(iperm, np.int32, device), int(n), int(nb), int(B))
 
 

@@ -20,13 +20,18 @@ Design:
     pivot-free elimination in place in the band, with saddle
     regularization of the zero pressure diagonals.  LU of a banded
     matrix without cross-block pivoting fills only inside the band.
+  * Stored folded (:func:`fold_pivoted`, :func:`fold_pivot_free`): each
+    off-diagonal U block is kept premultiplied by its row's diagonal
+    inverse (U^-1 U_j, D^-1 U_j) and each L2 panel postmultiplied by
+    L1^-1, so that a substitution step is one product per block on the
+    solution's critical path (``band_cuda``'s head comment).
   * Every factor is f32/complex64: it preconditions an f64 iterative
-    refinement (mixed-precision direct-iterative solve).  The pivot-free
-    complex substitution runs through the CUDA kernels K1/K2 of
-    :mod:`lsafw_tpu_torch.solver.band_cuda`; the pivoted and real
-    substitutions are loops of torch ops over block rows.  Vectors enter
-    and leave the band's order through the G gather of
-    :mod:`lsafw_tpu_torch.ops.spmv_cuda`.
+    refinement (mixed-precision direct-iterative solve).  Every factor's
+    substitution runs through the CUDA kernels K1/K2 of
+    :mod:`lsafw_tpu_torch.solver.band_cuda` (pivot-free or pivoted mode,
+    complex64 or float32) on the card, and through their plain torch
+    loops on the CPU.  Vectors enter and leave the band's order through
+    the G gather of :mod:`lsafw_tpu_torch.ops.spmv_cuda`.
 
 Pivot rule: the panel LU is ``torch.linalg.lu_factor_ex`` (LAPACK on the
 host, cuSOLVER on the card).  For complex panels LAPACK and cuSOLVER
@@ -304,10 +309,11 @@ class _PermutedSolve:
     ``_banded_mr`` take any of them): ``solve(b)``, alias ``solve_vec``,
     returns x ~= C^-1 b in the original order for an f64 or complex128
     vector.  b is gathered into the band's order, ``_substitute`` runs on
-    its (nblk, nb, m) blocks in the factor's dtype, and the result is
-    gathered back.  A complex factor takes b as one complex column (a
-    real b gives the real part); a real factor takes a complex b as two
-    real columns in one band pass."""
+    its blocks in the factor's dtype ((nblk, nb) complex64, or
+    (nblk, nb, m) float32), and the result is gathered back.  A complex
+    factor takes b as one complex column (a real b gives the real part);
+    a real factor takes a complex b as two real columns in one band
+    pass."""
 
     def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
@@ -321,7 +327,9 @@ class _PermutedSolve:
         nblk = self.perm.numel() // self.nb
         bp = torch.stack([_permute_in(c.contiguous(), self.perm, self.n, nblk, self.nb,
                                       self.band.dtype) for c in cols], dim=2)
-        x = self._substitute(bp)
+        x = self._substitute(bp[:, :, 0] if cplx else bp)
+        if cplx:
+            x = x[:, :, None]
         out = [_permute_out(x[:, :, j], self.iperm, torch.complex128 if cplx else torch.float64)
                for j in range(len(cols))]
         if cplx:
@@ -338,9 +346,10 @@ class _PermutedSolve:
 
 
 def factor_band(band: torch.Tensor, nblk_pad: int, *, delta: float = 0.0) -> torch.Tensor:
-    """Pivot-free blocked LU of a filled band (complex or real), in place;
-    returns the (nblk_pad, nb, nb) inverse diagonal blocks.  ``delta`` is
-    a ridge relative to the mean |Re| of each diagonal block's diagonal."""
+    """Pivot-free blocked LU of a filled band (complex or real), in place,
+    its U blocks stored folded (:func:`fold_pivot_free`); returns the
+    (nblk_pad, nb, nb) inverse diagonal blocks.  ``delta`` is a ridge
+    relative to the mean |Re| of each diagonal block's diagonal."""
     B = (band.shape[1] - 1) // 2
     nb = band.shape[2]
     dev = band.device
@@ -360,7 +369,33 @@ def factor_band(band: torch.Tensor, nblk_pad: int, *, delta: float = 0.0) -> tor
         r = rows + K
         band[r, slots] = band[r, slots] - L[:, None] @ U[None, :]
         band[K + i, B - i] = L
+        band[K, B + 1:] = X @ U  # folded: D^-1 U
     return dinv
+
+
+def fold_pivot_free(band: torch.Tensor, dinv: torch.Tensor) -> torch.Tensor:
+    """A pivot-free factor's band in the stored (folded) layout: the U
+    blocks of each row K < nblk premultiplied by Dinv_K, so that
+    x_K = Dinv_K y_K - sum_t (Dinv_K U_Kt) x_{K+1+t}.  ``factor_band``
+    folds as it goes; this carries an unfolded band across (a copy)."""
+    B, nblk = (band.shape[1] - 1) // 2, dinv.shape[0]
+    out = band.clone()
+    out[:nblk, B + 1:] = dinv[:, None] @ band[:nblk, B + 1:]
+    return out
+
+
+def fold_pivoted(band: torch.Tensor, L2: torch.Tensor, L1inv: torch.Tensor,
+                 Uinv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A pivoted factor's (band, L2) in the stored (folded) layout: the 2B
+    U blocks of each row K < nblk premultiplied by Uinv_K, and L2_K
+    postmultiplied by L1inv_K, so that the forward window update is
+    f[nb:] - (L2 L1^-1) f[:nb] and x_K = Uinv_K y_K - sum_j (Uinv_K U_Kj)
+    x_{K+j}.  ``_pfactor`` folds as it goes; this carries unfolded
+    factors across (copies)."""
+    nblk = L2.shape[0]
+    out = band.clone()
+    out[:nblk, 1:] = Uinv[:, None] @ band[:nblk, 1:]
+    return out, L2 @ L1inv[:, None]
 
 
 @dataclass(eq=False)
@@ -368,7 +403,7 @@ class BandedLU(_PermutedSolve):
     """Factored pivot-free complex band on a device; :meth:`solve`
     applies C^-1 through the K1/K2 substitution kernels."""
 
-    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) complex64, factored
+    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) complex64, factored (U folded)
     dinv: torch.Tensor  # (nblk_pad, nb, nb) complex64
     perm: torch.Tensor  # (nblk_pad * nb,) int32: padded permuted index -> original
     iperm: torch.Tensor  # (n,) int32: original -> permuted position
@@ -389,34 +424,15 @@ class BandedLU(_PermutedSolve):
         return cls(band, dinv, ix["perm_pad"], ix["iperm"], plan.n, plan.nb, plan.B)
 
     def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
-        return band_cuda.solve_banded(self.band, self.dinv, bp[:, :, 0])[:, :, None]
-
-
-def _solve_banded_real(band: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Real forward + backward substitution through a pivot-free factor;
-    ``b`` is (nblk, nb, m) f32 blocks in the band's order (m columns in
-    one band pass).  The B lookahead rows take a zero right-hand side and
-    Dinv = I."""
-    rows_total, R, nb, _ = band.shape
-    B = (R - 1) // 2
-    nblk, m = b.shape[0], b.shape[2]
-    y = torch.zeros((B + rows_total, nb, m), dtype=b.dtype, device=b.device)  # B zero rows first
-    y[B:B + nblk] = b
-    for k in range(rows_total):
-        y[B + k] -= torch.bmm(band[k, :B], y[k:k + B]).sum(0)
-    x = torch.zeros((rows_total + B, nb, m), dtype=b.dtype, device=b.device)  # B zero rows last
-    for k in range(rows_total - 1, -1, -1):
-        z = y[B + k] - torch.bmm(band[k, B + 1:], x[k + 1:k + 1 + B]).sum(0)
-        x[k] = dinv[k] @ z if k < nblk else z
-    return x[:nblk]
+        return band_cuda.solve_banded(self.band, self.dinv, bp)
 
 
 @dataclass(eq=False)
 class RealBandedLU(_PermutedSolve):
     """Pivot-free factor of a real operator: one f32 band (half the memory
-    of the complex band); the substitution is :func:`_solve_banded_real`."""
+    of the complex band); its substitution runs K1/K2 in float32."""
 
-    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) float32, factored
+    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) float32, factored (U folded)
     dinv: torch.Tensor  # (nblk_pad, nb, nb) float32
     perm: torch.Tensor  # (nblk_pad * nb,) int32
     iperm: torch.Tensor  # (n,) int32
@@ -435,7 +451,7 @@ class RealBandedLU(_PermutedSolve):
         return cls(band, dinv, ix["perm_pad"], ix["iperm"], plan.n, plan.nb, plan.B)
 
     def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
-        return _solve_banded_real(self.band, self.dinv, bp)
+        return band_cuda.solve_banded(self.band, self.dinv, bp)
 
 
 # ---------------------------------------------------------------------------
@@ -469,7 +485,8 @@ def _panel_lu_library(device: torch.device):
 def _pfactor(band: torch.Tensor, nblk_pad: int, delta: float):
     """Panel-pivoted blocked LU of a filled band (complex or real), in
     place: band row K becomes the U row of block row K over block columns
-    K..K+2B.  Returns (L2, L1inv, Uinv, perms).
+    K..K+2B.  Returns (L2, L1inv, Uinv, perms), stored folded: L2 L1^-1
+    and, in band slots 1..2B, U^-1 U_j (:func:`fold_pivoted`).
 
     The window ``W`` holds block rows K..K+B over block columns K..K+2B
     as one ((B+1)·nb, (2B+1)·nb) matrix.  Step K takes the fresh band row
@@ -499,56 +516,18 @@ def _pfactor(band: torch.Tensor, nblk_pad: int, delta: float):
             perm = P.argmax(0)
             perms[K] = perm
             Up = torch.triu(LU[:nb])
-            L2[K] = LU[nb:].view(B, nb, nb)
             L1inv[K] = torch.linalg.solve_triangular(LU[:nb], eye, upper=False, unitriangular=True)
             D = Up + (delta * _ridge_scale(Up)) * eye if delta else Up
             Uinv[K] = torch.linalg.solve_triangular(D, eye, upper=True)
             T = W[:, nb:].index_select(0, perm)
             T0 = L1inv[K] @ T[:nb]
-            Tl = torch.addmm(T[nb:], L2[K].view(B * nb, nb), T0, alpha=-1)
+            Tl = torch.addmm(T[nb:], LU[nb:], T0, alpha=-1)
+            L2[K] = (LU[nb:] @ L1inv[K]).view(B, nb, nb)  # folded: L2 L1^-1
             band[K, 0] = Up
-            band[K, 1:] = T0.view(nb, 2 * B, nb).transpose(0, 1)
+            band[K, 1:] = Uinv[K] @ T0.view(nb, 2 * B, nb).transpose(0, 1)  # folded: U^-1 U_j
             W[:B * nb, :2 * B * nb] = Tl
             W[:B * nb, 2 * B * nb:] = 0
     return L2, L1inv, Uinv, perms
-
-
-def _solve_pivoted_cols(band, L2, L1inv, Uinv, perms, b: torch.Tensor) -> torch.Tensor:
-    """Substitution through the panel-pivoted factors; ``b`` is
-    (nblk, nb, m) blocks in the band's order.
-
-    Forward, per block row K: permute the right-hand side window (rows
-    K..K+B, updated in place in ``work``) by the panel permutation,
-    y_K = L1^-1 f[:nb], and rows K+1..K+B become f[nb:] - L2 y_K.
-    Backward: x_K = U_KK^-1 (y_K - sum_j U_{K,K+j} x_{K+j}), j = 1..2B."""
-    nblk, nb, m = b.shape
-    B = L2.shape[1]
-    work = torch.zeros(((nblk + B + 1) * nb, m), dtype=b.dtype, device=b.device)
-    work[:nblk * nb] = b.reshape(nblk * nb, m)
-    y = torch.empty((nblk, nb, m), dtype=b.dtype, device=b.device)
-    L2m = L2.view(nblk, B * nb, nb)
-    for k in range(nblk):
-        win = work[k * nb:(k + B + 1) * nb]
-        f = win.index_select(0, perms[k])
-        torch.mm(L1inv[k], f[:nb], out=y[k])
-        torch.addmm(f[nb:], L2m[k], y[k], alpha=-1, out=win[nb:])
-    x = torch.zeros(((nblk + 2 * B) * nb, m), dtype=b.dtype, device=b.device)
-    for k in range(nblk - 1, -1, -1):
-        X = x[(k + 1) * nb:(k + 1 + 2 * B) * nb].view(2 * B, nb, m)
-        z = y[k] - torch.bmm(band[k, 1:], X).sum(0)
-        torch.mm(Uinv[k], z, out=x[k * nb:(k + 1) * nb])
-    return x[:nblk * nb].view(nblk, nb, m)
-
-
-def _solve_pivoted(band, L2, L1inv, Uinv, perms, b: torch.Tensor) -> torch.Tensor:
-    """Complex substitution of one (nblk, nb) complex64 right-hand side."""
-    return _solve_pivoted_cols(band, L2, L1inv, Uinv, perms, b[:, :, None])[:, :, 0]
-
-
-def _solve_pivoted_real(band, L2, L1inv, Uinv, perms, b: torch.Tensor) -> torch.Tensor:
-    """Real substitution of (nblk, nb, m) f32 right-hand sides (m columns
-    in one band pass)."""
-    return _solve_pivoted_cols(band, L2, L1inv, Uinv, perms, b)
 
 
 @dataclass(eq=False)
@@ -557,8 +536,8 @@ class PivotedBandedLU(_PermutedSolve):
     solver, :func:`factor_auto`'s default): no saddle regularization, so
     its contraction is that of an f32 LU."""
 
-    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) complex64: U rows (cols K..K+2B)
-    L2: torch.Tensor  # (nblk_pad, B, nb, nb) complex64
+    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) complex64: U_KK, then U^-1 U_Kj
+    L2: torch.Tensor  # (nblk_pad, B, nb, nb) complex64: L2 L1^-1
     L1inv: torch.Tensor  # (nblk_pad, nb, nb) complex64
     Uinv: torch.Tensor  # (nblk_pad, nb, nb) complex64
     perms: torch.Tensor  # (nblk_pad, (B+1)*nb) int64
@@ -583,7 +562,7 @@ class PivotedBandedLU(_PermutedSolve):
                    plan.n, plan.nb, plan.B)
 
     def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
-        return _solve_pivoted_cols(self.band, self.L2, self.L1inv, self.Uinv, self.perms, bp)
+        return band_cuda.solve_pivoted(self.band, self.L2, self.L1inv, self.Uinv, self.perms, bp)
 
 
 @dataclass(eq=False)
@@ -591,8 +570,8 @@ class RealPivotedBandedLU(_PermutedSolve):
     """Real panel-pivoted factor (Newton Jacobians, Stokes): f32 band,
     half the memory of the complex one."""
 
-    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) float32: U rows
-    L2: torch.Tensor  # (nblk_pad, B, nb, nb) float32
+    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) float32: U_KK, then U^-1 U_Kj
+    L2: torch.Tensor  # (nblk_pad, B, nb, nb) float32: L2 L1^-1
     L1inv: torch.Tensor  # (nblk_pad, nb, nb) float32
     Uinv: torch.Tensor  # (nblk_pad, nb, nb) float32
     perms: torch.Tensor  # (nblk_pad, (B+1)*nb) int64
@@ -616,7 +595,7 @@ class RealPivotedBandedLU(_PermutedSolve):
                    plan.n, plan.nb, plan.B)
 
     def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
-        return _solve_pivoted_real(self.band, self.L2, self.L1inv, self.Uinv, self.perms, bp)
+        return band_cuda.solve_pivoted(self.band, self.L2, self.L1inv, self.Uinv, self.perms, bp)
 
 
 def pivoted_extra_bytes(plan: BandPlan) -> int:

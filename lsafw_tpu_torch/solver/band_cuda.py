@@ -1,18 +1,28 @@
-"""Banded block substitution through a pivot-free complex band factor:
-forward (K1) and backward + Dinv (K2), as hand-written CUDA kernels.
+"""Banded block substitution through the band LU factors, as hand-written
+CUDA kernels: forward (K1) and backward with the inverse diagonal (K2),
+each in a pivot-free mode (:class:`~lsafw_tpu_torch.solver.band.BandedLU`,
+``RealBandedLU``) and a pivoted mode (``PivotedBandedLU``,
+``RealPivotedBandedLU``), in complex64 with one right-hand-side column or
+float32 with m = 1 or 2 columns.
 
-``csrc/band_subst.cu`` holds the kernels (their design and bound are
-in its head comment).  It is compiled with ``nvcc`` for ``sm_90a`` on
-first use into ``build/kernels/`` and loaded with ctypes.  Each wrapper
-takes a CUDA tensor to its kernel and a CPU tensor to the plain
-step-by-step recursion beside it (``*_plain``); a CUDA launch that fails
-raises.  ``LAUNCHES`` counts kernel launches.
+``csrc/band_subst.cu`` holds the kernels (their design and bound are in
+its head comment).  It is compiled with ``nvcc`` for ``sm_90a`` on first
+use into ``build/kernels/`` and loaded with ctypes.  Each wrapper takes
+CUDA tensors to its kernel and CPU tensors to the plain step-by-step
+recursion beside it (``*_plain``); a CUDA launch that fails, or CUDA
+tensors the kernels do not take, raise.  ``LAUNCHES`` counts kernel
+launches per kernel, mode and type (``"K1.pivoted.c64"``, ...).
 
-Layout: ``band`` is the factored (rows_total, 2B+1, nb, nb) complex64
-band (L in slots 0..B-1, U in slots B+1..2B), ``dinv`` the
-(nblk, nb, nb) complex64 inverse diagonal blocks, right-hand sides are
-(nblk, nb) complex64 blocks with nblk <= rows_total.  The B lookahead
-rows past nblk take a zero right-hand side and Dinv = I.
+Layouts (the factors' own, folded as :mod:`~lsafw_tpu_torch.solver.band`
+stores them): ``band`` is the (rows_total, 2B+1, nb, nb) band;
+pivot-free, L sits in slots 0..B-1 and Dinv_K U_K,K+1+t in slots
+B+1..2B, and ``dinv`` holds the (nblk, nb, nb) inverse diagonal blocks;
+pivoted, slots 1..2B of block row K hold Uinv_K U_K,K+j, with ``L2``
+(nblk, B, nb, nb) holding L2_K L1inv_K, ``L1inv`` and ``Uinv``
+(nblk, nb, nb) and ``perms`` (nblk, (B+1) nb) int64 beside it.
+Right-hand sides are (nblk, nb) complex64 blocks or (nblk, nb, m)
+float32 blocks.  The pivot-free B lookahead rows past nblk take a zero
+right-hand side and Dinv = I (their U blocks are not folded).
 """
 
 from __future__ import annotations
@@ -24,10 +34,14 @@ import torch
 
 from lsafw_tpu_torch.utils.cuda_build import CSRC, compile_library, raise_on, stream
 
-LAUNCHES = {"fwd": 0, "bwd": 0}
+TYPES = ("c64", "f32x1", "f32x2")
+LAUNCHES = {f"{k}.{mode}.{t}": 0 for k in ("K1", "K2") for mode in ("pivot_free", "pivoted")
+            for t in TYPES}
 
 _SRC = CSRC / "band_subst.cu"
+_NB = 128  # the block size the kernels are built for
 _SMEM_MAX = 232_448  # bytes of shared memory one H100 block may use
+_TILE_MAX = 8 * _NB * _NB // 16  # one tile of factor rows in a cluster of 16 blocks
 _lib: ctypes.CDLL | None = None
 
 
@@ -42,82 +56,197 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.band_fwd.argtypes = [p, p, p, i64, i64, i32, i32, p]
-        lib.band_bwd.argtypes = [p, p, p, p, i64, i64, i32, i32, p]
-        lib.band_fwd.restype = lib.band_bwd.restype = ctypes.c_int
+        lib.band_fwd.argtypes = [i32, p, p, p, i64, i64, i32, i32, p]
+        lib.band_fwd_pivoted.argtypes = [i32, p, p, p, p, p, i64, i32, i32, p]
+        lib.band_bwd.argtypes = [i32, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
+        for f in (lib.band_fwd, lib.band_fwd_pivoted, lib.band_bwd, lib.band_last_cluster):
+            f.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _check(band: torch.Tensor, rhs: torch.Tensor, dinv: torch.Tensor | None = None) -> tuple[int, int]:
-    """Validate shapes/dtypes/devices; return (B, nb)."""
+def last_cluster() -> int:
+    """Blocks in the cluster of the last kernel launch."""
+    return _load().band_last_cluster()
+
+
+# ---------------------------------------------------------------------------
+# Checks
+# ---------------------------------------------------------------------------
+
+
+def _kind(factor: torch.Tensor, v: torch.Tensor, what: str) -> str:
+    """The type of a (factor, right-hand side) pair: ``c64`` for a
+    complex64 factor with (rows, nb) blocks, ``f32x<m>`` for a float32
+    factor with (rows, nb, m) blocks, m in (1, 2)."""
+    if factor.dtype not in (torch.complex64, torch.float32):
+        raise TypeError(f"band substitution takes complex64 or float32 factors, got {factor.dtype}")
+    if v.dtype != factor.dtype:
+        raise TypeError(f"{what} must be {factor.dtype} like the factor, got {v.dtype}")
+    if factor.dtype == torch.complex64:
+        if v.dim() != 2:
+            raise ValueError(f"{what} of a complex factor must be (rows, nb), got {tuple(v.shape)}")
+        return "c64"
+    if v.dim() != 3 or v.shape[2] not in (1, 2):
+        raise ValueError(f"{what} of a real factor must be (rows, nb, m) with m in (1, 2), "
+                         f"got {tuple(v.shape)}")
+    return f"f32x{v.shape[2]}"
+
+
+def _band_geometry(band: torch.Tensor) -> tuple[int, int]:
     if band.dim() != 4 or band.shape[2] != band.shape[3] or band.shape[1] % 2 != 1:
         raise ValueError(f"band must be (rows_total, 2B+1, nb, nb), got {tuple(band.shape)}")
-    B, nb = (band.shape[1] - 1) // 2, band.shape[2]
-    rows_total = band.shape[0]
-    if rhs.dim() != 2 or rhs.shape[1] != nb or rhs.shape[0] > rows_total:
-        raise ValueError(f"right-hand side must be (nblk <= {rows_total}, {nb}), got {tuple(rhs.shape)}")
-    tensors = [band, rhs] + ([dinv] if dinv is not None else [])
-    if dinv is not None and tuple(dinv.shape) != (rhs.shape[0], nb, nb):
-        raise ValueError(f"dinv must be ({rhs.shape[0]}, {nb}, {nb}), got {tuple(dinv.shape)}")
+    return (band.shape[1] - 1) // 2, band.shape[2]
+
+
+def _shape(t: torch.Tensor, shape: tuple, what: str) -> None:
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what} must be {tuple(shape)}, got {tuple(t.shape)}")
+
+
+def _same(factor: torch.Tensor, tensors: list, kind: str, smem_vectors: int) -> None:
+    """One dtype and device for the factor tensors; on the card, what the
+    kernels take: contiguous 16-byte aligned tensors, nb = 128, and carry
+    windows of ``smem_vectors`` right-hand-side entries that leave room for
+    a tile of factor rows in shared memory."""
     for t in tensors:
-        if t.dtype != torch.complex64:
-            raise TypeError(f"band substitution takes complex64 tensors, got {t.dtype}")
-        if t.device != band.device:
+        if t.device != factor.device:
             raise ValueError("band substitution tensors must share one device")
-    if band.is_cuda:
-        for t in tensors:
-            if not t.is_contiguous() or t.data_ptr() % 16:
-                raise ValueError("band substitution tensors must be contiguous and 16-byte aligned")
-        if nb % 2:
-            raise ValueError(f"the CUDA kernels take an even block size, got nb={nb}")
-        if (B + 2) * nb * 8 > _SMEM_MAX:
-            raise ValueError(f"carry window of B={B}, nb={nb} exceeds shared memory")
-    return B, nb
+        if t.is_floating_point() or t.is_complex():
+            if t.dtype != factor.dtype:
+                raise TypeError(f"band substitution factors must share one dtype, got {t.dtype}")
+    if not factor.is_cuda:
+        return
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("band substitution tensors must be contiguous and 16-byte aligned")
+    if factor.shape[-1] != _NB:
+        raise ValueError(f"the CUDA kernels are built for nb = {_NB}, got nb={factor.shape[-1]}")
+    entry = 4 if kind == "f32x1" else 8
+    if smem_vectors * entry + _TILE_MAX > _SMEM_MAX:
+        raise ValueError(f"the carry window ({smem_vectors} entries) exceeds shared memory")
 
 
-def _check_bwd(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor) -> tuple[int, int]:
-    """Validate K2's inputs: y is K1's full (rows_total, nb) output."""
-    if tuple(y.shape) != (band.shape[0], band.shape[-1]):
-        raise ValueError(f"y must be (rows_total, nb) = {(band.shape[0], band.shape[-1])}, "
-                         f"got {tuple(y.shape)}")
-    if band.is_cuda and not y.is_contiguous():
-        raise ValueError("y must be contiguous")
-    return _check(band, y[: dinv.shape[0]], dinv)
+def _check_fwd(band: torch.Tensor, b: torch.Tensor) -> tuple[int, int, str]:
+    """K1 pivot-free: b is (nblk <= rows_total, nb[, m]); returns (B, nb, kind)."""
+    B, nb = _band_geometry(band)
+    kind = _kind(band, b, "right-hand side")
+    if b.shape[1] != nb or b.shape[0] > band.shape[0]:
+        raise ValueError(f"right-hand side must be (nblk <= {band.shape[0]}, {nb}, ...), "
+                         f"got {tuple(b.shape)}")
+    _same(band, [band, b], kind, (B + 1) * nb)
+    return B, nb, kind
+
+
+def _check_bwd(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor, *, pivoted: bool
+               ) -> tuple[int, int, str]:
+    """K2: y is K1's full output, (rows_total, nb[, m]) pivot-free or
+    (nblk, nb[, m]) pivoted; dinv (Uinv pivoted) is (nblk, nb, nb)."""
+    B, nb = _band_geometry(band)
+    kind = _kind(band, y, "y")
+    nblk = dinv.shape[0]
+    rows = nblk if pivoted else band.shape[0]
+    if nblk > band.shape[0]:
+        raise ValueError(f"{nblk} diagonal blocks for a band of {band.shape[0]} rows")
+    _shape(dinv, (nblk, nb, nb), "Uinv" if pivoted else "dinv")
+    _shape(y, (rows, nb) + tuple(y.shape[2:]), "y")
+    S = 2 * B if pivoted else B
+    _same(band, [band, dinv, y], kind, (S + 2) * nb)
+    return B, nb, kind
+
+
+def _check_fwd_pivoted(L2: torch.Tensor, L1inv: torch.Tensor, perms: torch.Tensor,
+                       b: torch.Tensor) -> tuple[int, int, str]:
+    """K1 pivoted: L2 (nblk, B, nb, nb), L1inv (nblk, nb, nb), perms
+    (nblk, (B+1) nb) int64, b (nblk, nb[, m])."""
+    if L2.dim() != 4 or L2.shape[2] != L2.shape[3]:
+        raise ValueError(f"L2 must be (nblk, B, nb, nb), got {tuple(L2.shape)}")
+    nblk, B, nb = L2.shape[0], L2.shape[1], L2.shape[2]
+    kind = _kind(L2, b, "right-hand side")
+    _shape(L1inv, (nblk, nb, nb), "L1inv")
+    _shape(b, (nblk, nb) + tuple(b.shape[2:]), "right-hand side")
+    if perms.dtype != torch.int64:
+        raise TypeError(f"perms must be int64, got {perms.dtype}")
+    _shape(perms, (nblk, (B + 1) * nb), "perms")
+    _same(L2, [L2, L1inv, perms, b], kind, (2 * B + 3) * nb)
+    return B, nb, kind
 
 
 # ---------------------------------------------------------------------------
-# Plain versions: the step-by-step recursion in torch
+# Plain versions: the step-by-step recursions in torch
 # ---------------------------------------------------------------------------
+
+
+def _cols(v: torch.Tensor) -> torch.Tensor:
+    """(rows, nb[, m]) blocks as (rows, nb, m)."""
+    return v[:, :, None] if v.is_complex() else v
+
+
+def _like(out: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(rows, nb, m) blocks back in the layout of ``v``."""
+    return out[:, :, 0] if v.is_complex() else out
 
 
 def fwd_substitute_plain(band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """y_K = b_K - sum_{t<B} L[K,t] y_{K-B+t}, K ascending; (rows_total, nb)."""
-    B, nb = _check(band, b)
-    rows_total, nblk = band.shape[0], b.shape[0]
-    y = torch.zeros((rows_total, nb), dtype=b.dtype, device=b.device)
-    y[:nblk] = b
-    Y = torch.zeros((B, nb), dtype=b.dtype, device=b.device)  # Y[t] = y_{K-B+t}
+    """y_K = b_K - sum_{t<B} L[K,t] y_{K-B+t}, K ascending; (rows_total, nb[, m])."""
+    B, nb, _ = _check_fwd(band, b)
+    b3 = _cols(b)
+    rows_total, nblk, m = band.shape[0], b3.shape[0], b3.shape[2]
+    y = torch.zeros((B + rows_total, nb, m), dtype=b.dtype, device=b.device)  # B zero rows first
+    y[B:B + nblk] = b3
     for k in range(rows_total):
-        y[k] -= torch.einsum("tij,tj->i", band[k, :B], Y)
-        Y = torch.cat([Y[1:], y[k][None]])
-    return y
+        y[B + k] -= torch.bmm(band[k, :B], y[k:k + B]).sum(0)
+    return _like(y[B:], b)
 
 
 def bwd_substitute_plain(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x_K = Dinv_K (y_K - sum_{t<B} U[K,B+1+t] x_{K+1+t}), K descending;
-    returns the first nblk = dinv.shape[0] blocks."""
-    nblk = dinv.shape[0]
-    B, nb = _check_bwd(band, dinv, y)
-    X = torch.zeros((B, nb), dtype=y.dtype, device=y.device)  # X[t] = x_{K+1+t}
-    x = torch.empty((nblk, nb), dtype=y.dtype, device=y.device)
-    for k in range(band.shape[0] - 1, -1, -1):
-        z = y[k] - torch.einsum("tij,tj->i", band[k, B + 1:], X)
-        if k < nblk:
-            z = dinv[k] @ z
-            x[k] = z
-        X = torch.cat([z[None], X[:-1]])
-    return x
+    """x_K = Dinv_K y_K - sum_{t<B} (Dinv_K U)[K,B+1+t] x_{K+1+t}, K
+    descending (Dinv = I past nblk); returns the first nblk =
+    dinv.shape[0] blocks."""
+    B, nb, _ = _check_bwd(band, dinv, y, pivoted=False)
+    y3 = _cols(y)
+    rows_total, nblk, m = band.shape[0], dinv.shape[0], y3.shape[2]
+    x = torch.zeros((rows_total + B, nb, m), dtype=y.dtype, device=y.device)  # B zero rows last
+    for k in range(rows_total - 1, -1, -1):
+        yk = dinv[k] @ y3[k] if k < nblk else y3[k]
+        x[k] = yk - torch.bmm(band[k, B + 1:], x[k + 1:k + 1 + B]).sum(0)
+    return _like(x[:nblk], y)
+
+
+def fwd_substitute_pivoted_plain(L2: torch.Tensor, L1inv: torch.Tensor, perms: torch.Tensor,
+                                 b: torch.Tensor) -> torch.Tensor:
+    """Forward through the panel-pivoted factors, per block row K: permute
+    the window of rows K..K+B (updated in place in ``work``) by the panel
+    permutation, y_K = L1^-1 f[:nb], and rows K+1..K+B become
+    f[nb:] - (L2 L1^-1) f[:nb]; (nblk, nb[, m])."""
+    B, nb, _ = _check_fwd_pivoted(L2, L1inv, perms, b)
+    b3 = _cols(b)
+    nblk, m = b3.shape[0], b3.shape[2]
+    work = torch.zeros(((nblk + B + 1) * nb, m), dtype=b.dtype, device=b.device)
+    work[:nblk * nb] = b3.reshape(nblk * nb, m)
+    y = torch.empty((nblk, nb, m), dtype=b.dtype, device=b.device)
+    L2m = L2.reshape(nblk, B * nb, nb)
+    for k in range(nblk):
+        win = work[k * nb:(k + B + 1) * nb]
+        f = win.index_select(0, perms[k])
+        torch.mm(L1inv[k], f[:nb], out=y[k])
+        torch.addmm(f[nb:], L2m[k], f[:nb], alpha=-1, out=win[nb:])
+    return _like(y, b)
+
+
+def bwd_substitute_pivoted_plain(band: torch.Tensor, Uinv: torch.Tensor,
+                                 y: torch.Tensor) -> torch.Tensor:
+    """Backward through the panel-pivoted factors:
+    x_K = U_KK^-1 y_K - sum_j (U_KK^-1 U_{K,K+j}) x_{K+j}, j = 1..2B;
+    (nblk, nb[, m])."""
+    B, nb, _ = _check_bwd(band, Uinv, y, pivoted=True)
+    y3 = _cols(y)
+    nblk, m = y3.shape[0], y3.shape[2]
+    x = torch.zeros(((nblk + 2 * B) * nb, m), dtype=y.dtype, device=y.device)
+    for k in range(nblk - 1, -1, -1):
+        X = x[(k + 1) * nb:(k + 1 + 2 * B) * nb].view(2 * B, nb, m)
+        x[k * nb:(k + 1) * nb] = Uinv[k] @ y3[k] - torch.bmm(band[k, 1:], X).sum(0)
+    return _like(x[:nblk * nb].view(nblk, nb, m), y)
 
 
 # ---------------------------------------------------------------------------
@@ -125,37 +254,83 @@ def bwd_substitute_plain(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def fwd_substitute(band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """K1: forward substitution through L; (rows_total, nb) out."""
+def _code(kind: str) -> int:
+    return TYPES.index(kind)
+
+
+def fwd_substitute(band: torch.Tensor, b: torch.Tensor, *, cluster: int = 0) -> torch.Tensor:
+    """K1 pivot-free: forward substitution through L; (rows_total, nb[, m])
+    out.  ``cluster``: blocks in the kernel's cluster (0: the largest the
+    card can co-schedule, 16 on an H100)."""
     if not band.is_cuda:
         return fwd_substitute_plain(band, b)
-    B, nb = _check(band, b)
-    y = torch.empty((band.shape[0], nb), dtype=torch.complex64, device=band.device)
-    err = _load().band_fwd(band.data_ptr(), b.data_ptr(), y.data_ptr(),
-                           band.shape[0], b.shape[0], B, nb, stream())
-    raise_on(err, "band_fwd")
-    LAUNCHES["fwd"] += 1
+    B, nb, kind = _check_fwd(band, b)
+    y = torch.empty((band.shape[0],) + tuple(b.shape[1:]), dtype=b.dtype, device=b.device)
+    err = _load().band_fwd(_code(kind), band.data_ptr(), b.data_ptr(), y.data_ptr(),
+                           band.shape[0], b.shape[0], B, cluster, stream())
+    raise_on(err, "band_fwd_kernel")
+    LAUNCHES[f"K1.pivot_free.{kind}"] += 1
     return y
 
 
-def bwd_substitute(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """K2: backward substitution through U with the Dinv product;
-    (nblk, nb) out."""
+def bwd_substitute(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor, *,
+                   cluster: int = 0) -> torch.Tensor:
+    """K2 pivot-free: backward substitution through U with the Dinv
+    product; (nblk, nb[, m]) out."""
     if not band.is_cuda:
         return bwd_substitute_plain(band, dinv, y)
+    B, nb, kind = _check_bwd(band, dinv, y, pivoted=False)
     nblk = dinv.shape[0]
-    B, nb = _check_bwd(band, dinv, y)
-    x = torch.empty((nblk, nb), dtype=torch.complex64, device=band.device)
-    err = _load().band_bwd(band.data_ptr(), dinv.data_ptr(), y.data_ptr(), x.data_ptr(),
-                           band.shape[0], nblk, B, nb, stream())
-    raise_on(err, "band_bwd")
-    LAUNCHES["bwd"] += 1
+    x = torch.empty((nblk,) + tuple(y.shape[1:]), dtype=y.dtype, device=y.device)
+    err = _load().band_bwd(_code(kind), band.data_ptr(), dinv.data_ptr(), y.data_ptr(),
+                           x.data_ptr(), band.shape[0], nblk, 2 * B + 1, B + 1, B, cluster,
+                           stream())
+    raise_on(err, "band_bwd_kernel")
+    LAUNCHES[f"K2.pivot_free.{kind}"] += 1
+    return x
+
+
+def fwd_substitute_pivoted(L2: torch.Tensor, L1inv: torch.Tensor, perms: torch.Tensor,
+                           b: torch.Tensor, *, cluster: int = 0) -> torch.Tensor:
+    """K1 pivoted: forward through the panel permutations, L1^-1 and the
+    L2 window update; (nblk, nb[, m]) out."""
+    if not L2.is_cuda:
+        return fwd_substitute_pivoted_plain(L2, L1inv, perms, b)
+    B, nb, kind = _check_fwd_pivoted(L2, L1inv, perms, b)
+    y = torch.empty_like(b)
+    err = _load().band_fwd_pivoted(_code(kind), L2.data_ptr(), L1inv.data_ptr(),
+                                   perms.data_ptr(), b.data_ptr(), y.data_ptr(), b.shape[0], B,
+                                   cluster, stream())
+    raise_on(err, "band_fwd_kernel (pivoted)")
+    LAUNCHES[f"K1.pivoted.{kind}"] += 1
+    return y
+
+
+def bwd_substitute_pivoted(band: torch.Tensor, Uinv: torch.Tensor, y: torch.Tensor, *,
+                           cluster: int = 0) -> torch.Tensor:
+    """K2 pivoted: backward through the 2B upper slots with U^-1;
+    (nblk, nb[, m]) out."""
+    if not band.is_cuda:
+        return bwd_substitute_pivoted_plain(band, Uinv, y)
+    B, nb, kind = _check_bwd(band, Uinv, y, pivoted=True)
+    nblk = Uinv.shape[0]
+    x = torch.empty_like(y)
+    err = _load().band_bwd(_code(kind), band.data_ptr(), Uinv.data_ptr(), y.data_ptr(),
+                           x.data_ptr(), nblk, nblk, 2 * B + 1, 1, 2 * B, cluster, stream())
+    raise_on(err, "band_bwd_kernel (pivoted)")
+    LAUNCHES[f"K2.pivoted.{kind}"] += 1
     return x
 
 
 def solve_banded(band: torch.Tensor, dinv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Full banded solve: K1 then K2.  (nblk, nb) complex64 in and out."""
+    """Pivot-free solve: K1 then K2; (nblk, nb[, m]) in and out."""
     return bwd_substitute(band, dinv, fwd_substitute(band, b))
+
+
+def solve_pivoted(band: torch.Tensor, L2: torch.Tensor, L1inv: torch.Tensor, Uinv: torch.Tensor,
+                  perms: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Pivoted solve: K1 then K2, both pivoted; (nblk, nb[, m]) in and out."""
+    return bwd_substitute_pivoted(band, Uinv, fwd_substitute_pivoted(L2, L1inv, perms, b))
 
 
 def reset_launches() -> None:
@@ -164,6 +339,8 @@ def reset_launches() -> None:
 
 
 __all__ = [
-    "LAUNCHES", "build", "bwd_substitute", "bwd_substitute_plain", "fwd_substitute",
-    "fwd_substitute_plain", "reset_launches", "solve_banded",
+    "LAUNCHES", "TYPES", "build", "bwd_substitute", "bwd_substitute_pivoted",
+    "bwd_substitute_pivoted_plain", "bwd_substitute_plain", "fwd_substitute",
+    "fwd_substitute_pivoted", "fwd_substitute_pivoted_plain", "fwd_substitute_plain",
+    "last_cluster", "reset_launches", "solve_banded", "solve_pivoted",
 ]

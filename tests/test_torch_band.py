@@ -96,11 +96,14 @@ def test_saddle_regularization_matches(system):
 
 
 def test_pivot_free_factor_matches(factors):
+    """The port's factor against the JAX factor in the port's stored
+    layout (U blocks folded by Dinv)."""
     jlu, tlu, _ = factors
     band_ref = np.asarray(jlu.band_re) + 1j * np.asarray(jlu.band_im)
     dinv_ref = np.asarray(jlu.dinv_r) + 1j * np.asarray(jlu.dinv_i)
+    band_ref = tband.fold_pivot_free(torch.from_numpy(band_ref), torch.from_numpy(dinv_ref))
     assert tlu.band.dtype == torch.complex64 and tlu.dinv.dtype == torch.complex64
-    assert _rel(tlu.band.numpy(), band_ref) <= 1e-4
+    assert _rel(tlu.band.numpy(), band_ref.numpy()) <= 1e-4
     assert _rel(tlu.dinv.numpy(), dinv_ref) <= 1e-4
 
 
@@ -140,6 +143,43 @@ def test_refined_solve_matches_superlu(system, factors):
     assert np.linalg.norm(x - ref) / np.linalg.norm(ref) <= 1e-10
 
 
+def plain_solve(lu, b: torch.Tensor) -> torch.Tensor:
+    """``lu.solve(b)`` spelled out: b into the band's order (two real
+    columns for a complex b on a real factor), the plain substitutions of
+    ``band_cuda``, and back."""
+    nblk = lu.perm.numel() // lu.nb
+    cplx = lu.band.is_complex()
+    cols = [b] if cplx or not b.is_complex() else [b.real, b.imag]
+
+    def into(c):
+        v = torch.zeros(nblk * lu.nb, dtype=c.dtype)
+        v[:lu.n] = c
+        return v[lu.perm.long()].to(lu.band.dtype).reshape(nblk, lu.nb)
+
+    bp = into(cols[0]) if cplx else torch.stack([into(c) for c in cols], dim=2)
+    if isinstance(lu, (tband.PivotedBandedLU, tband.RealPivotedBandedLU)):
+        y = band_cuda.fwd_substitute_pivoted_plain(lu.L2, lu.L1inv, lu.perms, bp)
+        x = band_cuda.bwd_substitute_pivoted_plain(lu.band, lu.Uinv, y)
+    else:
+        x = band_cuda.bwd_substitute_plain(lu.band, lu.dinv, band_cuda.fwd_substitute_plain(lu.band, bp))
+    x = x.reshape(nblk * lu.nb, -1)[lu.iperm.long()]
+    if cplx:
+        return x[:, 0].to(torch.complex128)
+    x = x.to(torch.float64)
+    return torch.complex(x[:, 0], x[:, 1]) if b.is_complex() else x[:, 0]
+
+
+def test_factor_solve_takes_the_plain_path_on_cpu(factors):
+    """The pivot-free complex factor's ``solve`` on CPU tensors is the plain
+    substitutions' result, bit for bit, with no kernel launch."""
+    _, tlu, _ = factors
+    rng = np.random.default_rng(4)
+    b = torch.as_tensor(rng.standard_normal(tlu.n) + 1j * rng.standard_normal(tlu.n))
+    before = dict(band_cuda.LAUNCHES)
+    torch.testing.assert_close(tlu.solve(b), plain_solve(tlu, b), rtol=0, atol=0)
+    assert band_cuda.LAUNCHES == before
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(factors):
     _, tlu, _ = factors
     b = torch.zeros((tlu.dinv.shape[0], tlu.nb), dtype=torch.complex128)
@@ -149,3 +189,26 @@ def test_wrappers_reject_what_the_kernels_do_not_take(factors):
         band_cuda.fwd_substitute(tlu.band, b[:, :-1].to(torch.complex64))
     with pytest.raises(ValueError):
         band_cuda.bwd_substitute(tlu.band, tlu.dinv[:-1], b.to(torch.complex64))
+    # the real and pivoted modes, on small factor-shaped tensors
+    nblk, B, nb = 3, 2, 8
+    rband = torch.zeros((nblk + B, 2 * B + 1, nb, nb))
+    L2, L1inv = torch.zeros((nblk, B, nb, nb)), torch.zeros((nblk, nb, nb))
+    perms = torch.arange((B + 1) * nb).repeat(nblk, 1)
+    rb = torch.zeros((nblk, nb, 1))
+    band_cuda.solve_pivoted(rband, L2, L1inv, L1inv, perms, rb)  # accepted as it is
+    with pytest.raises(TypeError):  # a complex right-hand side on a real factor
+        band_cuda.fwd_substitute(rband, rb[:, :, 0].to(torch.complex64))
+    with pytest.raises(TypeError):  # f64 factors
+        band_cuda.fwd_substitute_pivoted(L2.double(), L1inv.double(), perms, rb.double())
+    with pytest.raises(ValueError):  # m > 2 columns
+        band_cuda.fwd_substitute(rband, torch.zeros((nblk, nb, 3)))
+    with pytest.raises(ValueError):
+        band_cuda.solve_pivoted(rband, L2, L1inv, L1inv, perms, torch.zeros((nblk, nb, 3)))
+    with pytest.raises(ValueError):  # perms of the wrong shape
+        band_cuda.fwd_substitute_pivoted(L2, L1inv, perms[:, :-1], rb)
+    with pytest.raises(TypeError):  # int32 perms
+        band_cuda.fwd_substitute_pivoted(L2, L1inv, perms.int(), rb)
+    with pytest.raises(ValueError):  # y of a pivoted solve has nblk rows
+        band_cuda.bwd_substitute_pivoted(rband, L1inv, torch.zeros((nblk + B, nb, 1)))
+    with pytest.raises(TypeError):  # a complex Uinv beside a real band
+        band_cuda.bwd_substitute_pivoted(rband, L1inv.to(torch.complex64), rb)

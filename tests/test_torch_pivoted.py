@@ -21,8 +21,10 @@ import torch
 from lsafw_tpu.solver import band as jband
 from lsafw_tpu_torch import interop
 from lsafw_tpu_torch.solver import band as tband
+from lsafw_tpu_torch.solver import band_cuda
 from lsafw_tpu_torch.solver.direct import direct_solve
 from lsafw_tpu_torch.solver.eigen import BandedSIOp, banded_solve_raw
+from tests.test_torch_band import plain_solve
 from tests.test_torch_fem import RE, cylinder_case, one_blas_thread  # noqa: F401
 
 torch.set_num_threads(1)
@@ -77,28 +79,37 @@ def complex_factors(system):
 
 
 def test_real_pivoted_factor_matches(real_factors):
+    """The port's factor against the JAX factor in the port's stored
+    layout (U blocks folded by Uinv, L2 by L1inv)."""
     jlu, tlu = real_factors
     np.testing.assert_array_equal(tlu.perms.numpy(), np.asarray(jlu.perms))
+    ref = {name: torch.from_numpy(np.array(getattr(jlu, name))) for name in
+           ("band", "L2", "L1inv", "Uinv")}
+    ref["band"], ref["L2"] = tband.fold_pivoted(ref["band"], ref["L2"], ref["L1inv"], ref["Uinv"])
     for name in ("band", "L2", "L1inv", "Uinv"):
         got = getattr(tlu, name)
         assert got.dtype == torch.float32
-        assert _rel(got.numpy(), np.asarray(getattr(jlu, name))) <= 1e-4, name
+        assert _rel(got.numpy(), ref[name].numpy()) <= 1e-4, name
 
 
-def test_pivoted_substitutions_match_jax_scans(real_factors, complex_factors):
-    """The port's substitutions on the JAX factors carried across."""
+@pytest.mark.parametrize("real", [True, False], ids=["real", "complex"])
+def test_pivoted_substitutions_match_jax_scans(request, real):
+    """The port's substitutions (K1/K2 pivoted, whose plain versions CPU
+    tensors take) on the JAX factors carried across into the port's
+    folded layout, against ``_solve_pivoted_real`` / ``_solve_pivoted``."""
     rng = np.random.default_rng(5)
-    jr = real_factors[0]
-    lu = interop.real_pivoted_lu_from_numpy(jr.band, jr.L2, jr.L1inv, jr.Uinv, jr.perms, jr.perm,
-                                            jr.iperm, jr.n, jr.nb, jr.B, device="cpu")
-    b = rng.standard_normal((lu.L1inv.shape[0], lu.nb, 2)).astype(np.float32)
-    ref = jband._solve_pivoted_real(jr.band, jr.L2, jr.L1inv, jr.Uinv, jr.perms, jnp.asarray(b),
-                                    B=jr.B, nb=jr.nb)
-    got = tband._solve_pivoted_real(lu.band, lu.L2, lu.L1inv, lu.Uinv, lu.perms,
-                                    torch.from_numpy(b))
-    assert _rel(got.numpy(), np.asarray(ref)) <= 1e-5
-
-    jc = complex_factors[0]
+    if real:
+        jr = request.getfixturevalue("real_factors")[0]
+        lu = interop.real_pivoted_lu_from_numpy(jr.band, jr.L2, jr.L1inv, jr.Uinv, jr.perms,
+                                                jr.perm, jr.iperm, jr.n, jr.nb, jr.B, device="cpu")
+        b = rng.standard_normal((lu.L1inv.shape[0], lu.nb, 2)).astype(np.float32)
+        ref = jband._solve_pivoted_real(jr.band, jr.L2, jr.L1inv, jr.Uinv, jr.perms,
+                                        jnp.asarray(b), B=jr.B, nb=jr.nb)
+        got = band_cuda.solve_pivoted(lu.band, lu.L2, lu.L1inv, lu.Uinv, lu.perms,
+                                      torch.from_numpy(b))
+        assert _rel(got.numpy(), np.asarray(ref)) <= 1e-5
+        return
+    jc = request.getfixturevalue("complex_factors")[0]
     lu = interop.pivoted_lu_from_numpy(jc.band_re, jc.band_im, jc.L2r, jc.L2i, jc.L1inv_r,
                                        jc.L1inv_i, jc.Uinv_r, jc.Uinv_i, jc.perms, jc.perm,
                                        jc.iperm, jc.n, jc.nb, jc.B, device="cpu")
@@ -106,8 +117,8 @@ def test_pivoted_substitutions_match_jax_scans(real_factors, complex_factors):
     xr, xi = jband._solve_pivoted(jc.band_re, jc.band_im, jc.L2r, jc.L2i, jc.L1inv_r, jc.L1inv_i,
                                   jc.Uinv_r, jc.Uinv_i, jc.perms, jnp.asarray(br), jnp.asarray(bi),
                                   B=jc.B, nb=jc.nb)
-    got = tband._solve_pivoted(lu.band, lu.L2, lu.L1inv, lu.Uinv, lu.perms,
-                               torch.from_numpy((br + 1j * bi).astype(np.complex64)))
+    got = band_cuda.solve_pivoted(lu.band, lu.L2, lu.L1inv, lu.Uinv, lu.perms,
+                                  torch.from_numpy((br + 1j * bi).astype(np.complex64)))
     assert _rel(got.numpy(), np.asarray(xr) + 1j * np.asarray(xi)) <= 1e-5
 
 
@@ -161,23 +172,38 @@ def test_factor_auto_branches_match_jax(system, monkeypatch, real):
         assert got[1] == (gb is None or gb * 1e9 >= need)
 
 
-def test_real_pivot_free_factor_matches(system, monkeypatch):
-    """``factor_auto``'s over-budget real branch: the regularized pivot-free
-    real factor against the JAX ``RealBandedLU``, and the port's real
-    substitution on the JAX factor against ``_solve_banded_real``."""
+@pytest.fixture(scope="module")
+def real_pivot_free(system):
+    """Both packages' pivot-free real factors of the Stokes operator
+    (``factor_auto`` under a zero pivot budget, saddle-regularized)."""
     jp, tp = system["plans"][True]
     S = system["S"]
-    monkeypatch.setenv("LSAFW_PIVOT_MEM_GB", "0")
-    diag = S.pattern.diag_slots
-    jlu, jpiv = jband.factor_auto(jp, jnp.asarray(S.data.numpy()), diag_slots=diag)
-    tlu, tpiv = tband.factor_auto(tp, S.data, diag_slots=diag)
-    assert (jpiv, tpiv) == (False, False) and isinstance(tlu, tband.RealBandedLU)
-    assert _rel(tlu.band.numpy(), np.asarray(jlu.band)) <= 1e-4
-    assert _rel(tlu.dinv.numpy(), np.asarray(jlu.dinv)) <= 1e-4
+    mp = pytest.MonkeyPatch()
+    mp.setenv("LSAFW_PIVOT_MEM_GB", "0")
+    try:
+        diag = S.pattern.diag_slots
+        jlu, jpiv = jband.factor_auto(jp, jnp.asarray(S.data.numpy()), diag_slots=diag)
+        tlu, tpiv = tband.factor_auto(tp, S.data, diag_slots=diag)
+    finally:
+        mp.undo()
+    assert (jpiv, tpiv) == (False, False)
+    return jlu, tlu
+
+
+def test_real_pivot_free_factor_matches(real_pivot_free):
+    """``factor_auto``'s over-budget real branch: the regularized pivot-free
+    real factor against the JAX ``RealBandedLU``, and the port's real
+    substitution (K1/K2 pivot-free, plain on CPU tensors) on the JAX factor
+    against ``_solve_banded_real``."""
+    jlu, tlu = real_pivot_free
+    assert isinstance(tlu, tband.RealBandedLU)
+    dinv = torch.tensor(np.asarray(jlu.dinv))
+    band = tband.fold_pivot_free(torch.tensor(np.asarray(jlu.band)), dinv)  # the port's layout
+    assert _rel(tlu.band.numpy(), band.numpy()) <= 1e-4
+    assert _rel(tlu.dinv.numpy(), dinv.numpy()) <= 1e-4
     b = np.random.default_rng(7).standard_normal((tlu.dinv.shape[0], tlu.nb, 2)).astype(np.float32)
     ref = jband._solve_banded_real(jlu.band, jlu.dinv, jnp.asarray(b), B=jlu.B, nb=jlu.nb)
-    got = tband._solve_banded_real(torch.tensor(np.asarray(jlu.band)),
-                                   torch.tensor(np.asarray(jlu.dinv)), torch.from_numpy(b))
+    got = band_cuda.solve_banded(band, dinv, torch.from_numpy(b))
     assert _rel(got.numpy(), np.asarray(ref)) <= 1e-5  # the JAX factor carried across
 
 
@@ -206,3 +232,19 @@ def test_plan_cache_keeps_real_and_complex_plans(system):
     cplx = tband.plan_for_csr(A)
     assert real.real and not cplx.real
     assert tband.plan_for_csr(A, real=True) is real and tband.plan_for_csr(A) is cplx
+
+
+@pytest.mark.parametrize("which", ["real_pivoted", "complex_pivoted", "real_pivot_free"])
+def test_factor_solve_takes_the_plain_path_on_cpu(request, which):
+    """Each factor's ``solve`` on CPU tensors is the plain substitutions'
+    result, bit for bit, with no kernel launch: a complex vector (two real
+    columns on a real factor) and, on a real factor, a real one."""
+    fixture = {"real_pivoted": "real_factors", "complex_pivoted": "complex_factors",
+               "real_pivot_free": "real_pivot_free"}[which]
+    lu = request.getfixturevalue(fixture)[1]
+    rng = np.random.default_rng(6)
+    b = torch.as_tensor(rng.standard_normal(lu.n) + 1j * rng.standard_normal(lu.n))
+    before = dict(band_cuda.LAUNCHES)
+    for v in (b,) if lu.band.is_complex() else (b, b.real.contiguous()):
+        torch.testing.assert_close(lu.solve(v), plain_solve(lu, v), rtol=0, atol=0)
+    assert band_cuda.LAUNCHES == before
