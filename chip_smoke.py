@@ -51,9 +51,9 @@ non-zero):
      at a time, each band being larger than L2; G and S with the L2 cache
      evicted before each call, as the main path's band solves leave it)
      of every kernel beside its plain version, bound and library call;
-     one pivoted solve against the torch loops, K1/K2 in clusters of 8
-     against 16, the panel LU backends, and the card's busy share of one
-     pivoted shift-invert apply under ``torch.profiler``.
+     one pivoted solve against the torch loops, the panel LU backends, and
+     the card's busy share of one pivoted shift-invert apply under
+     ``torch.profiler``.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -235,13 +235,13 @@ def substitutions(f) -> tuple:
     from lsafw_tpu_torch.solver import band_cuda as bc
 
     if mode_of(f) == "pivoted":
-        return (lambda b, **kw: bc.fwd_substitute_pivoted(f.L2, f.L1inv, f.perms, b, **kw),
+        return (lambda b: bc.fwd_substitute_pivoted(f.L2, f.L1inv, f.perms, b),
                 lambda b: bc.fwd_substitute_pivoted_plain(f.L2, f.L1inv, f.perms, b),
-                lambda y, **kw: bc.bwd_substitute_pivoted(f.band, f.Uinv, y, **kw),
+                lambda y: bc.bwd_substitute_pivoted(f.band, f.Uinv, y),
                 lambda y: bc.bwd_substitute_pivoted_plain(f.band, f.Uinv, y))
-    return (lambda b, **kw: bc.fwd_substitute(f.band, b, **kw),
+    return (lambda b: bc.fwd_substitute(f.band, b),
             lambda b: bc.fwd_substitute_plain(f.band, b),
-            lambda y, **kw: bc.bwd_substitute(f.band, f.dinv, y, **kw),
+            lambda y: bc.bwd_substitute(f.band, f.dinv, y),
             lambda y: bc.bwd_substitute_plain(f.band, f.dinv, y))
 
 
@@ -610,7 +610,6 @@ def main_path(case) -> dict:
     """Phase 3: banded baseflow, eigensystem, pivoted shift-invert."""
     import torch
     from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
-    from lsafw_tpu_torch.solver import band_cuda
     from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
 
     reset_counts()
@@ -641,8 +640,7 @@ def main_path(case) -> dict:
     log(f"phase 3: sigma = {sigma.real:+.12f}{sigma.imag:+.12f}j, residual {resid:.2e}; "
         f"pivoted factor {op.pivoted}, contraction {op.rho:.2e}, refinement cap "
         f"{op.refine_its}, {op.applies} shift-invert applies")
-    log(f"phase 3: band solves in baseflow {base_solves}, in eigen {eig_solves}; K1/K2 ran in "
-        f"clusters of {band_cuda.last_cluster()} blocks")
+    log(f"phase 3: band solves in baseflow {base_solves}, in eigen {eig_solves}")
     log(f"phase 3: launches in baseflow {base_counts}; in eigen {eig_counts}")
     gate_sigma("phase 3", sigma, resid)
     gate_band_launches("phase 3 baseflow", base_counts, "pivoted.f32x1",
@@ -835,12 +833,6 @@ def band_kernels(mp: dict, pf: dict, errs: dict, device) -> list:
                 log(f"phase 4: one {md} {kind} solve (K1 + K2) {solve:.4f} ms, the torch loops "
                     f"{plain_solve:.3f} ms: {plain_solve / solve:.1f}x; bound "
                     f"{bounds['K1'][0] + bounds['K2'][0]:.4f} ms")
-            if md == "pivoted" and kind == "c64":
-                size = bc.last_cluster()
-                c8 = (cuda_ms(lambda: fwd(b, cluster=8), 20), cuda_ms(lambda: bwd(y, cluster=8), 20))
-                log(f"phase 4: pivoted c64 in clusters of 8 blocks: K1 {c8[0]:.4f} ms, K2 "
-                    f"{c8[1]:.4f} ms (in clusters of {size}: {times['K1'][0]:.4f} / "
-                    f"{times['K2'][0]:.4f} ms)")
     return out
 
 
@@ -851,7 +843,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     from lsafw_tpu_torch.ops import spmv_cuda as sc
-    from lsafw_tpu_torch.solver import band_cuda
 
     t_start = time.time()
     dev = torch.device(DEVICE)
@@ -883,8 +874,7 @@ def main() -> int:
     gi = gather_inputs(dev)
     g_errs = check_gather(gi)
     log(f"phase 2: K1/K2 match their plain versions in both modes and every type at (B, block "
-        f"rows) {PHASE2_SHAPES}, clusters of {band_cuda.last_cluster()} blocks; G matches x[idx] "
-        f"at the probes' shapes")
+        f"rows) {PHASE2_SHAPES}; G matches x[idx] at the probes' shapes")
     if "--kernels" in sys.argv[1:]:
         return 0
 

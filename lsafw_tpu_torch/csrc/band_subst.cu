@@ -74,14 +74,21 @@
 // A step is then: row dots over tiles already in shared memory (each warp
 // takes up to eight rows of one tile, a shuffle sum over the lanes of a
 // row), one shared-memory reduction, the broadcast, one cluster barrier.
-// On an H100 that synchronisation, 3-4 us a step against 0.3 us of
-// bytes, is what bounds the kernels now (5-14% of the byte bound at the
-// 43k shapes; PERF.md has the measurements).
+// On an H100 a step takes 3-4 us against 0.3 us of its bytes at the HBM
+// rate (5-14% of the byte bound at the 43k shapes).  The largest part is
+// the row dots themselves, over data already in shared memory; the
+// cluster barrier and the reduction with its broadcast come next
+// (band_step_probe.py times each part; PERF.md has the split).
+//
+// The cluster size is the largest the card co-schedules with the mode's
+// shared memory, chosen on a kernel's first launch for a window size and
+// kept for the later ones.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <mutex>
 
 namespace cg = cooperative_groups;
 
@@ -92,6 +99,7 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32 - 1;   // warps that compute; the last one copies
 constexpr int kProducer = kWarps * 32;      // the thread that issues the copies
 constexpr int kMaxTiles = 64;
+constexpr int kMaxCluster = 16;  // blocks in the largest cluster tried (past 8: non-portable)
 constexpr size_t kSmemMax = 232448;  // shared memory one H100 block may use
 
 __device__ __forceinline__ float vadd(float a, float b) { return a + b; }
@@ -669,77 +677,125 @@ __global__ void __launch_bounds__(kThreads, 1) band_bwd_kernel(BwdArgs a) {
   }
 }
 
-int g_last_cluster = 0;
-
-// Launch ``kernel`` as one cluster of C blocks: C = ``want``, or where want
-// is 0 the largest of 16, 8, 4, 2, 1 that the card can co-schedule.  For
-// each C, sizes(C, side, rest) gives the mode's side and window bytes; the
-// tile ring takes what shared memory is left (at most kMaxTiles tiles).
-template <class Tr, class Args, class SizesFn>
-int launch(void (*kernel)(Args), Args args, SizesFn sizes, int want, void* stream) {
-  const void* fn = reinterpret_cast<const void*>(kernel);
-  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (err != cudaSuccess) return (int)err;
-  for (int c = want ? want : 16; c >= 1; c /= 2) {
-    size_t side, rest;
-    sizes(c, side, rest);
-    const size_t tile = tile_bytes<Tr>(c);
-    const size_t fixed = Layout(0, tile, side, rest).total;
-    if (fixed + 8 * 64 + tile > kSmemMax) {
-      if (want) break;
-      continue;
-    }
-    int nt = (int)((kSmemMax - fixed - 8 * 64) / tile);
-    if (nt > kMaxTiles) nt = kMaxTiles;
-    const size_t smem = Layout(nt, tile, side, rest).total;
-    args.nt = nt;
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    cudaLaunchAttribute attr[1];
+// A launch configuration: one cluster of ``c`` blocks with ``smem`` bytes
+// of dynamic shared memory each.
+struct Config {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+  Config(int c, size_t smem, void* stream) {
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = c;
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(c, 1, 1);
     cfg.blockDim = dim3(kThreads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = static_cast<cudaStream_t>(stream);
     cfg.attrs = attr;
     cfg.numAttrs = 1;
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (clusters > 0) {
-      g_last_cluster = c;
-      err = cudaLaunchKernelEx(&cfg, kernel, args);
-      if (err != cudaSuccess) return (int)err;
-      return (int)cudaGetLastError();
-    }
-    if (want) break;
   }
-  return (int)cudaErrorInvalidConfiguration;
+};
+
+// The cluster size, ring tiles and shared memory of one kernel on one
+// device for one window size ``key`` (B forward, S backward): chosen on
+// the first launch, kept for the later ones.
+struct Choice {
+  const void* fn;
+  int device, key;
+  int c, nt;
+  size_t smem;
+};
+std::mutex g_choices_mu;
+Choice g_choices[64];
+int g_nchoices = 0;
+
+bool find_choice(Choice& ch) {
+  std::lock_guard<std::mutex> lock(g_choices_mu);
+  for (int i = 0; i < g_nchoices; ++i) {
+    const Choice& k = g_choices[i];
+    if (k.fn == ch.fn && k.device == ch.device && k.key == ch.key) {
+      ch = k;
+      return true;
+    }
+  }
+  return false;
+}
+
+void keep_choice(const Choice& ch) {
+  std::lock_guard<std::mutex> lock(g_choices_mu);
+  if (g_nchoices < 64) g_choices[g_nchoices++] = ch;
+}
+
+// The largest cluster of kMaxCluster, kMaxCluster / 2, ..., 1 blocks whose
+// shared memory fits and that the card can co-schedule.  For each size c,
+// sizes(c, side, rest) gives the mode's side and window bytes; the tile
+// ring takes what shared memory is left (at most kMaxTiles tiles).
+template <class Tr, class SizesFn>
+cudaError_t choose(SizesFn sizes, Choice& ch) {
+  cudaError_t err = cudaFuncSetAttribute(ch.fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ch.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
+  if (err != cudaSuccess) return err;
+  for (int c = kMaxCluster; c >= 1; c /= 2) {
+    size_t side, rest;
+    sizes(c, side, rest);
+    const size_t tile = tile_bytes<Tr>(c);
+    const size_t fixed = Layout(0, tile, side, rest).total;
+    if (fixed + 8 * kMaxTiles + tile > kSmemMax) continue;
+    int nt = (int)((kSmemMax - fixed - 8 * kMaxTiles) / tile);
+    if (nt > kMaxTiles) nt = kMaxTiles;
+    const size_t smem = Layout(nt, tile, side, rest).total;
+    const Config k(c, smem, nullptr);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, ch.fn, &k.cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters > 0) {
+      ch.c = c;
+      ch.nt = nt;
+      ch.smem = smem;
+      return cudaSuccess;
+    }
+  }
+  return cudaErrorInvalidConfiguration;  // no cluster fits: the window is too large
+}
+
+// Launch ``kernel`` as one cluster, of the size ``choose`` picks for it.
+template <class Tr, class Args, class SizesFn>
+int launch(void (*kernel)(Args), Args args, int key, SizesFn sizes, void* stream) {
+  Choice ch = {reinterpret_cast<const void*>(kernel), 0, key, 0, 0, 0};
+  cudaError_t err = cudaGetDevice(&ch.device);
+  if (err != cudaSuccess) return (int)err;
+  if (!find_choice(ch)) {
+    err = choose<Tr>(sizes, ch);
+    if (err != cudaSuccess) return (int)err;
+    keep_choice(ch);
+  }
+  args.nt = ch.nt;
+  const Config k(ch.c, ch.smem, stream);
+  err = cudaLaunchKernelEx(&k.cfg, kernel, args);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 template <class Tr>
-int fwd_typed(bool pivoted, const FwdArgs& a, int cluster, void* stream) {
+int fwd_typed(bool pivoted, const FwdArgs& a, void* stream) {
   auto sizes = [&](int c, size_t& side, size_t& rest) { fwd_sizes<Tr>(pivoted, a.B, c, side, rest); };
-  return pivoted ? launch<Tr>(band_fwd_kernel<Tr, true>, a, sizes, cluster, stream)
-                 : launch<Tr>(band_fwd_kernel<Tr, false>, a, sizes, cluster, stream);
+  return pivoted ? launch<Tr>(band_fwd_kernel<Tr, true>, a, a.B, sizes, stream)
+                 : launch<Tr>(band_fwd_kernel<Tr, false>, a, a.B, sizes, stream);
 }
 
 template <class Tr>
-int bwd_typed(const BwdArgs& a, int cluster, void* stream) {
+int bwd_typed(const BwdArgs& a, void* stream) {
   auto sizes = [&](int c, size_t& side, size_t& rest) { bwd_sizes<Tr>(a.S, c, side, rest); };
-  return launch<Tr>(band_bwd_kernel<Tr>, a, sizes, cluster, stream);
+  return launch<Tr>(band_bwd_kernel<Tr>, a, a.S, sizes, stream);
 }
 
 // type: 0 complex64, 1 float32 with one column, 2 float32 with two columns.
-int fwd_any(int type, bool pivoted, const FwdArgs& a, int cluster, void* stream) {
+int fwd_any(int type, bool pivoted, const FwdArgs& a, void* stream) {
   switch (type) {
-    case 0: return fwd_typed<C64>(pivoted, a, cluster, stream);
-    case 1: return fwd_typed<R32x1>(pivoted, a, cluster, stream);
-    case 2: return fwd_typed<R32x2>(pivoted, a, cluster, stream);
+    case 0: return fwd_typed<C64>(pivoted, a, stream);
+    case 1: return fwd_typed<R32x1>(pivoted, a, stream);
+    case 2: return fwd_typed<R32x2>(pivoted, a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -747,29 +803,24 @@ int fwd_any(int type, bool pivoted, const FwdArgs& a, int cluster, void* stream)
 }  // namespace
 
 extern "C" int band_fwd(int type, const void* band, const void* b, void* y, int64_t rows_total,
-                        int64_t nblk, int B, int cluster, void* stream) {
+                        int64_t nblk, int B, void* stream) {
   FwdArgs a = {band, nullptr, nullptr, nullptr, b, y, rows_total, nblk, B, 0};
-  return fwd_any(type, false, a, cluster, stream);
+  return fwd_any(type, false, a, stream);
 }
 
 extern "C" int band_fwd_pivoted(int type, const void* L2, const void* L1inv, const void* perms,
-                                const void* b, void* y, int64_t nblk, int B, int cluster,
-                                void* stream) {
+                                const void* b, void* y, int64_t nblk, int B, void* stream) {
   FwdArgs a = {nullptr, L2, L1inv, static_cast<const int64_t*>(perms), b, y, nblk, nblk, B, 0};
-  return fwd_any(type, true, a, cluster, stream);
+  return fwd_any(type, true, a, stream);
 }
 
 extern "C" int band_bwd(int type, const void* band, const void* dinv, const void* y, void* x,
-                        int64_t nsteps, int64_t nblk, int R, int s0, int S, int cluster,
-                        void* stream) {
+                        int64_t nsteps, int64_t nblk, int R, int s0, int S, void* stream) {
   BwdArgs a = {band, dinv, y, x, nsteps, nblk, R, s0, S, 0};
   switch (type) {
-    case 0: return bwd_typed<C64>(a, cluster, stream);
-    case 1: return bwd_typed<R32x1>(a, cluster, stream);
-    case 2: return bwd_typed<R32x2>(a, cluster, stream);
+    case 0: return bwd_typed<C64>(a, stream);
+    case 1: return bwd_typed<R32x1>(a, stream);
+    case 2: return bwd_typed<R32x2>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
-
-// The cluster size of the last launch.
-extern "C" int band_last_cluster() { return g_last_cluster; }

@@ -40,8 +40,6 @@ LAUNCHES = {f"{k}.{mode}.{t}": 0 for k in ("K1", "K2") for mode in ("pivot_free"
 
 _SRC = CSRC / "band_subst.cu"
 _NB = 128  # the block size the kernels are built for
-_SMEM_MAX = 232_448  # bytes of shared memory one H100 block may use
-_TILE_MAX = 8 * _NB * _NB // 16  # one tile of factor rows in a cluster of 16 blocks
 _lib: ctypes.CDLL | None = None
 
 
@@ -56,18 +54,13 @@ def _load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.band_fwd.argtypes = [i32, p, p, p, i64, i64, i32, i32, p]
-        lib.band_fwd_pivoted.argtypes = [i32, p, p, p, p, p, i64, i32, i32, p]
-        lib.band_bwd.argtypes = [i32, p, p, p, p, i64, i64, i32, i32, i32, i32, p]
-        for f in (lib.band_fwd, lib.band_fwd_pivoted, lib.band_bwd, lib.band_last_cluster):
+        lib.band_fwd.argtypes = [i32, p, p, p, i64, i64, i32, p]
+        lib.band_fwd_pivoted.argtypes = [i32, p, p, p, p, p, i64, i32, p]
+        lib.band_bwd.argtypes = [i32, p, p, p, p, i64, i64, i32, i32, i32, p]
+        for f in (lib.band_fwd, lib.band_fwd_pivoted, lib.band_bwd):
             f.restype = ctypes.c_int
         _lib = lib
     return _lib
-
-
-def last_cluster() -> int:
-    """Blocks in the cluster of the last kernel launch."""
-    return _load().band_last_cluster()
 
 
 # ---------------------------------------------------------------------------
@@ -104,11 +97,10 @@ def _shape(t: torch.Tensor, shape: tuple, what: str) -> None:
         raise ValueError(f"{what} must be {tuple(shape)}, got {tuple(t.shape)}")
 
 
-def _same(factor: torch.Tensor, tensors: list, kind: str, smem_vectors: int) -> None:
+def _same(factor: torch.Tensor, tensors: list) -> None:
     """One dtype and device for the factor tensors; on the card, what the
-    kernels take: contiguous 16-byte aligned tensors, nb = 128, and carry
-    windows of ``smem_vectors`` right-hand-side entries that leave room for
-    a tile of factor rows in shared memory."""
+    kernels take: contiguous 16-byte aligned tensors and nb = 128.  (A
+    carry window too large for shared memory fails the launch.)"""
     for t in tensors:
         if t.device != factor.device:
             raise ValueError("band substitution tensors must share one device")
@@ -122,9 +114,6 @@ def _same(factor: torch.Tensor, tensors: list, kind: str, smem_vectors: int) -> 
             raise ValueError("band substitution tensors must be contiguous and 16-byte aligned")
     if factor.shape[-1] != _NB:
         raise ValueError(f"the CUDA kernels are built for nb = {_NB}, got nb={factor.shape[-1]}")
-    entry = 4 if kind == "f32x1" else 8
-    if smem_vectors * entry + _TILE_MAX > _SMEM_MAX:
-        raise ValueError(f"the carry window ({smem_vectors} entries) exceeds shared memory")
 
 
 def _check_fwd(band: torch.Tensor, b: torch.Tensor) -> tuple[int, int, str]:
@@ -134,7 +123,7 @@ def _check_fwd(band: torch.Tensor, b: torch.Tensor) -> tuple[int, int, str]:
     if b.shape[1] != nb or b.shape[0] > band.shape[0]:
         raise ValueError(f"right-hand side must be (nblk <= {band.shape[0]}, {nb}, ...), "
                          f"got {tuple(b.shape)}")
-    _same(band, [band, b], kind, (B + 1) * nb)
+    _same(band, [band, b])
     return B, nb, kind
 
 
@@ -150,8 +139,7 @@ def _check_bwd(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor, *, pivot
         raise ValueError(f"{nblk} diagonal blocks for a band of {band.shape[0]} rows")
     _shape(dinv, (nblk, nb, nb), "Uinv" if pivoted else "dinv")
     _shape(y, (rows, nb) + tuple(y.shape[2:]), "y")
-    S = 2 * B if pivoted else B
-    _same(band, [band, dinv, y], kind, (S + 2) * nb)
+    _same(band, [band, dinv, y])
     return B, nb, kind
 
 
@@ -168,7 +156,7 @@ def _check_fwd_pivoted(L2: torch.Tensor, L1inv: torch.Tensor, perms: torch.Tenso
     if perms.dtype != torch.int64:
         raise TypeError(f"perms must be int64, got {perms.dtype}")
     _shape(perms, (nblk, (B + 1) * nb), "perms")
-    _same(L2, [L2, L1inv, perms, b], kind, (2 * B + 3) * nb)
+    _same(L2, [L2, L1inv, perms, b])
     return B, nb, kind
 
 
@@ -258,23 +246,21 @@ def _code(kind: str) -> int:
     return TYPES.index(kind)
 
 
-def fwd_substitute(band: torch.Tensor, b: torch.Tensor, *, cluster: int = 0) -> torch.Tensor:
+def fwd_substitute(band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """K1 pivot-free: forward substitution through L; (rows_total, nb[, m])
-    out.  ``cluster``: blocks in the kernel's cluster (0: the largest the
-    card can co-schedule, 16 on an H100)."""
+    out."""
     if not band.is_cuda:
         return fwd_substitute_plain(band, b)
     B, nb, kind = _check_fwd(band, b)
     y = torch.empty((band.shape[0],) + tuple(b.shape[1:]), dtype=b.dtype, device=b.device)
     err = _load().band_fwd(_code(kind), band.data_ptr(), b.data_ptr(), y.data_ptr(),
-                           band.shape[0], b.shape[0], B, cluster, stream())
+                           band.shape[0], b.shape[0], B, stream())
     raise_on(err, "band_fwd_kernel")
     LAUNCHES[f"K1.pivot_free.{kind}"] += 1
     return y
 
 
-def bwd_substitute(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor, *,
-                   cluster: int = 0) -> torch.Tensor:
+def bwd_substitute(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """K2 pivot-free: backward substitution through U with the Dinv
     product; (nblk, nb[, m]) out."""
     if not band.is_cuda:
@@ -283,15 +269,14 @@ def bwd_substitute(band: torch.Tensor, dinv: torch.Tensor, y: torch.Tensor, *,
     nblk = dinv.shape[0]
     x = torch.empty((nblk,) + tuple(y.shape[1:]), dtype=y.dtype, device=y.device)
     err = _load().band_bwd(_code(kind), band.data_ptr(), dinv.data_ptr(), y.data_ptr(),
-                           x.data_ptr(), band.shape[0], nblk, 2 * B + 1, B + 1, B, cluster,
-                           stream())
+                           x.data_ptr(), band.shape[0], nblk, 2 * B + 1, B + 1, B, stream())
     raise_on(err, "band_bwd_kernel")
     LAUNCHES[f"K2.pivot_free.{kind}"] += 1
     return x
 
 
 def fwd_substitute_pivoted(L2: torch.Tensor, L1inv: torch.Tensor, perms: torch.Tensor,
-                           b: torch.Tensor, *, cluster: int = 0) -> torch.Tensor:
+                           b: torch.Tensor) -> torch.Tensor:
     """K1 pivoted: forward through the panel permutations, L1^-1 and the
     L2 window update; (nblk, nb[, m]) out."""
     if not L2.is_cuda:
@@ -300,14 +285,13 @@ def fwd_substitute_pivoted(L2: torch.Tensor, L1inv: torch.Tensor, perms: torch.T
     y = torch.empty_like(b)
     err = _load().band_fwd_pivoted(_code(kind), L2.data_ptr(), L1inv.data_ptr(),
                                    perms.data_ptr(), b.data_ptr(), y.data_ptr(), b.shape[0], B,
-                                   cluster, stream())
+                                   stream())
     raise_on(err, "band_fwd_kernel (pivoted)")
     LAUNCHES[f"K1.pivoted.{kind}"] += 1
     return y
 
 
-def bwd_substitute_pivoted(band: torch.Tensor, Uinv: torch.Tensor, y: torch.Tensor, *,
-                           cluster: int = 0) -> torch.Tensor:
+def bwd_substitute_pivoted(band: torch.Tensor, Uinv: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """K2 pivoted: backward through the 2B upper slots with U^-1;
     (nblk, nb[, m]) out."""
     if not band.is_cuda:
@@ -316,7 +300,7 @@ def bwd_substitute_pivoted(band: torch.Tensor, Uinv: torch.Tensor, y: torch.Tens
     nblk = Uinv.shape[0]
     x = torch.empty_like(y)
     err = _load().band_bwd(_code(kind), band.data_ptr(), Uinv.data_ptr(), y.data_ptr(),
-                           x.data_ptr(), nblk, nblk, 2 * B + 1, 1, 2 * B, cluster, stream())
+                           x.data_ptr(), nblk, nblk, 2 * B + 1, 1, 2 * B, stream())
     raise_on(err, "band_bwd_kernel (pivoted)")
     LAUNCHES[f"K2.pivoted.{kind}"] += 1
     return x
@@ -342,5 +326,5 @@ __all__ = [
     "LAUNCHES", "TYPES", "build", "bwd_substitute", "bwd_substitute_pivoted",
     "bwd_substitute_pivoted_plain", "bwd_substitute_plain", "fwd_substitute",
     "fwd_substitute_pivoted", "fwd_substitute_pivoted_plain", "fwd_substitute_plain",
-    "last_cluster", "reset_launches", "solve_banded", "solve_pivoted",
+    "reset_launches", "solve_banded", "solve_pivoted",
 ]
