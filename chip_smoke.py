@@ -19,7 +19,13 @@ non-zero):
      ``_pfactor`` (each pair is timed once); the gather G against
      ``x[idx]`` at the probes' shapes (``run_a``: x 2^17 f32, idx
      (1024, 16); ``pallas_two_pass``: x (4096, 128) f32, 2^18 x 128
-     lane-unique indices), exact;
+     lane-unique indices), exact; G's permute-in and permute-out in every
+     type pair (f64 / complex128 into complex64, float32 x1 and x2, and
+     back) on a random padded permutation, exact; S in every mode (real,
+     complex, shifted, shifted with M x) and both orders against its
+     plain version, relative error <= 1e-12 (``SPMV_REL_TOL``), on a
+     random matrix with empty rows, tiles of the most rows a tile holds
+     and a row longer than a tile;
   3. this slice's main path, the reference's device path
      (``bench.py`` ``_pipeline``): the reduced cylinder (43,671
      Taylor-Hood DOFs) at Re = 47, ramped Newton baseflow on the banded
@@ -31,29 +37,35 @@ non-zero):
      tensor).  Launch counts are zeroed just before and read after each
      stage: the leading eigenvalue must be within 1e-4 of +0.0050+0.7526j
      and within 5e-7 of the card's recorded +0.004991+0.752636j, with
-     residual <= 1e-8; S and G must launch in the baseflow and in the
-     eigen stage, and K1/K2 once per band solve, pivoted f32 with one
-     column in the baseflow and pivoted complex64 in the eigen stage;
+     residual <= 1e-8; in each stage K1/K2 once per band solve (pivoted
+     f32 with one column in the baseflow, pivoted complex64 in the eigen
+     stage), G's permute-in and permute-out once each per band solve in
+     the factor's type, no flat-form complex128 G, and exactly one S
+     launch, in the original order, per original-order matvec
+     (``matvecs()`` counts them);
   3b. the pivot-free path on the same (A, M): ``LSAFW_PIVOT_MEM_GB=0``
      takes the pivot-free factor, whose substitution runs through K1/K2
      pivot-free (counts zeroed just before, read after): sigma within
-     1e-8 of phase 3's, the residual gate, K1/K2 once per band solve, and
-     the card's factor contracting within 3x of the same factor built in
-     f32 on the host CPU;
+     1e-8 of phase 3's, the residual gate, the launch gates of phase 3,
+     and the card's factor contracting within 3x of the same factor
+     built in f32 on the host CPU;
   4. S against its plain version on the slice's (A, M) at sigma = 0.74j
-     in each mode (relative error <= 1e-12); G against ``x[idx]`` on the
-     main path's own inputs, exact: the f64 CSR value refill (nnz
-     indices) and the complex128 band permutations in and out; K1/K2 in
-     each mode and type against their plain versions on the main path's
-     own factors (the eigen stage's pivoted factor, phase 3b's pivot-free
-     one, and a real pivoted and pivot-free factor on the baseflow's
-     plan), and the times (medians of CUDA-event timings: K1/K2 one call
-     at a time, each band being larger than L2; G and S with the L2 cache
-     evicted before each call, as the main path's band solves leave it)
-     of every kernel beside its plain version, bound and library call;
-     one pivoted solve against the torch loops, the panel LU backends, and
-     the card's busy share of one pivoted shift-invert apply under
-     ``torch.profiler``.
+     in each mode and order (relative error <= 1e-12); G against its
+     plain versions on the main path's own inputs, exact: the f64 CSR
+     value refill (nnz indices), the complex128 flat gather, and the
+     permute forms on the eigen stage's complex plan and the baseflow's
+     real plan; K1/K2 in each mode and type against their plain versions
+     on the main path's own factors (the eigen stage's pivoted factor,
+     phase 3b's pivot-free one, and a real pivoted and pivot-free factor
+     on the baseflow's plan), and the times (medians of CUDA-event
+     timings: K1/K2 one call at a time, each band being larger than L2;
+     G and S with the L2 cache evicted before each call, as the main
+     path's band solves leave it) of every kernel beside its plain
+     version, bound and library call (for the permute forms also the op
+     sequence they replace); one pivoted solve against the torch loops,
+     the panel LU backends, and the device operations, wall time and
+     busy share of one pivoted shift-invert apply and of eight GCR
+     iterations of a real banded solve under ``torch.profiler``.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, and ``{"ok": true, "device": {...}}``.
@@ -160,9 +172,10 @@ def cold_ms(fn, calls: int = 20, reps: int = 5) -> float:
     return graph_ms(lambda: (flush.zero_(), fn()), calls, reps) - graph_ms(flush.zero_, calls, reps)
 
 
-def device_busy(fn) -> tuple[float, float]:
-    """(wall ms, device-busy ms) of one synchronised call of ``fn`` under
-    ``torch.profiler``: the kernels' summed self time."""
+def device_busy(fn) -> tuple[float, float, int]:
+    """(wall ms, device-busy ms, device operations) of one synchronised call
+    of ``fn`` under ``torch.profiler``: the kernels' summed self time, and
+    the count of kernels, copies and fills the card ran."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -173,7 +186,8 @@ def device_busy(fn) -> tuple[float, float]:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     busy = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()) / 1e3
-    return wall, busy
+    ops = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return wall, busy, ops
 
 
 def rel_err(got, ref) -> tuple[float, float]:
@@ -397,6 +411,58 @@ def band_solves():
         tband._PermutedSolve.solve = solve
 
 
+@contextmanager
+def matvecs():
+    """Count the original-order matvecs of the refinement operators
+    (``BCSROperator.matvec``, which ``matvec_pair`` calls, and
+    ``BCSRShiftedOp.matvec_pair`` / ``mass_pair``) while the block runs."""
+    from lsafw_tpu_torch.ops import bcsr
+
+    seen = {"matvecs": 0}
+    methods = [(bcsr.BCSROperator, "matvec"), (bcsr.BCSRShiftedOp, "matvec_pair"),
+               (bcsr.BCSRShiftedOp, "mass_pair")]
+    saved = [getattr(cls, name) for cls, name in methods]
+
+    def counted(fn):
+        def call(*args, **kw):
+            seen["matvecs"] += 1
+            return fn(*args, **kw)
+
+        return call
+
+    for (cls, name), fn in zip(methods, saved):
+        setattr(cls, name, counted(fn))
+    try:
+        yield seen
+    finally:
+        for (cls, name), fn in zip(methods, saved):
+            setattr(cls, name, fn)
+
+
+def gate_permutes_and_spmv(what: str, launches: dict, types: str, solves: int,
+                           n_matvecs: int) -> None:
+    """G's permute-in and permute-out once each per band solve, in the
+    stage's types (``"f64.f32x1"``: an f64 vector into one float32
+    column and back); no flat-form complex128 G; and exactly one S launch,
+    in the original order, per original-order matvec."""
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+
+    src, kind = types.split(".")
+    pin = {t: launches[f"permute_in.{t}"] for t in sc.PERMUTES["in"]}
+    pout = {t: launches[f"permute_out.{t}"] for t in sc.PERMUTES["out"]}
+    s_orig = sum(launches[m + ".original"] for m in sc.SPMV_KEYS)
+    s_perm = sum(launches[m] for m in sc.SPMV_KEYS)
+    if not (pin[types] == pout[f"{kind}.{src}"] == sum(pin.values()) == sum(pout.values())
+            == solves > 0):
+        raise RuntimeError(f"{what}: permute-in {pin} and permute-out {pout} for {solves} band "
+                           f"solves of types {types}")
+    if launches["gather_c128"]:
+        raise RuntimeError(f"{what}: {launches['gather_c128']} flat-form complex128 G launches")
+    if not (s_orig == n_matvecs > 0) or s_perm:
+        raise RuntimeError(f"{what}: {s_orig} original-order and {s_perm} permuted S launches for "
+                           f"{n_matvecs} original-order matvecs")
+
+
 def gate_band_launches(what: str, launches: dict, key: str, solves: int) -> None:
     """K1 and K2 in one mode and type launched once per band solve, and no
     other band substitution launched."""
@@ -456,6 +522,64 @@ def check_gather(gi: dict) -> dict:
     return out
 
 
+def permute_cases(b_real, b_cplx, perm, iperm, nb: int, keys=None) -> dict:
+    """G's permutation forms in every type pair of ``spmv_cuda.PERMUTES``
+    (or those of ``keys``), as ``(form, "<from>.<to>")`` -> (kernel call,
+    plain call): into the band's order from an f64 or complex128 b
+    (complex64, or float32 with one or two columns) and out of it (to f64
+    or complex128; a complex64 x to f64 keeps its real part), on
+    band-order blocks made from the b's."""
+    import torch
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+
+    b_of = {"f64": b_real, "c128": b_cplx}
+    dt_of = {"c64": torch.complex64, "f32x1": torch.float32, "f32x2": torch.float32}
+    out = {}
+    for src, kind in (t.split(".") for t in sc.PERMUTES["in"]):
+        b, dt = b_of[src], dt_of[kind]
+        if keys is None or ("in", f"{src}.{kind}") in keys:
+            out[("in", f"{src}.{kind}")] = (lambda b=b, dt=dt: sc.permute_in(b, perm, nb, dt),
+                                            lambda b=b, dt=dt: sc.permute_in_plain(b, perm, nb, dt))
+        if keys is None or ("out", f"{kind}.{src}") in keys:
+            x = sc.permute_in_plain(b, perm, nb, dt)
+            out[("out", f"{kind}.{src}")] = (
+                lambda x=x, to=b.dtype: sc.permute_out(x, iperm, to),
+                lambda x=x, to=b.dtype: sc.permute_out_plain(x, iperm, to))
+    return out
+
+
+def check_permutes(cases: dict, what: str) -> None:
+    """Each permute form against its plain version: equal, bit for bit."""
+    import torch
+
+    for (form, types), (kern, plain) in cases.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        same = got.dtype == ref.dtype and got.shape == ref.shape and torch.equal(got, ref)
+        log(f"  G permute-{form} {types} {what}: {tuple(got.shape)} {got.dtype}, "
+            f"{'equal' if same else 'DIFFERENT'}")
+        if not same:
+            raise RuntimeError(f"G permute-{form} ({types}) disagrees with its plain version "
+                               f"{what}")
+
+
+def random_permutation(n: int, nb: int, device, seed: int):
+    """A padded band permutation from a seed: n vector entries and their
+    padding up to whole blocks of nb (plus one), shuffled together; the
+    inverse gives each entry's slot.  Returns (f64 b, complex128 b, perm,
+    iperm)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    npad = (n // nb + 2) * nb
+    perm = torch.randperm(npad, generator=g, device=device)
+    iperm = torch.argsort(perm)[:n].to(torch.int32)
+    br = torch.randn(n, generator=g, device=device, dtype=torch.float64)
+    bc = torch.complex(torch.randn(n, generator=g, device=device, dtype=torch.float64),
+                       torch.randn(n, generator=g, device=device, dtype=torch.float64))
+    return br, bc, perm.to(torch.int32), iperm
+
+
 def gather_bound(elem: int, x_touched: int, index_bytes: int, count: int) -> tuple[float, str]:
     """The x elements this run's indices touch, the indices, the output
     (``elem`` bytes per value)."""
@@ -463,32 +587,46 @@ def gather_bound(elem: int, x_touched: int, index_bytes: int, count: int) -> tup
 
 
 def main_path_gathers(A, cop, device) -> dict:
-    """G at the main path's own types and shapes, as (x, idx) pairs: the
-    f64 CSR value refill (A's values through the permuted CSR's slot
-    map, nnz indices), and the complex128 permutations of a band solve,
-    into the band's order (a vector of nblk_pad * nb through the complex
-    plan's perm_pad) and back out (iperm, n indices)."""
+    """G at the main path's own types and shapes: the flat form as (x, idx)
+    pairs, the f64 CSR value refill (A's values through the permuted CSR's
+    slot map, nnz indices, padded) and a complex128 band permutation (not
+    on the main path since the permute forms); the permute forms on the
+    eigen stage's complex plan (complex128 b) and the baseflow's real
+    plan (f64 b), on vectors from a seed."""
     import torch
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
     from lsafw_tpu_torch.solver.band import plan_for_csr
 
     ix = plan_for_csr(A).on(device)  # the eigen stage's cached complex plan
+    rx = plan_for_csr(A, real=True).on(device)  # the baseflow's real plan of the same pattern
     g = torch.Generator(device=device).manual_seed(3)
+    n = A.shape[0]
     npad = ix["perm_pad"].numel()
     xc = torch.complex(torch.randn(npad, generator=g, device=device, dtype=torch.float64),
                        torch.randn(npad, generator=g, device=device, dtype=torch.float64))
-    return {"f64": [(A.data.contiguous(), cop.plan.on(device)["src"])],
-            "c128": [(xc, ix["perm_pad"]), (xc, ix["iperm"])]}
+    br = torch.randn(n, generator=g, device=device, dtype=torch.float64)
+    bc = torch.complex(torch.randn(n, generator=g, device=device, dtype=torch.float64),
+                       torch.randn(n, generator=g, device=device, dtype=torch.float64))
+    nb = 128
+    cplx = {(f, t) for f in ("in", "out") for t in sc.PERMUTES[f] if "c64" in t}
+    real = {(f, t) for f in ("in", "out") for t in sc.PERMUTES[f] if "f32" in t}
+    permutes = {**permute_cases(br, bc, ix["perm_pad"], ix["iperm"], nb, cplx),
+                **permute_cases(br, bc, rx["perm_pad"], rx["iperm"], nb, real)}
+    return {"f64": [(A.data.contiguous(), cop.plan.on(device).src)],
+            "c128": [(xc, ix["perm_pad"])], "permutes": permutes,
+            "plans": {"c64": (ix, bc, br), "f32": (rx, bc, br)}}
 
 
 def check_main_gathers(pairs: dict) -> dict:
-    """G against ``x[idx]`` on the main path's inputs: exact."""
+    """G's flat form against ``x[idx]`` and the permute forms against
+    their plain versions on the main path's inputs: exact."""
     import torch
     from lsafw_tpu_torch.ops import spmv_cuda as sc
 
     out = {}
-    for kind, cases in pairs.items():
+    for kind in ("f64", "c128"):
         errs = []
-        for x, idx in cases:
+        for x, idx in pairs[kind]:
             got = sc.gather(x, idx)
             ref = sc.gather_plain(x, idx)
             torch.cuda.synchronize()
@@ -498,7 +636,34 @@ def check_main_gathers(pairs: dict) -> dict:
         if max(errs) != 0.0:
             raise RuntimeError(f"G ({kind}) disagrees with x[idx] on the main path's inputs: {errs}")
         out[kind] = max(errs)
+    check_permutes(pairs["permutes"], "on the main path's plans")
     return out
+
+
+def op_sequence_in(b, perm, n: int, nb: int, dtype):
+    """The op sequence the permute-in form replaces (zeros, copy, the flat
+    G gather, the cast, and the stack into columns), as a yardstick."""
+    import torch
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+
+    cols = [b] if dtype.is_complex else ([b.real, b.imag] if b.is_complex() else [b])
+    outs = []
+    for c in cols:
+        bp = torch.zeros(perm.numel(), dtype=c.dtype, device=c.device)
+        bp[:n] = c
+        outs.append(sc.gather(bp, perm).to(dtype).reshape(-1, nb))
+    return outs[0] if dtype.is_complex else torch.stack(outs, dim=2)
+
+
+def op_sequence_out(x, iperm, dtype):
+    """The op sequence the permute-out form replaces (the cast up and the
+    flat G gather, per column)."""
+    import torch
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+
+    if x.is_complex():
+        return sc.gather(x.reshape(-1).to(torch.complex128), iperm)
+    return sc.gather(x[:, :, 0].reshape(-1).to(torch.float64), iperm)
 
 
 # ---------------------------------------------------------------------------
@@ -566,6 +731,10 @@ def forbid_host_lu() -> None:
         setattr(mod, name, no_host_lu)
 
 
+def nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
 def counts() -> dict:
     from lsafw_tpu_torch.ops import spmv_cuda
     from lsafw_tpu_torch.solver import band_cuda
@@ -614,7 +783,7 @@ def main_path(case) -> dict:
 
     reset_counts()
     t0 = time.time()
-    with band_solves() as base_solves:
+    with band_solves() as base_solves, matvecs() as base_mv:
         solver = BaseFlowSolver(case["ctx"], case["mesh"], case["bcs_base"], re=47.0)
         w = solver.solve(ramp=True, steps=3, tol=1e-8, max_it=40, linear_solver="banded")
         torch.cuda.synchronize()
@@ -626,7 +795,7 @@ def main_path(case) -> dict:
     torch.cuda.synchronize()
     t_asm = time.time() - t0
     reset_counts()
-    with band_solves() as eig_solves:
+    with band_solves() as eig_solves, matvecs() as eig_mv:
         sigma, resid, op, t_eig = leading_pair(A, M)
     eig_counts = counts()
     st = solver.stats
@@ -640,8 +809,13 @@ def main_path(case) -> dict:
     log(f"phase 3: sigma = {sigma.real:+.12f}{sigma.imag:+.12f}j, residual {resid:.2e}; "
         f"pivoted factor {op.pivoted}, contraction {op.rho:.2e}, refinement cap "
         f"{op.refine_its}, {op.applies} shift-invert applies")
-    log(f"phase 3: band solves in baseflow {base_solves}, in eigen {eig_solves}")
-    log(f"phase 3: launches in baseflow {base_counts}; in eigen {eig_counts}")
+    log(f"phase 3: band solves in baseflow {base_solves}, in eigen {eig_solves}; original-order "
+        f"matvecs in baseflow {base_mv['matvecs']}, in eigen {eig_mv['matvecs']}")
+    log(f"phase 3: launches in baseflow {nonzero(base_counts)}; in eigen {nonzero(eig_counts)}")
+    ours = sum(base_counts.values())
+    log(f"phase 3: baseflow: {ours} launches of the port's kernels in {st['gcr_its']} GCR "
+        f"iterations and {st['solves']} band solves: {ours / max(st['gcr_its'], 1):.2f} per GCR "
+        f"iteration")
     gate_sigma("phase 3", sigma, resid)
     gate_band_launches("phase 3 baseflow", base_counts, "pivoted.f32x1",
                        base_solves.get("RealPivotedBandedLU", 0))
@@ -653,16 +827,20 @@ def main_path(case) -> dict:
         raise RuntimeError("phase 3 did not take the pivoted factor with the fused matvecs")
     if st["pivoted"] != st["factors"] or st["factors"] == 0:
         raise RuntimeError(f"the baseflow did not factor pivoted on the card: {st}")
-    if min(base_counts["spmv_real"], base_counts["gather_f64"]) <= 0:
-        raise RuntimeError(f"S or G never launched in the baseflow: {base_counts}")
-    if min(eig_counts["spmv_shifted"], eig_counts["spmv_complex"], eig_counts["gather_f64"],
-           eig_counts["gather_c128"]) <= 0:
-        raise RuntimeError(f"S or G never launched in the eigen stage: {eig_counts}")
+    gate_permutes_and_spmv("phase 3 baseflow", base_counts, "f64.f32x1",
+                           base_solves.get("RealPivotedBandedLU", 0), base_mv["matvecs"])
+    gate_permutes_and_spmv("phase 3 eigen", eig_counts, "c128.c64",
+                           eig_solves.get("PivotedBandedLU", 0), eig_mv["matvecs"])
+    if min(base_counts["spmv_real.original"], base_counts["gather_f64"]) <= 0:
+        raise RuntimeError(f"S or G never launched in the baseflow: {nonzero(base_counts)}")
+    if min(eig_counts["spmv_shifted.original"], eig_counts["spmv_complex.original"],
+           eig_counts["gather_f64"]) <= 0:
+        raise RuntimeError(f"S or G never launched in the eigen stage: {nonzero(eig_counts)}")
     launches = {k: base_counts[k] + eig_counts[k] for k in base_counts}
     stages = dict(mesh=case["seconds"], baseflow=t_base, assemble=t_asm, eigen=t_eig,
                   factor=op.factor_seconds)
     return dict(A=A, M=M, op=op, launches=launches, stages=stages, newton=st,
-                sigma=sigma, resid=resid)
+                sigma=sigma, resid=resid, per_gcr=ours / max(st["gcr_its"], 1))
 
 
 def host_contraction(op) -> float:
@@ -683,12 +861,13 @@ def pivot_free_path(A, M, sigma_main: complex) -> dict:
     os.environ["LSAFW_PIVOT_MEM_GB"] = "0"
     try:
         reset_counts()
-        with band_solves() as solves, plain_loops_forbidden():
+        with band_solves() as solves, matvecs() as mv, plain_loops_forbidden():
             sigma, resid, op, t_eig = leading_pair(A, M)
         launches = counts()
         log(f"phase 3b: pivot-free: sigma = {sigma.real:+.12f}{sigma.imag:+.12f}j, residual "
             f"{resid:.2e}, eigen {t_eig:.2f} s (factor {op.factor_seconds:.2f} s), contraction "
-            f"{op.rho:.2e}, {op.applies} applies, band solves {solves}; launches {launches}")
+            f"{op.rho:.2e}, {op.applies} applies, band solves {solves}, original-order matvecs "
+            f"{mv['matvecs']}; launches {nonzero(launches)}")
         gate_sigma("phase 3b", sigma, resid)
         if abs(sigma - sigma_main) > 1e-8:
             raise RuntimeError(f"phase 3b: sigma {sigma} is not within 1e-8 of phase 3's "
@@ -696,6 +875,8 @@ def pivot_free_path(A, M, sigma_main: complex) -> dict:
         if op.pivoted:
             raise RuntimeError("phase 3b did not take the pivot-free factor")
         gate_band_launches("phase 3b", launches, "pivot_free.c64", solves.get("BandedLU", 0))
+        gate_permutes_and_spmv("phase 3b", launches, "c128.c64", solves.get("BandedLU", 0),
+                               mv["matvecs"])
         t0 = time.time()
         rho_host = host_contraction(op)
     finally:
@@ -713,57 +894,113 @@ def pivot_free_path(A, M, sigma_main: complex) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def spmv_modes(cop, A, M, device) -> dict:
-    """S's modes on the slice's (A, M): (kernel call, plain call, cuSPARSE
-    call, bytes, flops) on permuted inputs made from a seed."""
+S_KEYS = {"real": "spmv_real", "shifted": "spmv_shifted", "shifted_mass": "spmv_shifted",
+          "mass": "spmv_complex"}
+
+
+def spmv_cases(cop, device, csrs: dict | None = None) -> dict:
+    """S's modes in both orders on a shifted operator's storage, as
+    ``(mode, order)`` -> (kernel call, plain call), on vectors made from a
+    seed: real (A x, f64 x), shifted ((A - sigma M) x), shifted_mass (the
+    same and M x), mass (M x, complex128 x).  ``csrs`` replaces the
+    plan's operands in either order."""
     import torch
     from lsafw_tpu_torch.ops import spmv_cuda as sc
-    from lsafw_tpu_torch.ops.sparse import spmv
 
-    ix = cop.plan.on(device)
-    crow, col, rows = ix["crow"], ix["col"], ix["rows"]
-    n, nnz = cop.plan.n, cop.plan.nnz
+    csrs = csrs or {o: cop.plan.on(device, o) for o in ("permuted", "original")}
     g = torch.Generator(device=device).manual_seed(2)
+    n = cop.plan.n
     xr = torch.randn(n, generator=g, device=device, dtype=torch.float64)
     xc = torch.complex(xr, torch.randn(n, generator=g, device=device, dtype=torch.float64))
     s = cop.sigma
-    structure = (n + 1) * 8 + nnz * 4
-    return {
-        "real": (lambda: sc.csr_spmv(crow, col, rows, cop.vA, xr),
-                 lambda: sc.csr_spmv_plain(crow, col, rows, cop.vA, xr),
-                 lambda: spmv(A, xr),
-                 structure + nnz * 8 + 2 * n * 8, 2 * nnz),
-        "shifted": (lambda: sc.csr_shifted_spmv(crow, col, rows, cop.vA, cop.vM, xc, s),
-                    lambda: sc.csr_spmv_plain(crow, col, rows, cop.vA, xc, cop.vM, s),
-                    lambda: spmv(A, xc) - s * spmv(M, xc),
-                    structure + 2 * nnz * 8 + 2 * n * 16, 8 * nnz + 8 * n),
-        "shifted_mass": (
-            lambda: sc.csr_shifted_spmv(crow, col, rows, cop.vA, cop.vM, xc, s, mass=True),
-            lambda: sc.csr_spmv_plain(crow, col, rows, cop.vA, xc, cop.vM, s, mass=True),
-            lambda: (lambda m: (spmv(A, xc) - s * m, m))(spmv(M, xc)),
-            structure + 2 * nnz * 8 + 3 * n * 16, 8 * nnz + 8 * n),
-        "mass": (lambda: sc.csr_spmv(crow, col, rows, cop.vM, xc),
-                 lambda: sc.csr_spmv_plain(crow, col, rows, cop.vM, xc),
-                 lambda: spmv(M, xc),
-                 structure + nnz * 8 + 2 * n * 16, 4 * nnz),
-    }
+    out = {}
+    for order in ("permuted", "original"):
+        c = csrs[order]
+        out[("real", order)] = (lambda c=c: sc.csr_spmv(c, cop.vA, xr),
+                                lambda c=c: sc.csr_spmv_plain(c, cop.vA, xr))
+        out[("shifted", order)] = (lambda c=c: sc.csr_shifted_spmv(c, cop.vA, cop.vM, xc, s),
+                                   lambda c=c: sc.csr_spmv_plain(c, cop.vA, xc, cop.vM, s))
+        out[("shifted_mass", order)] = (
+            lambda c=c: sc.csr_shifted_spmv(c, cop.vA, cop.vM, xc, s, mass=True),
+            lambda c=c: sc.csr_spmv_plain(c, cop.vA, xc, cop.vM, s, mass=True))
+        out[("mass", order)] = (lambda c=c: sc.csr_spmv(c, cop.vM, xc),
+                                lambda c=c: sc.csr_spmv_plain(c, cop.vM, xc))
+    return out
 
 
-def check_spmv(modes: dict) -> dict:
-    """S against its plain version in every mode: rel <= 1e-12."""
+def spmv_library(A, M, sigma, device) -> dict:
+    """The cuSPARSE yardstick of each mode (the CSR pair in the original
+    order, which is each original-order apply's own function), on the
+    vectors of :func:`spmv_cases`."""
+    import torch
+    from lsafw_tpu_torch.ops.sparse import spmv
+
+    g = torch.Generator(device=device).manual_seed(2)
+    n = A.shape[0]
+    xr = torch.randn(n, generator=g, device=device, dtype=torch.float64)
+    xc = torch.complex(xr, torch.randn(n, generator=g, device=device, dtype=torch.float64))
+    return {"real": lambda: spmv(A, xr),
+            "shifted": lambda: spmv(A, xc) - sigma * spmv(M, xc),
+            "shifted_mass": lambda: (lambda m: (spmv(A, xc) - sigma * m, m))(spmv(M, xc)),
+            "mass": lambda: spmv(M, xc)}
+
+
+def spmv_work(mode: str, order: str, n: int, nnz: int, ntiles: int) -> tuple[float, float]:
+    """(bytes, f64 operations) S must move and do: columns and values,
+    row pointers, S's tiles, x once, the permutation in the original
+    order, the outputs (complex multiply-add of a real value 4 flops)."""
+    structure = (n + 1) * 8 + nnz * 4 + (ntiles + 1) * 12 + (n * 4 if order == "original" else 0)
+    return {"real": (structure + nnz * 8 + 2 * n * 8, 2 * nnz),
+            "shifted": (structure + 2 * nnz * 8 + 2 * n * 16, 8 * nnz + 8 * n),
+            "shifted_mass": (structure + 2 * nnz * 8 + 3 * n * 16, 8 * nnz + 8 * n),
+            "mass": (structure + nnz * 8 + 2 * n * 16, 4 * nnz)}[mode]
+
+
+def check_spmv(cases: dict, what: str) -> dict:
+    """S against its plain version in every mode and order: rel <= 1e-12
+    (and one call's time with its host overhead, CUDA events)."""
     import torch
 
     out = {}
-    for name, (kern, plain, *_rest) in modes.items():
+    for (mode, order), (kern, plain) in cases.items():
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
         a, r = (max(v) for v in zip(*(rel_err(g_, r_) for g_, r_ in pairs)))
-        log(f"  S {name}: max abs err {a:.3e}, rel {r:.3e}")
+        log(f"  S {mode} {order} {what}: max abs err {a:.3e}, rel {r:.3e}; one call "
+            f"{cuda_ms(kern, 3):.4f} ms")
         if not np.isfinite(r) or r > SPMV_REL_TOL:
-            raise RuntimeError(f"S ({name}) disagrees with its plain version (rel {r:.3e})")
-        out[name] = a
+            raise RuntimeError(f"S ({mode}, {order}) {what} disagrees with its plain version "
+                               f"(rel {r:.3e})")
+        out[(mode, order)] = a
     return out
+
+
+def random_shifted_op(n: int, device, seed: int):
+    """A shifted operator on a random pattern from a seed: 0 to 59
+    nonzeros a row, every 97th row empty, row 5 of 5,000 nonzeros (longer
+    than a tile), under a random permutation that puts rows of one nonzero
+    at 1,000 to 1,599 (tiles of the most rows a tile holds)."""
+    import torch
+    import scipy.sparse as sp
+    from lsafw_tpu_torch.ops import bcsr
+
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    lens = rng.integers(0, 60, n)
+    lens[perm[1000:1600]] = 1
+    lens[::97] = 0
+    lens[5] = 5000
+    rows = [np.unique(rng.integers(0, n, k)) for k in lens]
+    cols = np.concatenate(rows)
+    indptr = np.concatenate([[0], np.cumsum([r.size for r in rows])])
+    A = sp.csr_matrix((rng.standard_normal(cols.size), cols, indptr), shape=(n, n))
+    plan = bcsr.BCSRPlan.build(A, perm=perm)
+
+    def vals():
+        return bcsr._values(plan, torch.as_tensor(rng.standard_normal(A.nnz), device=device))
+
+    return bcsr.BCSRShiftedOp(vals(), vals(), 0.3 + 0.74j, plan)
 
 
 def main_path_factors(mp: dict, pf: dict) -> list:
@@ -836,6 +1073,31 @@ def band_kernels(mp: dict, pf: dict, errs: dict, device) -> list:
     return out
 
 
+def gcr_iterations(mp: dict, device, its: int = 8) -> tuple[float, float, int, int]:
+    """(wall ms, busy ms, device operations, iterations) of ``its`` GCR
+    iterations of ``_banded_mr`` (the baseflow's refinement) on the real
+    pivoted factor of A - Re(sigma) M, under the profiler (after one warm
+    run)."""
+    import torch
+    from lsafw_tpu_torch.ops.bcsr import operator_for_budget
+    from lsafw_tpu_torch.ops.sparse import CSRMatrix
+    from lsafw_tpu_torch.solver import band as tband
+    from lsafw_tpu_torch.solver.newton import _banded_mr
+
+    A, M = mp["A"], mp["M"]
+    J = CSRMatrix(A.pattern, A.data - mp["op"].sigma.real * M.data)
+    blu = tband.factor_auto(tband.plan_for_csr(J, real=True), J.data)[0]
+    Jop = operator_for_budget(J)
+    b = torch.randn(J.shape[0], dtype=torch.float64, device=device)
+
+    def run():
+        return _banded_mr(J, blu, b, Jop, tol=0.0, max_its=its)
+
+    run()
+    wall, busy, ops = device_busy(run)
+    return wall, busy, ops, its
+
+
 def main() -> int:
     import torch
 
@@ -873,8 +1135,14 @@ def main() -> int:
                 del f
     gi = gather_inputs(dev)
     g_errs = check_gather(gi)
+    br, bc, perm, iperm = random_permutation(10007, nb, dev, seed=4)
+    check_permutes(permute_cases(br, bc, perm, iperm, nb), "on a random permutation")
+    rop = random_shifted_op(20011, dev, seed=5)
+    check_spmv(spmv_cases(rop, dev), "on a random matrix")
+    del rop
     log(f"phase 2: K1/K2 match their plain versions in both modes and every type at (B, block "
-        f"rows) {PHASE2_SHAPES}; G matches x[idx] at the probes' shapes")
+        f"rows) {PHASE2_SHAPES}; G matches x[idx] at the probes' shapes, its permute forms "
+        f"their plain versions; S its plain version in every mode and order")
     if "--kernels" in sys.argv[1:]:
         return 0
 
@@ -886,18 +1154,20 @@ def main() -> int:
 
     # phase 4: agreement and times
     cop = mp["op"].device_op.Cop
-    modes = spmv_modes(cop, mp["A"], mp["M"], dev)
-    s_errs = check_spmv(modes)
+    cases = spmv_cases(cop, dev)
+    s_errs = check_spmv(cases, "on the main path's (A, M)")
     mg = main_path_gathers(mp["A"], cop, dev)
     mg_errs = check_main_gathers(mg)
     kernels = band_kernels(mp, pf, errs, dev)
+    launches = {k: mp["launches"][k] + pf["launches"][k] for k in sc.LAUNCHES}
 
     src = "lsafw_tpu_torch/csrc/spmv_gather.cu"
     run_a, two_pass = "scripts/dev_pallas_gather.py:55", "scripts/dev_pallas_gather2.py:111"
     g_cases = []  # (name, replaces, launch key, error, kernel, plain, library, bound)
     for kind, elem in (("f64", 8), ("c128", 16)):
         x, idx = mg[kind][0]
-        what = ("CSR value refill" if kind == "f64" else "band permutation in") + \
+        what = ("CSR value refill" if kind == "f64" else
+                "a band permutation (not on the main path)") + \
             f" at the main path's shapes (x {x.numel()}, idx {idx.numel()})"
         g_cases.append((f"flat form, {kind}, {what}", run_a, f"gather_{kind}", mg_errs[kind],
                         lambda x=x, idx=idx: sc.gather(x, idx),
@@ -921,32 +1191,63 @@ def main() -> int:
     ]
     for form, line, key, err, kern, plain, lib, (bound_ms, bound_by) in g_cases:
         kernels.append(dict(name=f"gather_kernel (G), {form}", route="cuda", source=src,
-                            replaces=line, launches=mp["launches"][key], max_abs_err=err,
+                            replaces=line, launches=launches[key], max_abs_err=err,
                             ms=cold_ms(kern), plain_ms=cold_ms(plain), bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=cold_ms(lib)))
         log(f"phase 4: G {form}: with L2 warm (graph replays) {graph_ms(kern):.4f} ms, x[idx] "
             f"{graph_ms(lib):.4f} ms; one call with its host overhead (CUDA events) "
             f"{cuda_ms(kern, 20):.4f} ms, x[idx] {cuda_ms(lib, 20):.4f} ms")
-    s_lines = {"real": ("lsafw_tpu/ops/bcsr.py:388", "spmv_real"),
-               "shifted": ("lsafw_tpu/ops/bcsr.py:615", "spmv_shifted"),
-               "shifted_mass": ("lsafw_tpu/ops/bcsr.py:587", "spmv_shifted"),
-               "mass": ("lsafw_tpu/ops/bcsr.py:622", "spmv_complex")}
-    for mode, (kern, plain, lib, nbytes, ops) in modes.items():
-        bound_ms, bound_by = bound(nbytes, ops, FP64_FLOPS_PER_S)
-        line, key = s_lines[mode]
-        entry = dict(name=f"csr_shifted_spmv_kernel (S), {mode.replace('_', '+')}", route="cuda",
-                     source=src, replaces=line, launches=mp["launches"][key],
-                     max_abs_err=s_errs[mode], ms=cold_ms(kern), plain_ms=cold_ms(plain),
-                     bound_ms=bound_ms, bound_by=bound_by, library_ms=cold_ms(lib))
-        log(f"phase 4: S {mode}: with L2 warm (graph replays) {graph_ms(kern):.4f} ms, cuSPARSE "
-            f"{graph_ms(lib):.4f} ms; one call with its host overhead (CUDA events) "
-            f"{cuda_ms(kern, 20):.4f} ms, cuSPARSE {cuda_ms(lib, 20):.4f} ms")
-        if mode != "shifted_mass":  # the main path never asks for both outputs at once
-            kernels.append(entry)
-        else:
-            log(f"phase 4: S shifted+mass (not on the main path): {entry['ms']:.4f} ms, plain "
-                f"{entry['plain_ms']:.4f} ms, cuSPARSE {entry['library_ms']:.4f} ms, bound "
-                f"{bound_ms:.4f} ms")
+    size = {"f64": 8, "c128": 16, "c64": 8, "f32x1": 4, "f32x2": 8}
+    main_types = {"in.c128.c64", "out.c64.c128", "in.f64.f32x1", "out.f32x1.f64"}
+    for (form, types), (kern, plain) in mg["permutes"].items():
+        a, b = types.split(".")
+        ix, bcx, brx = mg["plans"]["c64" if "c64" in types else "f32"]
+        n, npad = ix["iperm"].numel(), ix["perm_pad"].numel()
+        if form == "in":  # perm, b, the band-order output
+            nbytes = npad * 4 + n * size[a] + npad * size[b]
+            bvec = bcx if a == "c128" else brx
+            dt = torch.complex64 if b == "c64" else torch.float32
+            seq = (lambda v=bvec, p=ix["perm_pad"], dt=dt: op_sequence_in(v, p, n, nb, dt))
+        else:  # iperm, the n band-order slots it reads, the output
+            nbytes = n * 4 + n * size[a] + n * size[b]
+            x = sc.permute_in_plain(bcx if b == "c128" else brx, ix["perm_pad"], nb,
+                                    torch.complex64 if a == "c64" else torch.float32)
+            to = torch.complex128 if b == "c128" else torch.float64
+            seq = (lambda x=x, p=ix["iperm"], to=to: op_sequence_out(x, p, to))
+        on_main = f"{form}.{types}" in main_types
+        bound_ms, bound_by = bound(nbytes, 0, FP32_FLOPS_PER_S)
+        e = dict(name=f"permute_{form}_kernel (G, permute-{form}), {types.replace('.', ' to ')}"
+                      f"{'' if on_main else ' (not on the main path)'}", route="cuda", source=src,
+                 replaces=run_a, launches=launches[f"permute_{form}.{types}"], max_abs_err=0.0,
+                 ms=cold_ms(kern), plain_ms=cold_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=None)
+        kernels.append(e)
+        log(f"phase 4: G permute-{form} {types}: one call with its host overhead (CUDA events) "
+            f"{cuda_ms(kern, 20):.4f} ms, plain {cuda_ms(plain, 20):.4f} ms")
+        if on_main:
+            log(f"phase 4: G permute-{form} {types}: the op sequence it replaces: cold "
+                f"{cold_ms(seq):.4f} ms, with its host overhead {cuda_ms(seq, 20):.4f} ms")
+    s_lines = {"real": "lsafw_tpu/ops/bcsr.py:388", "shifted": "lsafw_tpu/ops/bcsr.py:615",
+               "shifted_mass": "lsafw_tpu/ops/bcsr.py:587", "mass": "lsafw_tpu/ops/bcsr.py:622"}
+    o_lines = {"real": "lsafw_tpu/ops/bcsr.py:446", "shifted": "lsafw_tpu/ops/bcsr.py:638",
+               "shifted_mass": "lsafw_tpu/ops/bcsr.py:638", "mass": "lsafw_tpu/ops/bcsr.py:646"}
+    libs = spmv_library(mp["A"], mp["M"], cop.sigma, dev)
+    ntiles = cop.plan.tile_row.size - 1
+    for (mode, order), (kern, plain) in cases.items():
+        bound_ms, bound_by = bound(*spmv_work(mode, order, cop.plan.n, cop.plan.nnz, ntiles),
+                                   FP64_FLOPS_PER_S)
+        key = S_KEYS[mode] + ("" if order == "permuted" else ".original")
+        on_main = order == "original" and mode != "shifted_mass"  # never both outputs at once
+        e = dict(name=f"csr_tiled_spmv_kernel (S), {mode.replace('_', '+')}, {order} order"
+                      f"{'' if on_main else ' (not on the main path)'}", route="cuda", source=src,
+                 replaces=(s_lines if order == "permuted" else o_lines)[mode],
+                 launches=launches[key] if mode != "shifted_mass" else 0,
+                 max_abs_err=s_errs[(mode, order)], ms=cold_ms(kern), plain_ms=cold_ms(plain),
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=cold_ms(libs[mode]))
+        kernels.append(e)
+        log(f"phase 4: S {mode} {order}: with L2 warm (graph replays) {graph_ms(kern):.4f} ms, "
+            f"cuSPARSE {graph_ms(libs[mode]):.4f} ms; one call with its host overhead (CUDA "
+            f"events) {cuda_ms(kern, 20):.4f} ms, cuSPARSE {cuda_ms(libs[mode], 20):.4f} ms")
     for e in kernels:
         log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
             f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
@@ -964,9 +1265,16 @@ def main() -> int:
         log(f"phase 4: one {tuple(panel.shape)} {dt} panel LU: PyTorch's default backend "
             f"{times['default']:.3f} ms, cuSOLVER {times['cusolver']:.3f} ms")
     v = torch.randn(mp["A"].shape[0], dtype=torch.complex128, device=dev)
-    wall, busy = device_busy(lambda: mp["op"].apply(v))
-    log(f"phase 4: one pivoted shift-invert apply under the profiler: {wall:.1f} ms wall, the "
-        f"card busy {busy:.2f} ms ({100 * busy / wall:.1f}%)")
+    reset_counts()
+    wall, busy, ops = device_busy(lambda: mp["op"].apply(v))
+    log(f"phase 4: one pivoted shift-invert apply under the profiler: {ops} device operations "
+        f"({sum(counts().values())} of the port's kernels), {wall:.1f} ms wall, the card busy "
+        f"{busy:.2f} ms ({100 * busy / wall:.1f}%)")
+    gcr_ms, gcr_busy, gcr_ops, its = gcr_iterations(mp, dev)
+    log(f"phase 4: {its} GCR iterations of a real banded solve under the profiler: {gcr_ops} "
+        f"device operations ({gcr_ops / its:.1f} per iteration), {gcr_ms:.1f} ms wall, the card "
+        f"busy {gcr_busy:.2f} ms ({100 * gcr_busy / gcr_ms:.1f}%); the baseflow launched "
+        f"{mp['per_gcr']:.2f} of the port's kernels per GCR iteration")
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
 
     log(name_power)

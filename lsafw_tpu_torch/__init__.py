@@ -7,11 +7,11 @@ ramped Newton baseflow whose steps solve on the device band LU (real,
 panel-pivoted) with f64 GCR refinement, linearized eigensystem, and a
 shift-invert Krylov-Schur eigensolve on the complex band LU (pivoted
 within ``LSAFW_PIVOT_MEM_GB``, else pivot-free) with f64 refinement.
-Hand-written CUDA kernels carry the pivot-free band substitution
-(``csrc/band_subst.cu``) and the refinement matvecs and permutation
-gathers (``csrc/spmv_gather.cu``).  It imports nothing of the JAX
-package.  ``solver/direct.py`` keeps host SuperLU for
-``linear_solver="lu"``.
+Hand-written CUDA kernels carry every band substitution, pivoted and
+pivot-free (``csrc/band_subst.cu``), and the refinement matvecs and the
+permutations into and out of the band's order (``csrc/spmv_gather.cu``).
+It imports nothing of the JAX package.  ``solver/direct.py`` keeps host
+SuperLU for ``linear_solver="lu"``.
 
 Entry points take ``device=`` and default to ``"cuda"``; they run on
 the CPU only when the caller passes ``device="cpu"``.

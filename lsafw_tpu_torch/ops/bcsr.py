@@ -17,11 +17,15 @@ the A and M values of a shifted operator on one set of row pointers and
 column indices.  The block shape, its ``LSAFW_BCSR_BR/BC`` knobs and the
 hi/lo channels are gone.
 
-Applies run through the S kernel of :mod:`lsafw_tpu_torch.ops.spmv_cuda`
-in permuted coordinates; the public ``matvec*``/``mass_pair`` take and
-return vectors in the original order through G's permutation gathers.
-Where the reference passes a complex vector as an (re, im) pair, the
-``*_pair`` methods take one complex128 tensor.
+Applies run through the S kernel of :mod:`lsafw_tpu_torch.ops.spmv_cuda`,
+which cuts the rows into tiles of whole rows at plan time.  The public
+``matvec*``/``mass_pair`` take and return vectors in the original order
+in one S launch each: the plan's operands hold the columns in original
+ids, and S writes row r's result to y[perm[r]].  The ``*_permuted``
+applies work in permuted coordinates, on operands made on their first
+use.  Where the
+reference passes a complex vector as an (re, im) pair, the ``*_pair``
+methods take one complex128 tensor.
 """
 
 from __future__ import annotations
@@ -48,13 +52,16 @@ class BCSRPlan:
     Row r of the permuted matrix is original row ``perm[r]``; its entries
     sit at ``indptr[r]:indptr[r+1]`` with permuted column ids ``indices``
     (ascending), and ``src`` maps each permuted slot to the original CSR
-    slot its value comes from."""
+    slot its value comes from.  ``tile_row``/``tile_ptr`` are S's tiles
+    (:func:`~lsafw_tpu_torch.ops.spmv_cuda.plan_tiles`)."""
 
     perm: np.ndarray  # (n,) permuted index -> original
     iperm: np.ndarray  # (n,) original -> permuted
     indptr: np.ndarray  # (n+1,) int64
     indices: np.ndarray  # (nnz,) int32
     src: np.ndarray  # (nnz,) int64
+    tile_row: np.ndarray  # (ntiles+1,) int32
+    tile_ptr: np.ndarray  # (ntiles+1,) int64
     n: int
     nnz: int
     _device: dict = field(default_factory=dict, repr=False)
@@ -66,21 +73,27 @@ class BCSRPlan:
 
     @property
     def index_bytes(self) -> int:
-        """Device bytes of the shared structure (row pointers, columns)."""
-        return (self.n + 1) * 8 + self.nnz * 4
+        """Device bytes of the main path's structure: row pointers, the
+        columns in original ids, the refill's slot map, the permutation,
+        S's tiles (the permuted-order operands, for the ``*_permuted``
+        applies alone, are made on their first use and not counted)."""
+        return (self.n + 1) * 8 + 2 * self.nnz * 4 + self.n * 4 + self.tile_row.size * 12
 
-    def on(self, device) -> dict[str, torch.Tensor]:
-        """Device tensors of the plan (cached per device)."""
-        key = str(torch.device(device))
+    def on(self, device, order: str = "original") -> spmv_cuda.TiledCSR:
+        """S's operands on ``device`` (cached per device and order): in
+        ``"original"`` order (original column ids, y[perm[r]]) or in
+        ``"permuted"`` order."""
+        key = (str(torch.device(device)), order)
         hit = self._device.get(key)
         if hit is None:
-            def t(a, dtype):
-                return torch.as_tensor(np.ascontiguousarray(a, dtype=dtype), device=device)
-
-            rows = np.repeat(np.arange(self.n, dtype=np.int64), np.diff(self.indptr))
-            hit = dict(crow=t(self.indptr, np.int64), col=t(self.indices, np.int32),
-                       rows=t(rows, np.int64), src=t(self.src, np.int32),
-                       perm=t(self.perm, np.int32), iperm=t(self.iperm, np.int32))
+            if order == "original":
+                cols, out = self.perm[self.indices.astype(np.int64)], self.perm
+            elif order == "permuted":
+                cols, out = self.indices, None
+            else:
+                raise ValueError(f"S's orders are 'original' and 'permuted', not {order!r}")
+            hit = spmv_cuda.TiledCSR.build(self.indptr, cols, self.src,
+                                           (self.tile_row, self.tile_ptr), device, out=out)
             self._device[key] = hit
         return hit
 
@@ -100,10 +113,11 @@ class BCSRPlan:
         pj = iperm[A.indices.astype(np.int64)]
         src = np.lexsort((pj, pi))
         indptr = np.concatenate([[0], np.cumsum(np.bincount(pi, minlength=n))]).astype(np.int64)
-        logger.info("BCSRPlan: n=%d nnz=%d permuted CSR (%.1f MB per f64 matrix)",
-                    n, A.nnz, A.nnz * 8 / 1e6)
+        tile_row, tile_ptr = spmv_cuda.plan_tiles(indptr)
+        logger.info("BCSRPlan: n=%d nnz=%d permuted CSR (%.1f MB per f64 matrix), %d tiles",
+                    n, A.nnz, A.nnz * 8 / 1e6, tile_row.size - 1)
         return cls(perm=perm, iperm=iperm, indptr=indptr, indices=pj[src].astype(np.int32),
-                   src=src, n=n, nnz=int(A.nnz))
+                   src=src, tile_row=tile_row, tile_ptr=tile_ptr, n=n, nnz=int(A.nnz))
 
 
 def plan_for_pattern(A) -> BCSRPlan:
@@ -117,7 +131,7 @@ def plan_for_pattern(A) -> BCSRPlan:
 
 def _values(plan: BCSRPlan, data: torch.Tensor) -> torch.Tensor:
     """CSR data in the plan's permuted slot order (one G gather)."""
-    return spmv_cuda.gather(data.to(torch.float64).contiguous(), plan.on(data.device)["src"])
+    return plan.on(data.device).values(data)
 
 
 @dataclass(eq=False)
@@ -132,18 +146,13 @@ class BCSROperator:
         plan = plan or plan_for_pattern(A)
         return cls(_values(plan, A.data), plan)
 
-    def _ix(self) -> dict[str, torch.Tensor]:
-        return self.plan.on(self.vals.device)
-
     def matvec_permuted(self, xp: torch.Tensor) -> torch.Tensor:
         """y = P^T A P xp for an f64 or complex128 xp in permuted order."""
-        ix = self._ix()
-        return spmv_cuda.csr_spmv(ix["crow"], ix["col"], ix["rows"], self.vals, xp)
+        return spmv_cuda.csr_spmv(self.plan.on(self.vals.device, "permuted"), self.vals, xp)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x in the original order."""
-        ix = self._ix()
-        return spmv_cuda.gather(self.matvec_permuted(spmv_cuda.gather(x, ix["perm"])), ix["iperm"])
+        """y = A x in the original order (one S launch)."""
+        return spmv_cuda.csr_spmv(self.plan.on(self.vals.device), self.vals, x)
 
     def matvec_pair(self, x: torch.Tensor) -> torch.Tensor:
         """The real matrix on a complex128 x: one read of the values serves
@@ -170,35 +179,30 @@ class BCSRShiftedOp:
         plan = plan or plan_for_pattern(A)
         return cls(_values(plan, A.data), _values(plan, M.data), complex(sigma), plan)
 
-    def _ix(self) -> dict[str, torch.Tensor]:
-        return self.plan.on(self.vA.device)
+    def _apply(self, order: str, x: torch.Tensor, mass: bool):
+        return spmv_cuda.csr_shifted_spmv(self.plan.on(self.vA.device, order), self.vA, self.vM,
+                                          x.to(torch.complex128), self.sigma, mass=mass)
+
+    def _mass(self, order: str, x: torch.Tensor) -> torch.Tensor:
+        return spmv_cuda.csr_spmv(self.plan.on(self.vM.device, order), self.vM, x)
 
     def matvec_pair_permuted(self, xp: torch.Tensor, *, mass: bool = False):
         """(A - sigma M) xp in permuted coordinates; with ``mass`` also M xp
         from the same pass, as a tuple."""
-        ix = self._ix()
-        return spmv_cuda.csr_shifted_spmv(ix["crow"], ix["col"], ix["rows"], self.vA, self.vM,
-                                          xp.to(torch.complex128), self.sigma, mass=mass)
+        return self._apply("permuted", xp, mass)
 
     def mass_pair_permuted(self, xp: torch.Tensor) -> torch.Tensor:
         """M xp alone: reads only the M values."""
-        ix = self._ix()
-        return spmv_cuda.csr_spmv(ix["crow"], ix["col"], ix["rows"], self.vM, xp)
+        return self._mass("permuted", xp)
 
     def matvec_pair(self, x: torch.Tensor, *, mass: bool = False):
-        """(A - sigma M) x in the original order (and M x when ``mass``)."""
-        ix = self._ix()
-        out = self.matvec_pair_permuted(spmv_cuda.gather(x.to(torch.complex128), ix["perm"]),
-                                        mass=mass)
-        if mass:
-            return tuple(spmv_cuda.gather(y, ix["iperm"]) for y in out)
-        return spmv_cuda.gather(out, ix["iperm"])
+        """(A - sigma M) x in the original order (and M x when ``mass``), in
+        one S launch."""
+        return self._apply("original", x, mass)
 
     def mass_pair(self, x: torch.Tensor) -> torch.Tensor:
-        """M x in the original order."""
-        ix = self._ix()
-        return spmv_cuda.gather(self.mass_pair_permuted(spmv_cuda.gather(x, ix["perm"])),
-                                ix["iperm"])
+        """M x in the original order (one S launch)."""
+        return self._mass("original", x)
 
 
 def operator_for_budget(A) -> BCSROperator | None:

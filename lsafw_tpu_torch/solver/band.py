@@ -31,7 +31,8 @@ Design:
     :mod:`lsafw_tpu_torch.solver.band_cuda` (pivot-free or pivoted mode,
     complex64 or float32) on the card, and through their plain torch
     loops on the CPU.  Vectors enter and leave the band's order through
-    the G gather of :mod:`lsafw_tpu_torch.ops.spmv_cuda`.
+    G's permute-in and permute-out (:mod:`lsafw_tpu_torch.ops.spmv_cuda`),
+    one launch each way.
 
 Pivot rule: the panel LU is ``torch.linalg.lu_factor_ex`` (LAPACK on the
 host, cuSOLVER on the card).  For complex panels LAPACK and cuSOLVER
@@ -115,7 +116,7 @@ class BandPlan:
     def on(self, device) -> dict[str, torch.Tensor]:
         """Device index tensors of the plan (cached per device): flat band
         positions of the kept CSR entries and of the identity padding, and
-        the int32 permutations the G gather takes."""
+        the int32 permutations G's permute-in and permute-out take."""
         key = str(torch.device(device))
         hit = self._device.get(key)
         if hit is None:
@@ -287,54 +288,27 @@ def _sync(t: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Permutation in and out of the band's order (G gathers)
+# The calling contract of every factor
 # ---------------------------------------------------------------------------
-
-
-def _permute_in(b: torch.Tensor, perm: torch.Tensor, n: int, nblk: int, nb: int,
-                dtype: torch.dtype) -> torch.Tensor:
-    """(nblk, nb) blocks of ``b`` in the band's order, cast to ``dtype``."""
-    bp = torch.zeros(nblk * nb, dtype=b.dtype, device=b.device)
-    bp[:n] = b
-    return spmv_cuda.gather(bp, perm).to(dtype).reshape(nblk, nb)
-
-
-def _permute_out(x: torch.Tensor, iperm: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The band-order solution back in the original order, as ``dtype``."""
-    return spmv_cuda.gather(x.reshape(-1).to(dtype), iperm)
 
 
 class _PermutedSolve:
     """The calling contract every factor shares (``banded_solve_raw`` and
     ``_banded_mr`` take any of them): ``solve(b)``, alias ``solve_vec``,
     returns x ~= C^-1 b in the original order for an f64 or complex128
-    vector.  b is gathered into the band's order, ``_substitute`` runs on
-    its blocks in the factor's dtype ((nblk, nb) complex64, or
-    (nblk, nb, m) float32), and the result is gathered back.  A complex
-    factor takes b as one complex column (a real b gives the real part);
-    a real factor takes a complex b as two real columns in one band
-    pass."""
+    vector.  G's permute-in carries b into the band's order in the
+    factor's dtype ((nblk, nb) complex64, or (nblk, nb, m) float32: a
+    complex b on a real factor as two real columns in one band pass, a
+    real b on a complex factor with a zero imaginary part),
+    ``_substitute`` runs on its blocks, and G's permute-out carries the
+    result back in b's dtype: one launch each way."""
 
     def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        cplx = self.band.is_complex()
-        if cplx:
-            cols = [b.to(torch.complex128)]
-        else:
-            cols = [b.real, b.imag] if b.is_complex() else [b]
-        nblk = self.perm.numel() // self.nb
-        bp = torch.stack([_permute_in(c.contiguous(), self.perm, self.n, nblk, self.nb,
-                                      self.band.dtype) for c in cols], dim=2)
-        x = self._substitute(bp[:, :, 0] if cplx else bp)
-        if cplx:
-            x = x[:, :, None]
-        out = [_permute_out(x[:, :, j], self.iperm, torch.complex128 if cplx else torch.float64)
-               for j in range(len(cols))]
-        if cplx:
-            return out[0] if b.is_complex() else out[0].real.contiguous()
-        return torch.complex(out[0], out[1]) if b.is_complex() else out[0]
+        bp = spmv_cuda.permute_in(b, self.perm, self.nb, self.band.dtype)
+        return spmv_cuda.permute_out(self._substitute(bp), self.iperm, b.dtype)
 
     def solve_vec(self, b: torch.Tensor) -> torch.Tensor:
         return self.solve(b)

@@ -16,6 +16,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from lsafw_tpu.ops.bcsr import BCSROperator as JBCSROperator
 from lsafw_tpu.ops.bcsr import BCSRShiftedOp as JBCSRShiftedOp
 from lsafw_tpu.ops.sparse import CSRMatrix as JCSRMatrix
 from lsafw_tpu_torch import interop
@@ -124,6 +125,47 @@ def test_shifted_apply_matches_jax():
     assert _rel(got.numpy(), np.asarray(yr) + 1j * np.asarray(yi)) <= 1e-12
 
 
+@pytest.fixture(scope="module")
+def jax_pair():
+    """The pair of ``test_shifted_apply_matches_jax`` on both sides: the
+    port's shifted and real operators and the JAX package's."""
+    A, Md, Am, Mm, rng = _pair(seed=10)
+    sigma = 0.2 + 0.74j
+    jA = JCSRMatrix.from_scipy(A)
+    jop = JBCSRShiftedOp.from_csr(jA, JCSRMatrix(jA.pattern, jnp.asarray(Md.data)), sigma,
+                                  br=8, bc=32)
+    return dict(A=A, z=_cvec(rng, A.shape[0]), jop=jop, jreal=JBCSROperator.from_csr(jA, bc=32),
+                op=bcsr.BCSRShiftedOp.from_csr(Am, Mm, sigma), real=bcsr.BCSROperator.from_csr(Am))
+
+
+@pytest.mark.parametrize("mode", ["real", "real_on_complex", "mass", "shifted_mass"])
+def test_original_order_applies_match_jax(jax_pair, mode):
+    """The original-order applies (one S launch each on the card; here its
+    plain version) against the JAX package's ``BCSROperator.matvec`` /
+    ``matvec_pair``, ``BCSRShiftedOp.matvec_pair`` and ``mass_pair``
+    (``test_shifted_apply_matches_jax`` holds the shifted apply alone)."""
+    p = jax_pair
+    z = p["z"]
+    zr, zi = jnp.asarray(z.real), jnp.asarray(z.imag)
+    if mode == "real":
+        got, ref = p["real"].matvec(torch.as_tensor(z.real)), p["jreal"].matvec(zr)
+        assert got.dtype == torch.float64
+        assert _rel(got.numpy(), np.asarray(ref)) <= 1e-12
+        return
+    if mode == "real_on_complex":
+        got = p["real"].matvec_pair(torch.as_tensor(z))
+        refs = [p["jreal"].matvec_pair(zr, zi)]
+    elif mode == "mass":
+        got = p["op"].mass_pair(torch.as_tensor(z))
+        refs = [p["jop"].mass_pair(zr, zi)]
+    else:
+        got = p["op"].matvec_pair(torch.as_tensor(z), mass=True)
+        refs = [p["jop"].matvec_pair(zr, zi), p["jop"].mass_pair(zr, zi)]
+    for g, (yr, yi) in zip(got if isinstance(got, tuple) else (got,), refs):
+        assert g.dtype == torch.complex128
+        assert _rel(g.numpy(), np.asarray(yr) + 1j * np.asarray(yi)) <= 1e-12
+
+
 def test_si_apply_m_dispatch():
     """With a Cop, M x comes from Cop's storage (M is deliberately 2x wrong
     in the op, so the assertion proves the route); without one, from M."""
@@ -185,20 +227,84 @@ def test_gather_two_pass_matches_numpy():
 def test_spmv_plain_matches_scipy_and_checks():
     A, Md, Am, Mm, rng = _pair(seed=16)
     plan = bcsr.plan_for_pattern(Am)
-    ix = plan.on("cpu")
-    vA = spmv_cuda.gather(Am.data, ix["src"])
-    vM = spmv_cuda.gather(Mm.data, ix["src"])
+    ix = {o: plan.on("cpu", o) for o in ("permuted", "original")}
+    vA, vM = ix["original"].values(Am.data), ix["permuted"].values(Mm.data)
     P = lambda S: S[plan.perm][:, plan.perm]  # noqa: E731
     z = _cvec(rng, A.shape[0])
-    y, m = spmv_cuda.csr_shifted_spmv(ix["crow"], ix["col"], ix["rows"], vA, vM,
-                                      torch.as_tensor(z), 0.5j, mass=True)
+    zt = torch.as_tensor(z)
+    y, m = spmv_cuda.csr_shifted_spmv(ix["permuted"], vA, vM, zt, 0.5j, mass=True)
     assert _rel(y.numpy(), P(A - 0.5j * Md) @ z) <= 1e-13
     assert _rel(m.numpy(), P(Md) @ z) <= 1e-13
+    y, m = spmv_cuda.csr_shifted_spmv(ix["original"], vA, vM, zt, 0.5j, mass=True)
+    assert _rel(y.numpy(), (A - 0.5j * Md) @ z) <= 1e-13
+    assert _rel(m.numpy(), Md @ z) <= 1e-13
+    csr = ix["permuted"]
     with pytest.raises(TypeError):
-        spmv_cuda._check_spmv(ix["crow"], ix["col"].long(), vA, None, torch.as_tensor(z))
+        spmv_cuda._check_spmv(dataclasses.replace(csr, col=csr.col.long()), vA, None, zt)
     with pytest.raises(ValueError):
-        spmv_cuda._check_spmv(ix["crow"], ix["col"], vA, None, torch.as_tensor(z[:-1]))
+        spmv_cuda._check_spmv(csr, vA, None, zt[:-1])
+    with pytest.raises(ValueError):  # storage that stops at nnz (the copies read past it)
+        spmv_cuda._check_spmv(csr, vA.clone()[:-1], None, zt)
+    with pytest.raises(ValueError):  # an output permutation of the wrong length
+        spmv_cuda._check_spmv(dataclasses.replace(csr, out=ix["original"].out[:-1]), vA, None, zt)
+    with pytest.raises(ValueError):
+        plan.on("cpu", "transposed")
     with pytest.raises(TypeError):
-        spmv_cuda._check_gather(vA, ix["src"].long())
+        spmv_cuda._check_gather(vA, csr.src.long())
     with pytest.raises(ValueError):
-        spmv_cuda._check_gather(torch.zeros((4, 2), dtype=torch.float64)[:, 0], ix["src"][:4])
+        spmv_cuda._check_gather(torch.zeros((4, 2), dtype=torch.float64)[:, 0], csr.src[:4])
+
+
+def test_plan_tiles():
+    """S's tiles cover the rows in order, whole rows each, within the
+    nonzero and row caps; a row longer than the cap is a tile of its own,
+    and empty rows ride along."""
+    lens = np.array([3, 0, 0, 5, 40, 2, 2, 2, 0, 9, 1, 1, 1, 1, 1, 1, 1, 1, 0, 7])
+    crow = np.concatenate([[0], np.cumsum(lens)])
+    tile_row, tile_ptr = spmv_cuda.plan_tiles(crow, cap=10, row_cap=4)
+    assert tile_row.dtype == np.int32 and tile_ptr.dtype == np.int64
+    assert tile_row[0] == 0 and tile_row[-1] == lens.size and np.all(np.diff(tile_row) > 0)
+    np.testing.assert_array_equal(tile_ptr, crow[tile_row])
+    for r0, r1 in zip(tile_row[:-1], tile_row[1:]):
+        nnz = crow[r1] - crow[r0]
+        assert r1 - r0 <= 4 and (nnz <= 10 or r1 - r0 == 1)
+    assert [4, 5] in [list(t) for t in zip(tile_row[:-1], tile_row[1:])]  # the row of 40 alone
+    with pytest.raises(ValueError):
+        spmv_cuda.plan_tiles(crow, cap=spmv_cuda.TILE_NNZ + 1)
+    plan = bcsr.plan_for_pattern(_csr(fem_like_matrix(400, seed=2)))
+    for order in ("permuted", "original"):  # padded storage for the aligned copies
+        csr = plan.on("cpu", order)
+        vals = csr.values(torch.zeros(plan.nnz, dtype=torch.float64))
+        for t in (csr.col, csr.crow, vals) + (() if csr.out is None else (csr.out,)):
+            assert spmv_cuda._room(t, spmv_cuda._padded(t.numel()))
+        assert csr.src.numel() == spmv_cuda._padded(plan.nnz)
+
+
+def test_permute_checks():
+    """G's permutation forms take what the band factors and their solves
+    use, and refuse the rest on any device."""
+    b = torch.zeros(10, dtype=torch.float64)
+    perm = torch.arange(16, dtype=torch.int32)
+    assert spmv_cuda.permute_in(b, perm, 8, torch.float32).shape == (2, 8, 1)
+    assert spmv_cuda.permute_in(b.to(torch.complex128), perm, 8, torch.float32).shape == (2, 8, 2)
+    assert spmv_cuda.permute_in(b, perm, 8, torch.complex64).shape == (2, 8)
+    with pytest.raises(TypeError):  # f32 right-hand side
+        spmv_cuda.permute_in(b.float(), perm, 8, torch.float32)
+    with pytest.raises(TypeError):  # int64 permutation
+        spmv_cuda.permute_in(b, perm.long(), 8, torch.float32)
+    with pytest.raises(TypeError):  # a factor type the kernels do not take
+        spmv_cuda.permute_in(b, perm, 8, torch.float64)
+    with pytest.raises(ValueError):  # slots not whole blocks
+        spmv_cuda.permute_in(b, perm[:12], 8, torch.float32)
+    iperm = perm[:10]
+    x = torch.zeros((2, 8, 2))
+    assert spmv_cuda.permute_out(x, iperm, torch.complex128).dtype == torch.complex128
+    assert spmv_cuda.permute_out(x[:, :, :1].contiguous(), iperm, torch.float64).shape == (10,)
+    assert spmv_cuda.permute_out(x[:, :, 0].to(torch.complex64), iperm,
+                                 torch.float64).dtype == torch.float64
+    with pytest.raises(TypeError):  # two real columns make a complex vector only
+        spmv_cuda.permute_out(x, iperm, torch.float64)
+    with pytest.raises(TypeError):
+        spmv_cuda.permute_out(torch.zeros((2, 8, 3)), iperm, torch.complex128)
+    with pytest.raises(TypeError):
+        spmv_cuda.permute_out(x, iperm.long(), torch.complex128)

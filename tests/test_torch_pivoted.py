@@ -11,6 +11,8 @@ solve's residual within 10x of the reference factor's, and its refined
 solve to SuperLU at 1e-10.  Plans are built with chunk 16 on both sides.
 """
 
+from types import SimpleNamespace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import torch
 
 from lsafw_tpu.solver import band as jband
 from lsafw_tpu_torch import interop
+from lsafw_tpu_torch.ops import spmv_cuda
 from lsafw_tpu_torch.solver import band as tband
 from lsafw_tpu_torch.solver import band_cuda
 from lsafw_tpu_torch.solver.direct import direct_solve
@@ -170,6 +173,42 @@ def test_factor_auto_branches_match_jax(system, monkeypatch, real):
                                 diag_slots=s["A"].pattern.diag_slots)
         assert got == ref, gb
         assert got[1] == (gb is None or gb * 1e9 >= need)
+
+
+@pytest.mark.parametrize("real,b_complex", [(True, False), (True, True), (False, True),
+                                             (False, False)],
+                         ids=["real-f64", "real-c128", "complex-c128", "complex-f64"])
+def test_permutes_match_jax(request, real, b_complex):
+    """G's permute-in and permute-out (plain versions, as CPU tensors take
+    them) against the reference's: ``_permute_in`` (zero pad, gather, cast
+    to float32; a complex b as its two parts, stacked as columns) and the
+    ``[iperm]`` gathers of the widened band-order result, exactly."""
+    jlu, tlu = request.getfixturevalue("real_factors" if real else "complex_factors")
+    # the complex classes inline _permute_in in solve_pair; the real one is it
+    ref_in = SimpleNamespace(L1inv=jlu.L1inv if real else jlu.L1inv_r, nb=jlu.nb, n=jlu.n,
+                             perm=jlu.perm)
+    rng = np.random.default_rng(12)
+    b = rng.standard_normal(tlu.n) + (1j * rng.standard_normal(tlu.n) if b_complex else 0)
+    got = spmv_cuda.permute_in(torch.as_tensor(b), tlu.perm, tlu.nb, tlu.band.dtype)
+    parts = [jband.RealPivotedBandedLU._permute_in(ref_in, jnp.asarray(c))
+             for c in ((b.real, b.imag) if b_complex else (b,))]
+    ref = np.stack([np.asarray(p) for p in parts], axis=2)
+    if real:
+        np.testing.assert_array_equal(got.numpy(), ref)
+    else:
+        assert got.dtype == torch.complex64
+        np.testing.assert_array_equal(got.numpy().real, ref[:, :, 0])
+        np.testing.assert_array_equal(got.numpy().imag, ref[:, :, 1] if b_complex else 0)
+    assert not got.flatten(0, 1)[tlu.n:].any()  # the padding slots
+    x = rng.standard_normal((got.shape[0], tlu.nb, 2)).astype(np.float32)
+    cols = [jnp.asarray(x[:, :, j]).reshape(-1).astype(jnp.float64)[jlu.iperm] for j in (0, 1)]
+    if real:
+        xt = torch.from_numpy(x if b_complex else x[:, :, :1].copy())
+    else:
+        xt = torch.from_numpy(x[:, :, 0] + 1j * x[:, :, 1])
+    out = spmv_cuda.permute_out(xt, tlu.iperm, torch.complex128 if b_complex else torch.float64)
+    want = np.asarray(cols[0]) + (1j * np.asarray(cols[1]) if b_complex else 0)
+    np.testing.assert_array_equal(out.numpy(), want)
 
 
 @pytest.fixture(scope="module")
