@@ -65,10 +65,32 @@ non-zero):
      sequence they replace); one pivoted solve against the torch loops,
      the panel LU backends, and the device operations, wall time and
      busy share of one pivoted shift-invert apply and of eight GCR
-     iterations of a real banded solve under ``torch.profiler``.
+     iterations of a real banded solve under ``torch.profiler``;
+  5. adjoint sensitivity at full width on phase 3's baseflow and (A, M):
+     ``EigenSensitivitySolver(..., target=sigma_3, si_method="banded")``,
+     ``evaluate()`` (direct mode, nev 5 and ncv 80; adjoint mode on the
+     transposed pair; du/dRe on the banded real solve) and
+     ``compute_wavemaker()``, with host LU and the torch substitution
+     loops patched to raise.  Counts are zeroed just before and read
+     after each stage (direct, adjoint, du/dRe, integrals, wavemaker):
+     K1/K2 once per band solve (pivoted complex64 in the direct and
+     adjoint stages, pivoted f32 with one column in du/dRe), G's
+     permute-in and permute-out once each per band solve in the stage's
+     types, one original-order S launch per original-order matvec, no
+     flat complex128 G, and no plan built for any pattern (the adjoint
+     shares the pattern's plans).  Gates: the direct sigma within 1e-8 of
+     phase 3's, sigma_adj within 1e-7 of conj(sigma_3), the adjoint
+     residual ||A^T a - sigma_adj M^T a|| / ||a|| <= 1e-8,
+     |a^H M v - 1| <= 1e-10, the du/dRe residual ||J s - r|| / ||r|| <=
+     1e-9, the reference's finite-difference check (banded Newton
+     baseflows at Re = 46 and 48 started from phase 3's, their
+     eigenvalues near sigma_3: |d sigma/dRe - FD| <= 0.15 |FD| and
+     Re(d sigma/dRe) > 0), and the wavemaker's peak at 0.5 < x < 5,
+     |y| < 2, its velocity slots 0 and its CG converged.
 
 The last lines are the card's name and power limit, one JSON object of
-kernel numbers, and ``{"ok": true, "device": {...}}``.
+kernel numbers (``launches``: phases 3 and 3b; ``launches_phase5``: the
+stages of phase 5), and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -839,7 +861,7 @@ def main_path(case) -> dict:
     launches = {k: base_counts[k] + eig_counts[k] for k in base_counts}
     stages = dict(mesh=case["seconds"], baseflow=t_base, assemble=t_asm, eigen=t_eig,
                   factor=op.factor_seconds)
-    return dict(A=A, M=M, op=op, launches=launches, stages=stages, newton=st,
+    return dict(A=A, M=M, w=w, op=op, launches=launches, stages=stages, newton=st,
                 sigma=sigma, resid=resid, per_gcr=ours / max(st["gcr_its"], 1))
 
 
@@ -1061,7 +1083,7 @@ def band_kernels(mp: dict, pf: dict, errs: dict, device) -> list:
                 key = f"{k}.{md}.{kind}"
                 out.append(dict(name=f"{names[k]}, {md.replace('_', '-')}, {kind}", route="cuda",
                                 source="lsafw_tpu_torch/csrc/band_subst.cu", replaces=line,
-                                launches=launches[key], max_abs_err=errs[key], ms=ms,
+                                launches=launches[key], _key=key, max_abs_err=errs[key], ms=ms,
                                 plain_ms=plain_ms, bound_ms=bounds[k][0], bound_by=bounds[k][1],
                                 library_ms=None))
             if kind in ("c64", "f32x1"):
@@ -1096,6 +1118,180 @@ def gcr_iterations(mp: dict, device, its: int = 8) -> tuple[float, float, int, i
     run()
     wall, busy, ops = device_busy(run)
     return wall, busy, ops, its
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: adjoint sensitivity
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def stage(name: str, out: dict):
+    """Counts zeroed just before the block and read just after it: kernel
+    launches, band solves per factor class, original-order matvecs, plan
+    builds of the per-pattern cache, seconds, and the device memory
+    allocated at its start and at its peak."""
+    import torch
+    from lsafw_tpu_torch.ops import sparse
+
+    reset_counts()
+    builds = dict(sparse.PLAN_BUILDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.time()
+    with band_solves() as solves, matvecs() as mv:
+        yield
+        torch.cuda.synchronize()
+    out[name] = dict(seconds=time.time() - t0, launches=counts(), solves=dict(solves),
+                     matvecs=mv["matvecs"], resident_gb=resident / 1e9,
+                     peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                     builds={k: v - builds.get(k, 0) for k, v in sparse.PLAN_BUILDS.items()
+                             if v != builds.get(k, 0)})
+
+
+def staged(solver, attr: str, name: str, out: dict) -> None:
+    """Make ``solver.<attr>`` run as a stage of :func:`stage`, so that
+    ``evaluate()`` reads each of its stages on its own."""
+    fn = getattr(solver, attr)
+
+    def run(*args, **kw):
+        with stage(name, out):
+            return fn(*args, **kw)
+
+    setattr(solver, attr, run)
+
+
+def eigenvalue_near(case, w, re: float, target: complex) -> complex:
+    """The eigenvalue nearest ``target`` of the eigensystem around ``w``."""
+    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.solver.eigen import EigenSolver, EigensolverConfig, STType
+
+    A, M = LinearizedNavierStokesAssembler(w, case["ctx"], re, case["bcs_pert"],
+                                           case["mesh"]).assemble_eigensystem()
+    es = EigenSolver(A, M, EigensolverConfig(num_eig=1, atol=1e-8, ncv=16))
+    es.set_st_type(STType.SINVERT)
+    es.set_target(target)
+    es.set_st_pc_type("banded")
+    return es.solve()[0][0]
+
+
+def finite_difference(case, w, sigma: complex, dre: float = 1.0) -> tuple[complex, dict]:
+    """The reference's validation of d sigma/dRe: banded Newton baseflows at
+    Re = 47 -/+ dre started from w, their eigenvalues near sigma, and the
+    centred difference."""
+    from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
+
+    sig = {}
+    for re in (47.0 - dre, 47.0 + dre):
+        solver = BaseFlowSolver(case["ctx"], case["mesh"], case["bcs_base"], re=re)
+        solver._initial_guess = w
+        wr = solver.solve(tol=1e-8, max_it=40, linear_solver="banded")
+        if not solver.newton_results[-1].converged:
+            raise RuntimeError(f"phase 5: the Newton baseflow at Re = {re} did not converge")
+        sig[re] = eigenvalue_near(case, wr, re, sigma)
+    return (sig[47.0 + dre] - sig[47.0 - dre]) / (2 * dre), sig
+
+
+def sensitivity_path(case, mp: dict) -> dict:
+    """Phase 5: ``EigenSensitivitySolver`` at full width on phase 3's
+    baseflow and (A, M), target phase 3's sigma: ``evaluate()`` (direct
+    mode, adjoint mode on the transposed pair, du/dRe) and
+    ``compute_wavemaker()`` with host LU and the torch substitution loops
+    on CUDA tensors raising; each stage's launches, band solves, matvecs
+    and plan builds read on their own; the answers held to phase 3, to the
+    residuals and to the reference's own check, finite differences."""
+    import torch
+    from lsafw_tpu_torch.ops import sparse
+    from lsafw_tpu_torch.sensitivity import EigenSensitivitySolver
+    from lsafw_tpu_torch.solver.eigen import eigen_residuals
+
+    sigma3, A, M = mp["sigma"], mp["A"], mp["M"]
+    stages: dict = {}
+    solver = EigenSensitivitySolver(case["ctx"], case["mesh"], case["bcs_base"], mp["w"], 47.0,
+                                    A=A, M=M, perturbation_bcs=case["bcs_pert"], target=sigma3,
+                                    si_method="banded", device=DEVICE)
+    for attr, name in (("solve_direct_mode", "direct"), ("solve_adjoint_mode", "adjoint"),
+                       ("compute_baseflow_sensitivity", "du/dRe"),
+                       ("evaluate_sensitivity", "integrals")):
+        staged(solver, attr, name, stages)
+    with plain_loops_forbidden():
+        d_sigma = solver.evaluate()
+        with stage("wavemaker", stages):
+            sw = solver.compute_wavemaker()
+        t0 = time.time()
+        fd, sig_fd = finite_difference(case, mp["w"], sigma3)
+        t_fd = time.time() - t0
+    sigma, v, a, s = solver._sigma, solver._v, solver._a, solver._baseflow_sens
+    A_T, M_T = sparse.transpose_pair(A, M)
+    adj_res = float(eigen_residuals(A_T, M_T, [(solver.sigma_adjoint, a.cpu().numpy())])[0])
+    biorth = complex(torch.vdot(a, sparse.spmv(M, v)))
+    J, r = solver.baseflow_sensitivity_system()
+    s_res = float(torch.linalg.vector_norm(sparse.spmv(J, s) - r) / torch.linalg.vector_norm(r))
+    spaces = case["spaces"]
+    p = sw[torch.as_tensor(spaces.dofs_p, device=sw.device)].abs()
+    peak = spaces.pressure.node_coords[int(torch.argmax(p))]
+    vel_max = float(sw[torch.as_tensor(spaces.dofs_u, device=sw.device)].abs().max())
+    for name, st in stages.items():
+        log(f"phase 5: {name}: {st['seconds']:.3f} s, device memory {st['resident_gb']:.3f} GB at "
+            f"its start, {st['peak_gb']:.3f} GB at its peak, "
+            f"band solves {st['solves']}, original-order matvecs {st['matvecs']}, plan builds "
+            f"{st['builds']}; launches {nonzero(st['launches'])}")
+    for name, op in solver.operators.items():
+        log(f"phase 5: {name} shift-invert: factor {op['factor_s']:.3f} s, contraction "
+            f"{op['rho']:.2e}, {op['applies']} applies, pivoted {op['pivoted']}, fused matvecs "
+            f"{op['fused']}")
+    log(f"phase 5: sigma = {sigma.real:+.12f}{sigma.imag:+.12f}j (phase 3 "
+        f"{sigma3.real:+.12f}{sigma3.imag:+.12f}j), sigma_adj = "
+        f"{solver.sigma_adjoint.real:+.12f}{solver.sigma_adjoint.imag:+.12f}j, adjoint residual "
+        f"{adj_res:.2e}, |a^H M v - 1| = {abs(biorth - 1):.2e}")
+    ds = solver.stats
+    log(f"phase 5: du/dRe: {solver.baseflow_solve.iterations} GCR iterations, relative residual "
+        f"{s_res:.2e} (GCR's {solver.baseflow_solve.residual:.2e}), factor {ds['factor_s']:.3f} "
+        f"s, band solves {ds['solve_s']:.3f} s in {ds['solves']}, SpMV {ds['spmv_s']:.3f} s in "
+        f"{ds['spmvs']}")
+    log(f"phase 5: d sigma/dRe = {d_sigma.real:+.8e}{d_sigma.imag:+.8e}j; finite difference "
+        f"{fd.real:+.8e}{fd.imag:+.8e}j from sigma(46) = {sig_fd[46.0]:.10f}, sigma(48) = "
+        f"{sig_fd[48.0]:.10f} ({t_fd:.2f} s); |adjoint - FD| / |FD| = "
+        f"{abs(d_sigma - fd) / abs(fd):.3e}")
+    log(f"phase 5: wavemaker peak at ({peak[0]:.3f}, {peak[1]:.3f}), CG "
+        f"{solver.wavemaker_cg.iterations} iterations to {solver.wavemaker_cg.residual:.1e}, "
+        f"largest velocity slot {vel_max}; live per-pattern plans {len(sparse._PER_PATTERN)}")
+    log(f"phase 5: stages " + ", ".join(f"{k} {v['seconds']:.2f} s" for k, v in stages.items())
+        + f", finite difference {t_fd:.2f} s")
+
+    checks = [
+        (abs(sigma - sigma3) <= 1e-8, f"direct sigma {sigma} not within 1e-8 of phase 3's"),
+        (abs(solver.sigma_adjoint - np.conj(sigma3)) <= 1e-7,
+         f"sigma_adj {solver.sigma_adjoint} not within 1e-7 of conj(sigma_3)"),
+        (adj_res <= 1e-8, f"adjoint residual {adj_res:.2e} > 1e-8"),
+        (abs(biorth - 1) <= 1e-10, f"|a^H M v - 1| = {abs(biorth - 1):.2e} > 1e-10"),
+        (s_res <= 1e-9, f"du/dRe residual {s_res:.2e} > 1e-9"),
+        (abs(d_sigma - fd) <= 0.15 * abs(fd), f"d sigma/dRe {d_sigma} not within 15% of FD {fd}"),
+        (d_sigma.real > 0, f"Re(d sigma/dRe) = {d_sigma.real} is not positive"),
+        (0.5 < peak[0] < 5.0 and abs(peak[1]) < 2.0, f"wavemaker peak at {peak}"),
+        (vel_max == 0.0, f"wavemaker velocity slots not 0 ({vel_max})"),
+        (solver.wavemaker_cg.converged, "the wavemaker's CG did not converge"),
+        (all(op["pivoted"] and op["fused"] for op in solver.operators.values()),
+         f"a shift-invert stage did not take the pivoted factor with fused matvecs: "
+         f"{solver.operators}"),
+    ]
+    for ok, what in checks:
+        if not ok:
+            raise RuntimeError(f"phase 5: {what}")
+    for name, key, cls, types in (("direct", "pivoted.c64", "PivotedBandedLU", "c128.c64"),
+                                  ("adjoint", "pivoted.c64", "PivotedBandedLU", "c128.c64"),
+                                  ("du/dRe", "pivoted.f32x1", "RealPivotedBandedLU", "f64.f32x1")):
+        st = stages[name]
+        n = st["solves"].get(cls, 0)
+        if set(st["solves"]) != {cls}:
+            raise RuntimeError(f"phase 5 {name}: band solves {st['solves']}, expected {cls} alone")
+        gate_band_launches(f"phase 5 {name}", st["launches"], key, n)
+        gate_permutes_and_spmv(f"phase 5 {name}", st["launches"], types, n, st["matvecs"])
+        if st["builds"]:
+            raise RuntimeError(f"phase 5 {name} re-planned a pattern: {st['builds']}")
+    launches = {k: sum(st["launches"][k] for st in stages.values()) for k in counts()}
+    return dict(launches=launches, stages=stages, d_sigma=d_sigma, fd=fd)
 
 
 def main() -> int:
@@ -1191,7 +1387,7 @@ def main() -> int:
     ]
     for form, line, key, err, kern, plain, lib, (bound_ms, bound_by) in g_cases:
         kernels.append(dict(name=f"gather_kernel (G), {form}", route="cuda", source=src,
-                            replaces=line, launches=launches[key], max_abs_err=err,
+                            replaces=line, launches=launches[key], _key=key, max_abs_err=err,
                             ms=cold_ms(kern), plain_ms=cold_ms(plain), bound_ms=bound_ms,
                             bound_by=bound_by, library_ms=cold_ms(lib)))
         log(f"phase 4: G {form}: with L2 warm (graph replays) {graph_ms(kern):.4f} ms, x[idx] "
@@ -1218,7 +1414,8 @@ def main() -> int:
         bound_ms, bound_by = bound(nbytes, 0, FP32_FLOPS_PER_S)
         e = dict(name=f"permute_{form}_kernel (G, permute-{form}), {types.replace('.', ' to ')}"
                       f"{'' if on_main else ' (not on the main path)'}", route="cuda", source=src,
-                 replaces=run_a, launches=launches[f"permute_{form}.{types}"], max_abs_err=0.0,
+                 replaces=run_a, launches=launches[f"permute_{form}.{types}"],
+                 _key=f"permute_{form}.{types}", max_abs_err=0.0,
                  ms=cold_ms(kern), plain_ms=cold_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
                  library_ms=None)
         kernels.append(e)
@@ -1242,6 +1439,7 @@ def main() -> int:
                       f"{'' if on_main else ' (not on the main path)'}", route="cuda", source=src,
                  replaces=(s_lines if order == "permuted" else o_lines)[mode],
                  launches=launches[key] if mode != "shifted_mass" else 0,
+                 _key=key if mode != "shifted_mass" else None,
                  max_abs_err=s_errs[(mode, order)], ms=cold_ms(kern), plain_ms=cold_ms(plain),
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=cold_ms(libs[mode]))
         kernels.append(e)
@@ -1275,6 +1473,11 @@ def main() -> int:
         f"device operations ({gcr_ops / its:.1f} per iteration), {gcr_ms:.1f} ms wall, the card "
         f"busy {gcr_busy:.2f} ms ({100 * gcr_busy / gcr_ms:.1f}%); the baseflow launched "
         f"{mp['per_gcr']:.2f} of the port's kernels per GCR iteration")
+
+    p5 = sensitivity_path(case, mp)
+    for e in kernels:
+        key = e.pop("_key")
+        e["launches_phase5"] = p5["launches"][key] if key else 0
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
 
     log(name_power)

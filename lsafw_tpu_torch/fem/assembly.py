@@ -18,7 +18,7 @@ import torch
 
 from lsafw_tpu_torch import resolve_device
 from lsafw_tpu_torch.fem.quadrature import QuadratureRule, quadrature_rule
-from lsafw_tpu_torch.fem.spaces import FunctionSpaces
+from lsafw_tpu_torch.fem.spaces import FunctionSpace, FunctionSpaces
 from lsafw_tpu_torch.meshing.mesh import CellType, Mesh
 from lsafw_tpu_torch.ops.sparse import (
     CSRMatrix,
@@ -119,12 +119,61 @@ class AssemblyContext:
         return torch.einsum("qit,ctd->cqid", self.dphi_u, self.Jinv)
 
 
+@dataclass(eq=False)
+class SpaceContext:
+    """Assembly context of a single scalar or blocked-vector space on
+    simplices (e.g. the P1 pressure space of an L2 projection): the
+    ``phi_u``/``M0`` names of :class:`AssemblyContext` hold this space's
+    basis, so the scalar element kernels take either context."""
+
+    rule: QuadratureRule
+    space: FunctionSpace
+    pattern: SparsityPattern
+    device: torch.device
+    w: torch.Tensor  # (nq,)
+    phi_u: torch.Tensor  # (nq, ndofs_el)
+    detJ: torch.Tensor  # (nc,)
+    cell_dofs: torch.Tensor  # (nc, ndofs_el * bs) int64
+    M0: torch.Tensor  # (ndofs_el, ndofs_el)
+
+    @classmethod
+    def build(cls, space: FunctionSpace, quad_degree: int | None = None, *,
+              device="cuda") -> "SpaceContext":
+        device = resolve_device(device)
+        mesh = space.mesh
+        rule = quadrature_rule(mesh.cell_type, quad_degree or 2 * space.element.degree)
+        tab = space.element.tabulate(rule.points)
+        detJ, _ = affine_geometry(mesh)
+        pattern = build_sparsity(space.cell_dofs, shape=(space.num_dofs, space.num_dofs))
+
+        def f64(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
+
+        w, phi = f64(rule.weights), f64(tab.phi)
+        return cls(
+            rule=rule, space=space, pattern=pattern, device=device, w=w, phi_u=phi,
+            detJ=f64(detJ),
+            cell_dofs=torch.as_tensor(np.asarray(space.cell_dofs, dtype=np.int64), device=device),
+            M0=torch.einsum("q,qi,qj->ij", w, phi, phi),
+        )
+
+    def scatter(self, element_mats: torch.Tensor) -> CSRMatrix:
+        """Per-cell element matrices -> the space's CSR matrix."""
+        return CSRMatrix(self.pattern, assemble_csr_data(self.pattern, element_mats))
+
+    def scatter_vec(self, element_vecs: torch.Tensor) -> torch.Tensor:
+        """(nc, ndofs_el) element vectors -> (num_dofs,) global vector (f64
+        ``index_add_``)."""
+        out = torch.zeros(self.space.num_dofs, dtype=element_vecs.dtype, device=self.device)
+        return out.index_add_(0, self.cell_dofs.reshape(-1), element_vecs.reshape(-1))
+
+
 # ---------------------------------------------------------------------------
 # Scalar element kernels
 # ---------------------------------------------------------------------------
 
 
-def mass_scalar(ctx: AssemblyContext) -> torch.Tensor:
+def mass_scalar(ctx: AssemblyContext | SpaceContext) -> torch.Tensor:
     """(nc, nu_el, nu_el) element mass matrices: detJ * M0."""
     return ctx.detJ[:, None, None] * ctx.M0[None]
 

@@ -54,6 +54,20 @@ class BoundaryConditions:
     robin: list[tuple[int, float, tuple[float, ...]]] = field(default_factory=list)
     outlet_markers: list[int] = field(default_factory=list)
 
+    def homogeneous(self) -> "BoundaryConditions":
+        """Same constrained DOFs with zero values: the perturbation BCs of
+        the linearized eigenproblem (homogeneous Dirichlet on every
+        baseflow Dirichlet boundary)."""
+        return BoundaryConditions(
+            num_dofs=self.num_dofs,
+            dirichlet_mask=self.dirichlet_mask.copy(),
+            dirichlet_values=np.zeros_like(self.dirichlet_values),
+            velocity_neumann=[(m, tuple(0.0 for _ in v)) for m, v in self.velocity_neumann],
+            pressure_neumann=[(m, 0.0) for m, _ in self.pressure_neumann],
+            robin=[(m, a, tuple(0.0 for _ in v)) for m, a, v in self.robin],
+            outlet_markers=list(self.outlet_markers),
+        )
+
 
 def define_bcs(
     mesh: Mesh,

@@ -104,3 +104,8 @@ def mesh_from_numpy(vertices, cells, cell_type: str, facet_tags=None) -> Mesh:
 def state_from_numpy(w, *, device="cuda") -> torch.Tensor:
     """A mixed (velocity, pressure) state vector, e.g. a baseflow, as f64."""
     return torch.as_tensor(np.asarray(w, dtype=np.float64), device=device)
+
+
+def complex_state_from_numpy(v, *, device="cuda") -> torch.Tensor:
+    """A complex mixed vector, e.g. an eigenvector, as complex128."""
+    return torch.as_tensor(np.asarray(v, dtype=np.complex128), device=device)

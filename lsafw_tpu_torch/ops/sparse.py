@@ -17,6 +17,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from lsafw_tpu_torch.ops import spmv_cuda
+
 
 @dataclass(frozen=True, eq=False)
 class SparsityPattern:
@@ -75,6 +77,7 @@ class SparsityPattern:
 
 _PER_PATTERN: dict = {}
 _PER_PATTERN_MAX = 8
+PLAN_BUILDS: dict = {}  # builds (cache misses) of per_pattern, by the key's first item
 
 
 def per_pattern(pattern: SparsityPattern, key: tuple, build):
@@ -82,12 +85,15 @@ def per_pattern(pattern: SparsityPattern, key: tuple, build):
     identity and ``key``.  Each entry holds the pattern, so its id is not
     reused while the entry lives.  The RCM ordering, the real (Newton) and
     complex (shift-invert) band plans and the permuted-CSR plan of a
-    pattern stay cached side by side."""
+    pattern stay cached side by side.  ``PLAN_BUILDS`` counts the misses:
+    an evicted plan is rebuilt silently, so a caller that must not re-plan
+    reads the count."""
     full = (id(pattern),) + key
     hit = _PER_PATTERN.get(full)
     if hit is not None and hit[0] is pattern:
         _PER_PATTERN[full] = _PER_PATTERN.pop(full)
         return hit[1]
+    PLAN_BUILDS[key[0]] = PLAN_BUILDS.get(key[0], 0) + 1
     value = build()
     while len(_PER_PATTERN) >= _PER_PATTERN_MAX:
         _PER_PATTERN.pop(next(iter(_PER_PATTERN)))
@@ -153,6 +159,47 @@ class CSRMatrix:
             (self.data.detach().cpu().numpy(), self.pattern.indices, self.pattern.indptr),
             shape=self.shape,
         )
+
+    def diagonal(self) -> torch.Tensor:
+        """The stored diagonal (raises where the pattern lacks one)."""
+        return self.data[self.idx()["diag_slots"]]
+
+    def transpose(self) -> "CSRMatrix":
+        """A^T on a new pattern of its own (host transpose)."""
+        t = self.to_scipy().T.tocsr()
+        t.sort_indices()
+        pattern = SparsityPattern(shape=t.shape, indptr=t.indptr.astype(np.int64),
+                                  indices=t.indices.astype(np.int32),
+                                  slots=np.arange(t.nnz, dtype=np.int32))
+        return CSRMatrix(pattern, torch.as_tensor(t.data, device=self.device))
+
+
+def transpose_pair(A: CSRMatrix, M: CSRMatrix) -> tuple[CSRMatrix, CSRMatrix]:
+    """(A^T, M^T) of a pair that shares a pattern, on one shared pattern.
+
+    The slot map of the structural transpose is computed once on the host
+    and both data arrays are permuted by it (G's flat f64 gather on the
+    card), so explicit zeros stay.  Where the transposed structure equals
+    the original (a structurally symmetric pattern, as every Taylor-Hood
+    pattern is), both matrices come back on the *original* pattern object:
+    the RCM ordering depends only on the structure, so the adjoint shares
+    every plan cached for the pattern.  Otherwise they get a new pattern.
+    A pair on two patterns is transposed matrix by matrix."""
+    if M.pattern is not A.pattern:
+        return A.transpose(), M.transpose()
+    pat = A.pattern
+    ids = sp.csr_matrix((np.arange(1, pat.nnz + 1, dtype=np.int64), pat.indices, pat.indptr),
+                        shape=pat.shape).T.tocsr()  # 1-based slot ids: no 0 to prune
+    ids.sort_indices()
+    if np.array_equal(ids.indptr, pat.indptr) and np.array_equal(ids.indices, pat.indices):
+        pattern_t = pat
+    else:
+        pattern_t = SparsityPattern(shape=ids.shape, indptr=ids.indptr.astype(np.int64),
+                                    indices=ids.indices.astype(np.int32),
+                                    slots=np.arange(pat.nnz, dtype=np.int32))
+    src = torch.as_tensor((ids.data - 1).astype(np.int32), device=A.device)
+    return (CSRMatrix(pattern_t, spmv_cuda.gather(A.data.contiguous(), src)),
+            CSRMatrix(pattern_t, spmv_cuda.gather(M.data.contiguous(), src)))
 
 
 def assemble_csr_data(pattern: SparsityPattern, element_values: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,7 @@ class BaseFlowSolver:
         self._mesh = mesh
         self._bcs = bcs
         self._re = re
+        self._initial_guess: np.ndarray | None = None  # Newton's start; None: a Stokes solve
         self.stats = new_stats()  # banded inner solves: device seconds and counts
         self.newton_results: list[NewtonResult] = []
 
@@ -67,7 +68,9 @@ class BaseFlowSolver:
             StationaryNavierStokesAssembler(self._ctx, self._mesh, self._bcs),
             damping=damping_factor, linear_solver=linear_solver, stats=self.stats,
         )
-        sol = self._solve_stokes_flow(linear_solver)
+        if self._initial_guess is None:
+            self._initial_guess = self._solve_stokes_flow(linear_solver)
+        sol = self._initial_guess
         result: NewtonResult | None = None
         for re in re_ramp:
             logger.info("Solving stationary Navier-Stokes at Re=%.2f", re)

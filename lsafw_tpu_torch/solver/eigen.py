@@ -146,6 +146,12 @@ def _device_memory_bytes(device: torch.device) -> float:
     return float(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
 
 
+class FactorUnusable(RuntimeError):
+    """The band factor at a shift is non-finite or preconditions too weakly
+    (for instance a shift on an exact eigenvalue, where C is singular to
+    working precision)."""
+
+
 class ShiftInvertOperator:
     """y = (A - sigma M)^-1 (M v) with real A, M and complex sigma,
     through the device band factor + f64 refinement (``method="banded"``,
@@ -153,7 +159,8 @@ class ShiftInvertOperator:
 
     The refinement depth is calibrated from the factor's measured
     contraction; a factor that is non-finite or too weak to reach the
-    inner tolerance within the iteration cap raises ``RuntimeError``."""
+    inner tolerance within the iteration cap raises
+    :class:`FactorUnusable` (the reference falls back to a host LU)."""
 
     _CAP = 300
 
@@ -180,11 +187,11 @@ class ShiftInvertOperator:
         rho = float(torch.linalg.vector_norm(b0 - _si_apply_C(self.device_op, x0)))
         self.rho = rho
         if not np.isfinite(rho):
-            raise RuntimeError(f"band factor is not usable: calibration contraction {rho}")
+            raise FactorUnusable(f"band factor is not usable: calibration contraction {rho}")
         rho_c = min(max(rho, 1e-14), 0.999)
         needed = int(2 * np.ceil(np.log(inner_tol) / np.log(rho_c)))
         if needed > self._CAP:
-            raise RuntimeError(
+            raise FactorUnusable(
                 f"band factor preconditions too weakly: contraction {rho:.3e} needs "
                 f"~{needed} refinement iterations for tol {inner_tol:.0e} (cap {self._CAP})")
         self._inner_tol = inner_tol
@@ -425,15 +432,25 @@ class EigenSolver:
             raise ValueError("SINVERT requires a target (set_target).")
         cfg = self.config
         t0 = time.time()
-        op, result = self._run(self._target)
-        lam = op.back_transform(result.eigenvalues)
         # a shift on an exact eigenvalue makes the factor numerically
-        # singular: eigenvalues look right but vectors are polluted;
-        # detect via true residuals and retry once with an offset shift
+        # singular: the band factor's calibration refuses it, or the
+        # eigenvalues look right but the vectors are polluted (detected by
+        # the true residuals); either way the solve is retried once at an
+        # offset shift (where the reference, after its host-LU fallback,
+        # ends as well)
+        offset = 1e-3 * (1.0 + abs(self._target))
+        try:
+            op, result = self._run(self._target)
+        except FactorUnusable as e:  # retried below, once the refused factor is freed
+            logger.info("%s at the target; retrying with offset shift %.1e.", e, offset)
+            op = None
+        if op is None:
+            op, result = self._run(self._target + offset)
+        lam = op.back_transform(result.eigenvalues)
         pairs = list(zip([complex(v) for v in lam], result.eigenvectors))
-        if (eigen_residuals(self.A, self.M, pairs) / (np.abs(lam) + 1.0)
-                > 10.0 * max(cfg.atol, 1e-12)).any():
-            offset = 1e-3 * (1.0 + abs(self._target))
+        if op.sigma == self._target and (eigen_residuals(self.A, self.M, pairs)
+                                         / (np.abs(lam) + 1.0)
+                                         > 10.0 * max(cfg.atol, 1e-12)).any():
             logger.info("Shift-invert eigenvectors polluted; retrying with offset shift %.1e.",
                         offset)
             op, result = self._run(self._target + offset)

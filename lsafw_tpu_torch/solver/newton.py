@@ -28,17 +28,10 @@ from lsafw_tpu_torch.ops.bcsr import operator_for_budget
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
 from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
+from lsafw_tpu_torch.solver.linear import SolveResult
 from lsafw_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
-
-
-@dataclass
-class SolveResult:
-    x: torch.Tensor
-    iterations: int
-    residual: float  # relative residual ||b - J x|| / ||b||
-    converged: bool
 
 
 def new_stats() -> dict:

@@ -13,8 +13,10 @@ import torch
 
 import lsafw_tpu_torch
 from lsafw_tpu_torch.fem.assembly import AssemblyContext
+from lsafw_tpu_torch.fem.bcs import BoundaryConditions
 from lsafw_tpu_torch.fem.spaces import define_spaces
 from lsafw_tpu_torch.meshing.mesh import unit_square
+from lsafw_tpu_torch.sensitivity import EigenSensitivitySolver
 from lsafw_tpu_torch.solver.eigen import krylov_schur
 
 torch.set_num_threads(1)
@@ -38,12 +40,13 @@ def test_import_loads_no_jax_and_no_jax_package():
     """In a fresh interpreter (this process already holds jax)."""
     code = (
         "import sys, lsafw_tpu_torch, lsafw_tpu_torch.interop, lsafw_tpu_torch.solver.eigen, "
-        "lsafw_tpu_torch.solver.baseflow\n"
+        "lsafw_tpu_torch.solver.baseflow, lsafw_tpu_torch.sensitivity\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=PKG.parent, check=True, timeout=120).stdout.split()
     assert "lsafw_tpu_torch.solver.band_cuda" in out
+    assert {"lsafw_tpu_torch.solver.linear", "lsafw_tpu_torch.solver.precond"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -75,3 +78,23 @@ def test_default_device_entry_points_refuse_the_cpu(monkeypatch):
                        device="cpu")
     assert res.converged and abs(res.eigenvalues[0] - 8.0) < 1e-10
     assert np.isfinite(res.eigenvectors).all()
+
+
+def test_sensitivity_refuses_the_cpu_by_default(monkeypatch):
+    """``EigenSensitivitySolver`` defaults to the card: without one it
+    raises unless ``device="cpu"`` is passed, and the reference's host-LU
+    ``si_method`` is not ported."""
+    spaces = define_spaces(unit_square(2))
+    ctx = AssemblyContext.build(spaces, device="cpu")
+    n = spaces.num_dofs
+    bcs = BoundaryConditions(num_dofs=n, dirichlet_mask=np.zeros(n, bool),
+                             dirichlet_values=np.zeros(n))
+    args = (ctx, spaces.velocity.mesh, bcs, np.zeros(n), 10.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EigenSensitivitySolver(*args)
+    with pytest.raises(NotImplementedError, match="banded"):
+        EigenSensitivitySolver(*args, si_method="lu", device="cpu")
+    solver = EigenSensitivitySolver(*args, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+        solver.solve_direct_mode()

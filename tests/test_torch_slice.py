@@ -10,21 +10,55 @@ no host LU runs.  The baseflows are f64 on both sides (rel 1e-9 for the
 same host LU; rel 1e-7 for the banded Newton, which stops at |F| < 1e-8
 with another last step); the eigenvalue is held to the eigensolver's
 own gate (1e-8).
+
+Adjoint sensitivity: the JAX package's ``EigenSensitivitySolver`` runs
+once on the JAX baseflow with its default host-LU shift-invert; the
+port's runs ``evaluate()`` once on the same baseflow, on the banded
+device route with host LU forbidden, and its adjoint vector is held to
+the JAX package's through the phase between the two direct vectors.
+The JAX package's direct pair, adjoint vector and du/dRe, carried into
+the port, drive ``evaluate_sensitivity`` and ``compute_wavemaker``.
+Tolerances: the transposes exact; the scalar forms rel 1e-12 (f64
+einsums in another order); sigma_adj 1e-8 and the adjoint vector rel
+1e-6 (the adjoint eigensolve's ``atol`` is 1e-8); du/dRe rel 1e-7 (GCR
+to a relative residual of 1e-10 against SuperLU); d sigma/dRe on
+identical inputs rel 1e-10 and end to end rel 1e-6; the wavemaker rel
+1e-8 (CG to 1e-12 on both sides).
+
+The port's band plans on its device route (banded baseflow, pivoted
+eigenpair, sensitivity) keep the small cylinder's 23 block rows
+unpadded (``chunk=1``) instead of padding them to 128 with identity
+rows: the same factors at a fraction of the CPU time.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
+from lsafw_tpu import sensitivity as jsens
+from lsafw_tpu.fem import assembly as jassembly
 from lsafw_tpu.models.navier_stokes import LinearizedNavierStokesAssembler as JLinearized
+from lsafw_tpu.ops import sparse as jsparse
 from lsafw_tpu.solver import band as jband
 from lsafw_tpu.solver import baseflow as jbaseflow
 from lsafw_tpu.solver import eigen as jeigen
+from lsafw_tpu.solver import linear as jlinear
+from lsafw_tpu.solver import precond as jprecond
+from lsafw_tpu_torch import interop
+from lsafw_tpu_torch import sensitivity as tsens
+from lsafw_tpu_torch.fem import assembly as tassembly
 from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+from lsafw_tpu_torch.ops import sparse as tsparse
 from lsafw_tpu_torch.ops.bcsr import BCSRShiftedOp
+from lsafw_tpu_torch.solver import band as tband
 from lsafw_tpu_torch.solver import baseflow as tbaseflow
+from lsafw_tpu_torch.solver import direct as tdirect
 from lsafw_tpu_torch.solver import eigen as teigen
+from lsafw_tpu_torch.solver import linear as tlinear
 from lsafw_tpu_torch.solver import newton as tnewton
+from lsafw_tpu_torch.solver import precond as tprecond
 from lsafw_tpu_torch.solver.band import PivotedBandedLU
 from tests.test_torch_fem import RE, cylinder_case, one_blas_thread  # noqa: F401
 
@@ -62,11 +96,17 @@ def _no_host_lu(*args, **kw):
 
 
 @pytest.fixture(scope="module")
-def jax_leading(cases, baseflows):
-    """The JAX package's leading pair on its pivot-free branch, and the
-    pivoted flags its ``factor_auto`` returned."""
+def jax_system(cases, baseflows):
+    """The JAX package's (A, M) around the JAX baseflow."""
     jc, _ = cases
     jw, _ = baseflows
+    return JLinearized(jw, jc["ctx"], RE, jc["bcs_pert"], jc["mesh"]).assemble_eigensystem()
+
+
+@pytest.fixture(scope="module")
+def jax_leading(jax_system):
+    """The JAX package's leading pair on its pivot-free branch, and the
+    pivoted flags its ``factor_auto`` returned."""
     pivoted = []
     factor_auto = jband.factor_auto
 
@@ -80,11 +120,25 @@ def jax_leading(cases, baseflows):
     mp.setattr(jband, "factor_auto", spy)
     mp.setattr(jeigen, "SparseLU", _no_host_lu)
     try:
-        JA, JM = JLinearized(jw, jc["ctx"], RE, jc["bcs_pert"], jc["mesh"]).assemble_eigensystem()
-        jpairs, _ = _leading(jeigen, JA, JM)
+        jpairs, _ = _leading(jeigen, *jax_system)
     finally:
         mp.undo()
     return jpairs, pivoted
+
+
+def _forbid_host_lu(mp: pytest.MonkeyPatch) -> None:
+    """Every host LU of the port raises."""
+    for mod, name in ((tdirect, "SparseLU"), (tdirect, "direct_solve"), (tnewton, "SparseLU"),
+                      (tbaseflow, "direct_solve")):
+        mp.setattr(mod, name, _no_host_lu)
+
+
+def _small_plans(mp: pytest.MonkeyPatch) -> None:
+    """Band plans of the small cylinder's 23 block rows, unpadded (chunk 1)
+    rather than padded with identity rows to 128: the same factors and
+    solves at a fifth of the CPU time (padded plans: the JAX comparisons
+    above and ``test_torch_pivoted.py``; the card runs the default)."""
+    mp.setitem(tband.plan_for_csr.__kwdefaults__, "chunk", 1)
 
 
 @pytest.fixture(scope="module")
@@ -94,6 +148,7 @@ def banded_baseflow(cases):
     mp = pytest.MonkeyPatch()
     mp.setattr(tnewton, "SparseLU", _no_host_lu)
     mp.setattr(tbaseflow, "direct_solve", _no_host_lu)
+    _small_plans(mp)
     try:
         solver = tbaseflow.BaseFlowSolver(tc["ctx"], tc["mesh"], tc["bcs_base"], re=RE)
         w = solver.solve(ramp=True, steps=3, tol=1e-8, max_it=40, linear_solver="banded")
@@ -151,6 +206,7 @@ def test_pivoted_eigenvalue_matches(cases, banded_baseflow, jax_leading, monkeyp
     monkeypatch.delenv("LSAFW_PIVOT_MEM_GB", raising=False)
     monkeypatch.setattr(tnewton, "SparseLU", _no_host_lu)
     monkeypatch.setattr(tbaseflow, "direct_solve", _no_host_lu)
+    _small_plans(monkeypatch)
     A, M = LinearizedNavierStokesAssembler(w, tc["ctx"], RE, tc["bcs_pert"],
                                            tc["mesh"]).assemble_eigensystem()
     pairs, es = _leading(teigen, A, M)
@@ -161,3 +217,239 @@ def test_pivoted_eigenvalue_matches(cases, banded_baseflow, jax_leading, monkeyp
     assert teigen.eigen_residuals(A, M, pairs)[0] <= 1e-8
     print(f"pivoted factor: contraction {op.rho:.2e}")
     assert op.rho < 1e-4  # no saddle regularization: an f32 LU's contraction
+
+
+# ---------------------------------------------------------------------------
+# Adjoint sensitivity
+# ---------------------------------------------------------------------------
+
+
+def _rel(got, ref) -> float:
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    ref = np.asarray(ref)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+@pytest.fixture(scope="module")
+def jax_sensitivity(cases, baseflows, jax_system):
+    """The JAX package's sensitivity pipeline, once, with its default
+    ``si_method="lu"``; the adjoint eigenvalue is read off the pairs of
+    its eigensolver."""
+    jc, _ = cases
+    jw, _ = baseflows
+    JA, JM = jax_system
+    solved = []
+
+    class Recording(jeigen.EigenSolver):
+        def solve(self):
+            solved.append(super().solve())
+            return solved[-1]
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jsens, "EigenSolver", Recording)
+    try:
+        sens = jsens.EigenSensitivitySolver(jc["ctx"], jc["mesh"], jc["bcs_base"], jw, RE, A=JA,
+                                            M=JM, perturbation_bcs=jc["bcs_pert"], target=TARGET)
+        sigma, v = sens.solve_direct_mode()
+        a = sens.solve_adjoint_mode()
+        s = sens.compute_baseflow_sensitivity()
+        d = sens.evaluate_sensitivity()
+        sw = sens.compute_wavemaker()
+    finally:
+        mp.undo()
+    sigma_adj = min(solved[-1], key=lambda p: abs(p[0] - np.conj(sigma)))[0]
+    return dict(sigma=sigma, v=np.asarray(v), a=np.asarray(a), sigma_adj=sigma_adj,
+                s=np.asarray(s), d=d, sw=np.asarray(sw))
+
+
+@pytest.fixture(scope="module")
+def port_system(cases, baseflows):
+    """The port's (A, M) around the same (JAX) baseflow."""
+    _, tc = cases
+    jw, _ = baseflows
+    return LinearizedNavierStokesAssembler(jw, tc["ctx"], RE, tc["bcs_pert"],
+                                           tc["mesh"]).assemble_eigensystem()
+
+
+def _port_solver(cases, baseflows, port_system):
+    _, tc = cases
+    jw, _ = baseflows
+    A, M = port_system
+    return tsens.EigenSensitivitySolver(tc["ctx"], tc["mesh"], tc["bcs_base"], jw, RE, A=A, M=M,
+                                        perturbation_bcs=tc["bcs_pert"], target=TARGET,
+                                        device="cpu")
+
+
+@pytest.fixture(scope="module")
+def port_evaluated(cases, baseflows, port_system):
+    """The port's own pipeline, once: ``evaluate(TARGET)`` (direct mode,
+    adjoint mode at that pair, du/dRe) with host LU forbidden."""
+    mp = pytest.MonkeyPatch()
+    _forbid_host_lu(mp)
+    _small_plans(mp)
+    try:
+        solver = _port_solver(cases, baseflows, port_system)
+        d = solver.evaluate(TARGET)
+    finally:
+        mp.undo()
+    return solver, d
+
+
+def test_homogeneous_bcs_match_jax(cases):
+    jc, tc = cases
+    jh, th = jc["bcs_base"].homogeneous(), tc["bcs_base"].homogeneous()
+    assert np.array_equal(th.dirichlet_mask, jh.dirichlet_mask)
+    assert np.array_equal(th.dirichlet_values, jh.dirichlet_values)
+    assert not th.dirichlet_values.any() and tc["bcs_base"].dirichlet_values.any()
+    assert (th.velocity_neumann, th.pressure_neumann, th.robin, th.outlet_markers) == (
+        jh.velocity_neumann, jh.pressure_neumann, jh.robin, jh.outlet_markers)
+
+
+def test_adjoint_mode_matches_jax(port_evaluated, jax_sensitivity):
+    """The adjoint pair of ``evaluate()``'s ``solve_adjoint_mode(sigma, v)``
+    call, against the JAX package's: both vectors are scaled by a^H M v = 1
+    on their own direct vector, which differ by a phase c (v_port = c v),
+    so a_port conj(c) is held to the JAX package's a."""
+    solver, _ = port_evaluated
+    ref = jax_sensitivity
+    assert abs(solver.sigma_adjoint - ref["sigma_adj"]) <= 1e-8
+    assert abs(solver.sigma_adjoint - np.conj(ref["sigma"])) <= 1e-8
+    c = complex(np.vdot(ref["v"], solver._v.numpy()) / np.vdot(ref["v"], ref["v"]))
+    assert abs(abs(c) - 1) <= 1e-8
+    assert _rel(solver._a * np.conj(c), ref["a"]) <= 1e-6
+    op = solver.operators["adjoint"]
+    assert op["pivoted"] and op["fused"]
+
+
+def test_baseflow_sensitivity_matches_jax(port_evaluated, jax_sensitivity):
+    solver, _ = port_evaluated
+    assert _rel(solver._baseflow_sens, jax_sensitivity["s"]) <= 1e-7
+    res = solver.baseflow_solve
+    assert res.converged and res.residual <= 1e-10
+    assert solver.stats["factors"] == solver.stats["pivoted"] == 1
+
+
+def test_evaluate_sensitivity_and_wavemaker_match_jax(cases, baseflows, port_system,
+                                                      jax_sensitivity):
+    """d sigma/dRe and the wavemaker on the JAX package's (v, a, s)."""
+    ref = jax_sensitivity
+    solver = _port_solver(cases, baseflows, port_system)
+    v, a = (interop.complex_state_from_numpy(ref[k], device="cpu") for k in ("v", "a"))
+    s = interop.state_from_numpy(ref["s"], device="cpu")
+    d = solver.evaluate_sensitivity(v=v, a=a, baseflow_sens=s)
+    assert abs(d - ref["d"]) <= 1e-10 * abs(ref["d"])
+    sw = solver.compute_wavemaker(v=v, a=a)
+    assert _rel(sw, ref["sw"]) <= 1e-8
+    assert not sw[cases[1]["spaces"].dofs_u].any()
+    assert solver.wavemaker_cg.converged
+
+
+def test_evaluate_end_to_end_matches_jax(port_evaluated, jax_sensitivity):
+    solver, d = port_evaluated
+    ref = jax_sensitivity
+    print(f"d sigma/dRe: port {d:.10e}, JAX package {ref['d']:.10e}")
+    assert abs(d - ref["d"]) <= 1e-6 * abs(ref["d"])
+    assert abs(solver._sigma - ref["sigma"]) <= 1e-8
+    assert all(op["pivoted"] and op["fused"] for op in solver.operators.values())
+
+
+@pytest.mark.parametrize("structure", ["taylor_hood", "unsymmetric"])
+def test_transpose_pair_matches_jax(jax_system, structure):
+    """Both transposes on one pattern, equal to the JAX package's and to
+    scipy's ``.T`` exactly; a structurally symmetric pair keeps its
+    pattern object."""
+    if structure == "taylor_hood":
+        JA, JM = jax_system
+        sA, sM = JA.to_scipy(), JM.to_scipy()
+    else:
+        rng = np.random.default_rng(5)
+        sA = sp.random(60, 60, density=0.1, random_state=rng, format="csr") + sp.eye(60)
+        sA.sort_indices()
+        sM = sp.csr_matrix((rng.standard_normal(sA.nnz), sA.indices, sA.indptr), shape=sA.shape)
+        JA = jsparse.CSRMatrix.from_scipy(sA)
+        JM = jsparse.CSRMatrix(JA.pattern, jnp.asarray(sM.data))
+    pat = interop.csr_from_numpy(sA.indptr, sA.indices, sA.data, sA.shape, device="cpu").pattern
+    A = tsparse.CSRMatrix(pat, torch.as_tensor(sA.data))
+    M = tsparse.CSRMatrix(pat, torch.as_tensor(sM.data))
+    At, Mt = tsparse.transpose_pair(A, M)
+    JAt, JMt = jsparse.transpose_pair(JA, JM)
+    assert At.pattern is Mt.pattern
+    assert (At.pattern is pat) == (structure == "taylor_hood")
+    for t, j, ref in ((At, JAt, sA), (Mt, JMt, sM)):
+        st = ref.T.tocsr()
+        st.sort_indices()
+        for got in (j.pattern, st):
+            assert np.array_equal(t.pattern.indptr, got.indptr)
+            assert np.array_equal(t.pattern.indices, got.indices)
+        assert np.array_equal(t.data.numpy(), np.asarray(j.data))
+        assert np.array_equal(t.data.numpy(), st.data)
+
+
+FORMS = ("grad_inner", "convection", "velocity_inner", "sesquilinear")
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_scalar_forms_match_jax(cases, baseflows, form):
+    jc, tc = cases
+    jw, _ = baseflows
+    rng = np.random.default_rng(FORMS.index(form))
+    n = jw.size
+    w1, w2 = rng.standard_normal(n), rng.standard_normal(n)
+    a = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    v = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    calls = {
+        "grad_inner": lambda m, c: m.grad_inner_integral(c, w1, w2),
+        "convection": lambda m, c: m.convection_integral(c, jw, w1, w2),
+        "velocity_inner": lambda m, c: m.velocity_inner_integral(c, w1, w2),
+        "sesquilinear": lambda m, c: m._sesquilinear(
+            lambda x, y: m.convection_integral(c, jw, x, y), a, v),
+    }
+    got, ref = calls[form](tsens, tc["ctx"]), calls[form](jsens, jc["ctx"])
+    assert abs(got - ref) <= 1e-12 * abs(ref)
+
+
+def test_cg_jacobi_match_jax(cases):
+    """The P1 pressure mass matrix of ``SpaceContext`` and Jacobi CG on it,
+    against the JAX package's, on a right-hand side from a seed."""
+    jc, tc = cases
+    jp = jassembly.SpaceContext.build(jc["spaces"].pressure)
+    tp = tassembly.SpaceContext.build(tc["spaces"].pressure, device="cpu")
+    JMp = jp.scatter(jassembly.mass_scalar(jp))
+    Mp = tp.scatter(tassembly.mass_scalar(tp))
+    assert np.array_equal(Mp.pattern.indptr, JMp.pattern.indptr)
+    assert _rel(Mp.data, JMp.data) <= 1e-12
+    el = np.random.default_rng(9).standard_normal(tuple(tp.cell_dofs.shape))
+    b = tp.scatter_vec(torch.as_tensor(el))
+    jb = jp.scatter_vec(jnp.asarray(el))
+    assert _rel(b, jb) <= 1e-12
+    kw = dict(tol=1e-12, maxiter=2000)
+    jres = jlinear.cg(lambda x: jsparse.spmv(JMp, x), jb, M=jprecond.jacobi(JMp), **kw)
+    res = tlinear.cg(lambda x: tsparse.spmv(Mp, x), b, M=tprecond.jacobi(Mp), **kw)
+    assert res.converged and bool(jres.converged)
+    assert abs(res.iterations - int(jres.iterations)) <= 1
+    assert _rel(res.x, jres.x) <= 1e-10
+
+
+def test_shift_on_an_exact_eigenvalue_retries_offset(monkeypatch):
+    """A shift exactly on an eigenvalue makes C singular: the band factor's
+    calibration refuses it, and the eigensolver retries once at the offset
+    shift 1e-3 (1 + |target|), as the direct mode at sigma does."""
+    k = np.arange(1, 21, dtype=np.float64)
+    a, b = -k / 10, k  # 2x2 blocks [[a, -b], [b, a]]: eigenvalues a +- ib
+    sA = sp.block_diag([[[x, -y], [y, x]] for x, y in zip(a, b)], format="csr")
+    sA.sort_indices()
+    pat = interop.csr_from_numpy(sA.indptr, sA.indices, sA.data, sA.shape, device="cpu").pattern
+    A = tsparse.CSRMatrix(pat, torch.as_tensor(sA.data))
+    M = tsparse.CSRMatrix(pat, torch.as_tensor((sA.indices == pat.row_ids) * 1.0))
+    target = complex(a[2], b[2])
+    _small_plans(monkeypatch)
+    es = teigen.EigenSolver(A, M, teigen.EigensolverConfig(num_eig=1, atol=1e-10, ncv=10))
+    es.set_st_type(teigen.STType.SINVERT)
+    es.set_target(target)
+    es.set_st_pc_type("banded")
+    with pytest.raises(teigen.FactorUnusable):
+        teigen.ShiftInvertOperator(A, M, target)
+    lam, x = es.solve()[0]
+    assert es.operator.sigma == target + 1e-3 * (1 + abs(target))
+    assert abs(lam - target) <= 1e-10
+    assert teigen.eigen_residuals(A, M, [(lam, x)])[0] <= 1e-10
