@@ -100,8 +100,8 @@ def instrumented(src: str) -> str:
                        "    refill(consumed);\n    if (prof_rank() == 0) atomicAdd(&g_prof[7], "
                        "(unsigned long long)(clock64() - _r0));\n  }")
     sync = "    if (threadIdx.x < kWarps * 32) consumer_sync();\n"
-    src = replace_once(src, sync + "    if (c0 + nc < n) {",
-                       "    PMARK(1);\n" + sync + "    PMARK(2);\n    if (c0 + nc < n) {")
+    src = replace_once(src, sync + "    if (c0 + nc < n || more) {",
+                       "    PMARK(1);\n" + sync + "    PMARK(2);\n    if (c0 + nc < n || more) {")
     src, n = re.subn(r"\n(    publish\(refill, [^;]*\);)\n  }\n}\n",
                      r"\n    PMARK(3);\n\1\n    PMARK(4);\n  }\n  PEND;\n}\n", src)
     starts = src.count("  cluster.sync();\n")
@@ -130,11 +130,11 @@ def variants(src: str) -> dict:
 def load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.band_fwd.argtypes = [i32, p, p, p, i64, i64, i32, p]
+    lib.band_fwd.argtypes = [i32, i32, p, p, p, i64, i64, i32, p]
     lib.band_fwd_pivoted.argtypes = [i32, p, p, p, p, p, i64, i32, p]
-    lib.band_bwd.argtypes = [i32, p, p, p, p, i64, i64, i32, i32, i32, p]
+    lib.band_bwd.argtypes = [i32, i32, p, p, p, p, i64, i64, i32, i32, i32, p]
     lib.probe_read.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
-    for f in (lib.band_fwd, lib.band_fwd_pivoted, lib.band_bwd, lib.probe_read):
+    for f in (lib.band_fwd, lib.band_fwd_pivoted, lib.band_bwd, lib.band_nb, lib.probe_read):
         f.restype = ctypes.c_int
     return lib
 
@@ -153,10 +153,11 @@ def main() -> int:
         paths.append(out / f"band_subst_{name}.cu")
         paths[-1].write_text(code)
     with ThreadPoolExecutor(max_workers=len(paths) + 1) as pool:
-        committed, *built = pool.map(compile_library, [bc._SRC] + paths)
+        committed, *built = pool.map(lambda src: compile_library(src, ("BAND_NB=128",)),
+                                     [bc._SRC] + paths)
     libs = {p.stem.removeprefix("band_subst_"): load(lib) for p, lib in zip(paths, built)}
-    bc._lib = None
-    bc._load()
+    bc._libs.clear()
+    bc._load(128)
     buf = (ctypes.c_ulonglong * 16)()
     B, nblk, nb = 7, 384, 128
     for real, pivoted in ((False, False), (False, True), (True, True)):
@@ -168,10 +169,10 @@ def main() -> int:
         y = fwd_plain(b)
         steps = nblk if pivoted else nblk + B
         for kname, fn in (("K1", lambda: fwd(b)), ("K2", lambda: bwd(y))):
-            committed_lib = bc._lib
+            committed_lib = bc._libs[128]
             base_ms = cs.cuda_ms(fn, 20)
             for vname, lib in libs.items():
-                bc._lib = lib
+                bc._libs[128] = lib
                 fn()
                 torch.cuda.synchronize()
                 bc.raise_on(lib.probe_read(buf), "probe_read")
@@ -184,7 +185,7 @@ def main() -> int:
                        f"cycles a step {total:.0f}: "
                        + ", ".join(f"{PARTS[i]} {per[i]:.0f}" for i in PARTS)
                        + "; " + ", ".join(f"{ASIDE[i]} {per[i]:.0f}" for i in ASIDE))
-            bc._lib = committed_lib
+            bc._libs[128] = committed_lib
         del f
     cs.log(f"built from {committed.name}")
     return 0

@@ -7,21 +7,25 @@
 Phases, one or more lines each (a failure raises and the exit code is
 non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the kernel build:
-     ``csrc/band_subst.cu`` and ``csrc/spmv_gather.cu``, one nvcc each,
-     started together;
+     ``csrc/band_subst.cu`` at nb = 128 and at nb = 256 and
+     ``csrc/spmv_gather.cu``, one nvcc each, started together;
   2. kernels against their plain PyTorch versions on the card, relative
      error <= 1e-5: the band substitution K1/K2 in both modes and every
      type (complex64; float32 with one and two columns) on random factors
-     at the 43k cylinder shapes (B = 7, nb = 128, 384 block rows) and at
-     the 167k mesh's B = 26 with 32 block rows: pivot-free on a random
-     band scaled by 2e-3, pivoted on a random band that needs pivoting
-     within and across block rows, factored on the card by the port's
+     (``PHASE2_SHAPES``): at nb = 128 at the 43k cylinder shapes (B = 7,
+     384 block rows) and at a wider B = 26 with 32 block rows; the
+     pivot-free modes on a bf16 band at B = 7 and at the 175k production
+     mesh's B = 17; every mode, f32 and bf16, at nb = 256 at B = 4 and
+     B = 9 (the two meshes' B at that nb).  Pivot-free on a random band
+     scaled by 2e-3, pivoted on a random band that needs pivoting within
+     and across block rows, factored on the card by the port's
      ``_pfactor`` (each pair is timed once); the gather G against
      ``x[idx]`` at the probes' shapes (``run_a``: x 2^17 f32, idx
      (1024, 16); ``pallas_two_pass``: x (4096, 128) f32, 2^18 x 128
      lane-unique indices), exact; G's permute-in and permute-out in every
      type pair (f64 / complex128 into complex64, float32 x1 and x2, and
-     back) on a random padded permutation, exact; S in every mode (real,
+     back) on a random padded permutation at nb = 128 and at nb = 256,
+     exact; S in every mode (real,
      complex, shifted, shifted with M x) and both orders against its
      plain version, relative error <= 1e-12 (``SPMV_REL_TOL``), on a
      random matrix with empty rows, tiles of the most rows a tile holds
@@ -49,15 +53,23 @@ non-zero):
      1e-8 of phase 3's, the residual gate, the launch gates of phase 3,
      and the card's factor contracting within 3x of the same factor
      built in f32 on the host CPU;
-  4. S against its plain version on the slice's (A, M) at sigma = 0.74j
+  3c. the bf16 band on the same (A, M): ``LSAFW_PIVOT_MEM_GB=0`` and
+     ``LSAFW_BAND_MEM_GB=0.5`` (0.77 GB in f32 over it, 0.38 GB in bf16
+     under it: bf16 at full width), K1/K2 pivot-free bf16 complex64 once
+     per band solve, sigma within 1e-8 of phase 3's, the residual gate,
+     its contraction printed beside phase 3b's; and one banded real solve
+     of phase 3's last Jacobian with ``LSAFW_BAND_MEM_GB=0.3`` (a bf16
+     band, K1/K2 pivot-free bf16 float32 with one column), GCR to 1e-10;
+  4. S against its plain version on phase 3's (A, M) at sigma = 0.74j
      in each mode and order (relative error <= 1e-12); G against its
      plain versions on the main path's own inputs, exact: the f64 CSR
      value refill (nnz indices), the complex128 flat gather, and the
      permute forms on the eigen stage's complex plan and the baseflow's
      real plan; K1/K2 in each mode and type against their plain versions
      on the main path's own factors (the eigen stage's pivoted factor,
-     phase 3b's pivot-free one, and a real pivoted and pivot-free factor
-     on the baseflow's plan), and the times (medians of CUDA-event
+     phase 3b's pivot-free one, a real pivoted and pivot-free factor
+     on the baseflow's plan, phase 3c's bf16 factors, and after phase 6
+     the 175k factors of phases 6, 6b and 6c), and the times (medians of CUDA-event
      timings: K1/K2 one call at a time, each band being larger than L2;
      G and S with the L2 cache evicted before each call, as the main
      path's band solves leave it) of every kernel beside its plain
@@ -86,11 +98,32 @@ non-zero):
      baseflows at Re = 46 and 48 started from phase 3's, their
      eigenvalues near sigma_3: |d sigma/dRe - FD| <= 0.15 |FD| and
      Re(d sigma/dRe) > 0), and the wavemaker's peak at 0.5 < x < 5,
-     |y| < 2, its velocity slots 0 and its CG converged.
+     |y| < 2, its velocity slots 0 and its CG converged;
+  6. the repository's production cylinder, built from
+     ``config_files/2D/cylinder/*.toml`` (175,491 DOFs): ramped banded
+     Newton (3 steps, tol 1e-8) on real pivoted f32 factors, the
+     eigensystem, and the shift-invert eigenpair at 0.74j on the default
+     plan (the pivot-free complex64 band, B = 17 at nb = 128), with host
+     LU and the torch substitution loops on CUDA tensors raising; each
+     stage read on its own: residual <= 1e-8, |Re sigma - 0.0004| <= 1e-3
+     and |sigma - (0.0008+0.7354j)| <= 3e-3, K1/K2 pivot-free complex64
+     once per band solve in the eigen stage and pivoted float32 x1 in the
+     baseflow, whose band stays f32; stage times, launches, peak memory;
+  6b. phase 6's eigen stage with ``LSAFW_BAND_NB=256``: sigma within 1e-8
+     of phase 6's, K1/K2 pivot-free complex64 at nb = 256 once per band
+     solve; the factor and band-solve times beside nb = 128's;
+  6c. phase 6's eigen stage with ``LSAFW_BAND_MEM_GB=4`` (a bf16 band):
+     sigma within 1e-8 of phase 6's, K1/K2 pivot-free bf16 complex64 once
+     per band solve, and the stage's peak device memory above its start
+     at most 0.6 of phase 6's eigen stage.  Phase 4's K1/K2 checks and
+     times then run on the factors of phases 6, 6b and 6c.
 
 The last lines are the card's name and power limit, one JSON object of
-kernel numbers (``launches``: phases 3 and 3b; ``launches_phase5``: the
-stages of phase 5), and ``{"ok": true, "device": {...}}``.
+kernel numbers, one entry per kernel, mode, storage and type and per
+main-path factor (``launches``: phases 3, 3b, 3c, 6, 6b and 6c;
+``launches_phase5``: the stages of phase 5; ``launches_phase6``: phases
+6 to 6c; modes no main path runs carry phase 2's random factors), and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -103,11 +136,15 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 
 SIGMA_REF = 0.0050 + 0.7526j  # reduced cylinder at Re = 47, recorded to 4 digits
+SIGMA_175K_RE = 0.0004  # the production mesh's Re sigma at Re = 47 (VALIDATION.md), 4 digits
+SIGMA_167K = 0.0008 + 0.7354j  # sigma of the older 167k production mesh (README.md)
+PRODUCTION_CONFIG = Path(__file__).resolve().parent / "config_files" / "2D" / "cylinder"
 SIGMA_CARD = 0.004991 + 0.752636j  # the port's sigma on the H100, as printed to 6 digits
 TARGET = 0.74j
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -115,7 +152,12 @@ FP32_FLOPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FP64_FLOPS_PER_S = 34e12  # H100 SXM float64 outside the tensor cores (NVIDIA data sheet)
 REL_TOL = 1e-5
 DEVICE = "cuda"
-PHASE2_SHAPES = ((7, 384), (26, 32))  # (B, nblk): the 43k cylinder's, the 167k mesh's B with few rows
+# phase 2's random factors, (B, block rows) per (nb, storage): every mode and
+# type at nb = 128 (the 43k cylinder's B and a wider one), the bf16
+# pivot-free modes at the 43k's and the 175k production mesh's B, and every
+# mode at nb = 256 at the B of both meshes at that nb
+PHASE2_SHAPES = {(128, "f32"): ((7, 384), (26, 32)), (128, "bf16"): ((7, 384), (17, 64)),
+                 (256, "f32"): ((4, 192), (9, 96)), (256, "bf16"): ((4, 192), (9, 96))}
 SPMV_REL_TOL = 1e-12
 
 
@@ -225,14 +267,15 @@ def bound(nbytes: float, ops: float, flops_per_s: float) -> tuple[float, str]:
 
 
 def build_all() -> None:
-    """nvcc on both CUDA sources at once."""
+    """nvcc on every library at once: the band kernels at each nb, and G/S."""
     from lsafw_tpu_torch.ops import spmv_cuda
     from lsafw_tpu_torch.solver import band_cuda
     from lsafw_tpu_torch.utils.cuda_build import BUILD_LOGS
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        libs = list(pool.map(lambda m: m.build(), (band_cuda, spmv_cuda)))
+    jobs = [lambda nb=nb: band_cuda.build(nb) for nb in band_cuda.NBS] + [spmv_cuda.build]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        libs = list(pool.map(lambda job: job(), jobs))
     log(f"phase 1: built {', '.join(p.name for p in libs)} in {time.time() - t0:.1f} s")
     for src, text in BUILD_LOGS.items():
         for line in text.splitlines():
@@ -248,11 +291,30 @@ def build_all() -> None:
 def kinds(factor) -> tuple[str, ...]:
     """The right-hand-side types a factor takes: one complex64 column, or
     one or two float32 columns."""
-    return ("c64",) if factor.band.is_complex() else ("f32x1", "f32x2")
+    from lsafw_tpu_torch.solver import band_cuda as bc
+
+    return ("c64",) if bc.band_is_complex(factor.band) else ("f32x1", "f32x2")
 
 
 def mode_of(factor) -> str:
     return "pivoted" if hasattr(factor, "perms") else "pivot_free"
+
+
+def key_of(k: str, f, kind: str) -> str:
+    """The ``band_cuda.LAUNCHES`` key of kernel ``k`` on factor ``f``."""
+    import torch
+    from lsafw_tpu_torch.solver import band_cuda as bc
+
+    return bc.launch_key(k, mode_of(f), kind, f.band.dtype == torch.bfloat16, f.band.shape[2])
+
+
+def mode_name(f, kind: str) -> str:
+    """A factor's mode, storage, type and nb, as the log and the kernels
+    line name them ("pivot-free bf16 c64 nb=256", ...)."""
+    import torch
+
+    bf16 = " bf16" if f.band.dtype == torch.bfloat16 else ""
+    return f"{mode_of(f).replace('_', '-')}{bf16} {kind} nb={f.band.shape[2]}"
 
 
 def rhs(kind: str, nblk: int, nb: int, device, seed: int):
@@ -294,11 +356,11 @@ def check_kernels(f, b, what: str, tol: float = REL_TOL) -> dict:
     torch.cuda.synchronize()
     out = {"K1": rel_err(y, y_ref), "K2": rel_err(x, x_ref)}
     for k, (a, r) in out.items():
-        log(f"  {what}: {k} {mode_of(f)} {kind_name(b)}: max abs err {a:.3e}, rel {r:.3e} "
+        log(f"  {what}: {k} {mode_name(f, kind_name(b))}: max abs err {a:.3e}, rel {r:.3e} "
             f"(limit {tol:.0e})")
         if not np.isfinite(r) or r > tol:
-            raise RuntimeError(f"{what}: {k} ({mode_of(f)}, {kind_name(b)}) disagrees with its plain "
-                               f"version (rel {r:.3e})")
+            raise RuntimeError(f"{what}: {k} ({mode_name(f, kind_name(b))}) disagrees with its "
+                               f"plain version (rel {r:.3e})")
     return out
 
 
@@ -306,10 +368,12 @@ def kind_name(b) -> str:
     return "c64" if b.is_complex() else f"f32x{b.shape[2]}"
 
 
-def random_band(B: int, nb: int, rows_total: int, nblk: int, device, real: bool = False):
+def random_band(B: int, nb: int, rows_total: int, nblk: int, device, real: bool = False,
+                bf16: bool = False):
     """A random factored pivot-free band and Dinv (scaled by 2e-3 so the
-    recursion stays bounded)."""
+    recursion stays bounded); ``bf16``: the band rounded to bf16 storage."""
     import torch
+    from lsafw_tpu_torch.solver import band_cuda as bc
 
     rng = np.random.default_rng(0)
 
@@ -319,7 +383,8 @@ def random_band(B: int, nb: int, rows_total: int, nblk: int, device, real: bool 
         return (t if real else torch.view_as_complex(t)).to(device)
 
     eye = torch.eye(nb, dtype=torch.float32 if real else torch.complex64, device=device)
-    return SimpleNamespace(band=rand((rows_total, 2 * B + 1, nb, nb), 2e-3),
+    band = rand((rows_total, 2 * B + 1, nb, nb), 2e-3)
+    return SimpleNamespace(band=bc.narrow(band) if bf16 else band,
                            dinv=(rand((nblk, nb, nb), 2e-3) + eye).contiguous())
 
 
@@ -360,12 +425,14 @@ def random_pivoted(B: int, nb: int, nblk: int, device, real: bool = False):
 def subst_bounds(f, kind: str) -> dict:
     """Least time of K1 and K2 of a factor in its mode from the bytes they
     must move (each factor input read once, right-hand side and result
-    once each) and their float32 operations (a complex multiply-add is 8
-    flops, a real one 2 per column)."""
-    e = f.band.element_size()
+    once each: a bf16 band's entries at 2 bytes a value, Dinv's at 4) and
+    their float32 operations (a complex multiply-add is 8 flops, a real
+    one 2 per column)."""
     v = 8 if kind == "c64" else 4 * int(kind[-1])
     per_entry = 8 if kind == "c64" else 2 * int(kind[-1])
-    nb = f.band.shape[-1]
+    e = 8 if kind == "c64" else 4  # an entry of Dinv, L2, L1inv, Uinv, and of an f32 band
+    eb = e // 2 if f.band.element_size() == 2 else e  # an entry of the band
+    nb = f.band.shape[2]
     B = (f.band.shape[1] - 1) // 2
     if mode_of(f) == "pivoted":
         nblk = f.L1inv.shape[0]
@@ -376,9 +443,9 @@ def subst_bounds(f, kind: str) -> dict:
     else:
         rows_total, nblk = f.band.shape[0], f.dinv.shape[0]
         fwd_entries = rows_total * B * nb * nb
-        fwd_bytes = fwd_entries * e + (nblk + rows_total) * nb * v
+        fwd_bytes = fwd_entries * eb + (nblk + rows_total) * nb * v
         bwd_entries = fwd_entries + nblk * nb * nb
-        bwd_bytes = bwd_entries * e + (rows_total + nblk) * nb * v
+        bwd_bytes = fwd_entries * eb + nblk * nb * nb * e + (rows_total + nblk) * nb * v
     return {"K1": bound(fwd_bytes, fwd_entries * per_entry, FP32_FLOPS_PER_S),
             "K2": bound(bwd_bytes, bwd_entries * per_entry, FP32_FLOPS_PER_S)}
 
@@ -491,7 +558,8 @@ def gate_band_launches(what: str, launches: dict, key: str, solves: int) -> None
     from lsafw_tpu_torch.solver import band_cuda as bc
 
     k1, k2 = launches[f"K1.{key}"], launches[f"K2.{key}"]
-    others = {k: launches[k] for k in bc.LAUNCHES if key not in k and launches[k]}
+    others = {k: launches[k] for k in bc.LAUNCHES if k not in (f"K1.{key}", f"K2.{key}")
+              and launches[k]}
     if not (k1 == k2 == solves > 0) or others:
         raise RuntimeError(f"{what}: K1/K2 {key} launched {k1}/{k2} times for {solves} band "
                            f"solves (other band launches {others})")
@@ -880,8 +948,7 @@ def host_contraction(op) -> float:
 
 def pivot_free_path(A, M, sigma_main: complex) -> dict:
     """Phase 3b: the pivot-free factor, its substitution through K1/K2."""
-    os.environ["LSAFW_PIVOT_MEM_GB"] = "0"
-    try:
+    with env(LSAFW_PIVOT_MEM_GB="0"):
         reset_counts()
         with band_solves() as solves, matvecs() as mv, plain_loops_forbidden():
             sigma, resid, op, t_eig = leading_pair(A, M)
@@ -901,14 +968,90 @@ def pivot_free_path(A, M, sigma_main: complex) -> dict:
                                mv["matvecs"])
         t0 = time.time()
         rho_host = host_contraction(op)
-    finally:
-        del os.environ["LSAFW_PIVOT_MEM_GB"]
     log(f"phase 3b: the same factor built in f32 on the host CPU contracts by {rho_host:.2e} "
         f"(card {op.rho:.2e}; {time.time() - t0:.1f} s)")
     if not op.rho <= 3 * rho_host:
         raise RuntimeError("the card's factor contracts far worse than the host's f32 factor: "
                            "check the matmul precision (TF32)")
     return dict(op=op, launches=launches)
+
+
+@contextmanager
+def env(**values: str):
+    """The environment variables ``values`` set while the block runs."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def bf16_path(case, mp: dict, pf: dict) -> dict:
+    """Phase 3c: the complex band over its budget on phase 3's (A, M)
+    (``LSAFW_BAND_MEM_GB=0.5``: 0.77 GB in f32, 0.38 GB in bf16, so bf16
+    at full width; pivot-free), its substitution through K1/K2 pivot-free
+    bf16 complex64; then one banded real solve of phase 3's last Jacobian
+    on a bf16 band (``LSAFW_BAND_MEM_GB=0.3``), K1/K2 pivot-free bf16
+    float32 with one column, GCR to 1e-10."""
+    import torch
+    from lsafw_tpu_torch.models.navier_stokes import StationaryNavierStokesAssembler
+    from lsafw_tpu_torch.solver import band as tband
+    from lsafw_tpu_torch.solver.newton import banded_solve
+
+    A, M = mp["A"], mp["M"]
+    with env(LSAFW_PIVOT_MEM_GB="0", LSAFW_BAND_MEM_GB="0.5"):
+        reset_counts()
+        with band_solves() as solves, matvecs() as mv, plain_loops_forbidden():
+            sigma, resid, op, t_eig = leading_pair(A, M)
+        launches = counts()
+        plan = tband.plan_for_csr(A)
+    full = tband.plan_for_csr(A)  # the default budget's plan: f32, full width
+    blu = op.device_op.blu
+    log(f"phase 3c: bf16 band: sigma = {sigma.real:+.12f}{sigma.imag:+.12f}j, residual "
+        f"{resid:.2e}, eigen {t_eig:.2f} s (factor {op.factor_seconds:.2f} s), contraction "
+        f"{op.rho:.2e} (phase 3b's f32 band: {pf['op'].rho:.2e}), trial GCR solve {op.trial_its} "
+        f"iterations, refinement cap {op.refine_its}, "
+        f"{op.applies} applies; plan B = {plan.B} ({plan.band_dtype}; f32 plan B = {full.B}), "
+        f"band {blu.band.numel() * blu.band.element_size() / 1e9:.3f} GB; band solves {solves}, "
+        f"original-order matvecs {mv['matvecs']}; launches {nonzero(launches)}")
+    gate_sigma("phase 3c", sigma, resid)
+    if abs(sigma - mp["sigma"]) > 1e-8:
+        raise RuntimeError(f"phase 3c: sigma {sigma} is not within 1e-8 of phase 3's {mp['sigma']}")
+    if op.pivoted or blu.band.dtype != torch.bfloat16 or plan.B != full.B:
+        raise RuntimeError(f"phase 3c did not take the pivot-free bf16 band at full width: pivoted "
+                           f"{op.pivoted}, {blu.band.dtype}, B {plan.B} of {full.B}")
+    gate_band_launches("phase 3c", launches, "pivot_free.bf16.c64", solves.get("BandedLU", 0))
+    gate_permutes_and_spmv("phase 3c", launches, "c128.c64", solves.get("BandedLU", 0),
+                           mv["matvecs"])
+
+    J = StationaryNavierStokesAssembler(case["ctx"], case["mesh"], case["bcs_base"]).jacobian(
+        mp["w"], 47.0)
+    g = torch.Generator(device=J.data.device).manual_seed(7)
+    b = torch.randn(J.shape[0], generator=g, device=J.data.device, dtype=torch.float64)
+    with env(LSAFW_PIVOT_MEM_GB="0", LSAFW_BAND_MEM_GB="0.3"):
+        rplan = tband.plan_for_csr(J, real=True)
+        reset_counts()
+        with band_solves() as rsolves, plain_loops_forbidden():
+            t0 = time.time()
+            res = banded_solve(J, b, rplan, tol=1e-10)
+            torch.cuda.synchronize()
+            t_real = time.time() - t0
+        rlaunches = counts()
+    log(f"phase 3c: banded real solve of the last Jacobian on a {rplan.band_dtype} band (B = "
+        f"{rplan.B}): {res.iterations} GCR iterations to {res.residual:.2e} in {t_real:.2f} s; "
+        f"band solves {rsolves}; launches {nonzero(rlaunches)}")
+    if rplan.band_dtype != "bf16" or not res.converged or not res.residual <= 1e-10:
+        raise RuntimeError(f"phase 3c: the bf16 real solve: band {rplan.band_dtype}, converged "
+                           f"{res.converged}, residual {res.residual:.2e}")
+    gate_band_launches("phase 3c real", rlaunches, "pivot_free.bf16.f32x1",
+                       rsolves.get("RealBandedLU", 0))
+    launches = {k: launches[k] + rlaunches[k] for k in launches}
+    return dict(op=op, launches=launches, J=J, rplan=rplan)
 
 
 # ---------------------------------------------------------------------------
@@ -1042,55 +1185,55 @@ def main_path_factors(mp: dict, pf: dict) -> list:
     real_pivoted = tband.factor_auto(plan, dre)[0]
     torch.cuda.synchronize()
     t_factor = time.time() - t0
-    os.environ["LSAFW_PIVOT_MEM_GB"] = "0"
-    try:
+    with env(LSAFW_PIVOT_MEM_GB="0"):
         real_pivot_free = tband.factor_auto(plan, dre, diag_slots=A.pattern.diag_slots)[0]
-    finally:
-        del os.environ["LSAFW_PIVOT_MEM_GB"]
     log(f"phase 4: {type(real_pivoted).__name__}: factor {t_factor:.3f} s (host clock, "
         f"synchronised); the eigen stage's complex factor took {mp['op'].factor_seconds:.3f} s")
     return [mp["op"].device_op.blu, pf["op"].device_op.blu, real_pivoted, real_pivot_free]
 
 
-def band_kernels(mp: dict, pf: dict, errs: dict, device) -> list:
-    """K1/K2 in each mode and type on the main path's own factors: held
-    against their plain versions, then timed one call at a time with CUDA
-    events (each band exceeds the 50 MB L2, so every call is cold) beside
-    the plain loops and the bounds.  Returns the kernels-line entries."""
-    from lsafw_tpu_torch.solver import band_cuda as bc
+def band_entry(k: str, f, kind: str, label: str, err: float, ms: float, plain_ms: float) -> dict:
+    """A kernels-line entry of K1 or K2 on factor ``f`` (``launches`` and
+    ``launches_phase5`` are filled in from ``_key`` at the end)."""
+    if mode_of(f) == "pivoted":  # the XLA scans of the reference's pivoted factors
+        line = "lsafw_tpu/solver/band.py:" + ("1035" if kind == "c64" else "839")
+    else:
+        line = "lsafw_tpu/solver/band_pallas.py:" + ("92" if k == "K1" else "191")
+    bound_ms, bound_by = subst_bounds(f, kind)[k]
+    name = {"K1": "band_fwd_kernel (K1)", "K2": "band_bwd_kernel (K2)"}[k]
+    return dict(name=f"{name}, {mode_name(f, kind)}{label}", route="cuda",
+                source="lsafw_tpu_torch/csrc/band_subst.cu", replaces=line, launches=0,
+                _key=key_of(k, f, kind), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
-    launches = {k: mp["launches"][k] + pf["launches"][k] for k in bc.LAUNCHES}
-    names = {"K1": "band_fwd_kernel (K1)", "K2": "band_bwd_kernel (K2)"}
+
+def band_kernels(factors: list, errs: dict, device) -> list:
+    """K1/K2 in each mode and type on the main path's own factors, given
+    as (label, factor) pairs: held against their plain versions, then
+    timed one call at a time with CUDA events (each band exceeds the 50 MB
+    L2, so every call is cold) beside the plain loops and the bounds.
+    Returns the kernels-line entries."""
     out = []
-    for f in main_path_factors(mp, pf):
+    for label, f in factors:
         fwd, fwd_plain, bwd, bwd_plain = substitutions(f)
-        md, nb = mode_of(f), f.band.shape[-1]
+        md, nb = mode_of(f), f.band.shape[2]
         nblk = f.L1inv.shape[0] if md == "pivoted" else f.dinv.shape[0]
         for seed, kind in enumerate(kinds(f)):
             b = rhs(kind, nblk, nb, device, 10 + seed)
-            res = check_kernels(f, b, f"phase 4 {type(f).__name__}")
+            res = check_kernels(f, b, f"phase 4 {type(f).__name__}{label}")
             for k, (a, _) in res.items():
-                errs[f"{k}.{md}.{kind}"] = max(errs.get(f"{k}.{md}.{kind}", 0.0), a)
+                errs[key_of(k, f, kind)] = max(errs.get(key_of(k, f, kind), 0.0), a)
             y = fwd_plain(b)
             times = {"K1": (cuda_ms(lambda: fwd(b), 20), cuda_ms(lambda: fwd_plain(b), 3)),
                      "K2": (cuda_ms(lambda: bwd(y), 20), cuda_ms(lambda: bwd_plain(y), 3))}
-            bounds = subst_bounds(f, kind)
             for k, (ms, plain_ms) in times.items():
-                if md == "pivoted":  # the XLA scans of the reference's pivoted factors
-                    line = "lsafw_tpu/solver/band.py:" + ("1035" if kind == "c64" else "839")
-                else:
-                    line = "lsafw_tpu/solver/band_pallas.py:" + ("92" if k == "K1" else "191")
-                key = f"{k}.{md}.{kind}"
-                out.append(dict(name=f"{names[k]}, {md.replace('_', '-')}, {kind}", route="cuda",
-                                source="lsafw_tpu_torch/csrc/band_subst.cu", replaces=line,
-                                launches=launches[key], _key=key, max_abs_err=errs[key], ms=ms,
-                                plain_ms=plain_ms, bound_ms=bounds[k][0], bound_by=bounds[k][1],
-                                library_ms=None))
+                out.append(band_entry(k, f, kind, label, errs[key_of(k, f, kind)], ms, plain_ms))
             if kind in ("c64", "f32x1"):
+                bounds = subst_bounds(f, kind)
                 plain_solve = cuda_ms(lambda: bwd_plain(fwd_plain(b)), 3)
                 solve = cuda_ms(lambda: bwd(fwd(b)), 10)
-                log(f"phase 4: one {md} {kind} solve (K1 + K2) {solve:.4f} ms, the torch loops "
-                    f"{plain_solve:.3f} ms: {plain_solve / solve:.1f}x; bound "
+                log(f"phase 4: one {mode_name(f, kind)}{label} solve (K1 + K2) {solve:.4f} ms, "
+                    f"the torch loops {plain_solve:.3f} ms: {plain_solve / solve:.1f}x; bound "
                     f"{bounds['K1'][0] + bounds['K2'][0]:.4f} ms")
     return out
 
@@ -1294,6 +1437,149 @@ def sensitivity_path(case, mp: dict) -> dict:
     return dict(launches=launches, stages=stages, d_sigma=d_sigma, fd=fd)
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the production cylinder
+# ---------------------------------------------------------------------------
+
+
+def production_case(device) -> dict:
+    """The repo's production configuration, from its TOML files
+    (``config_files/2D/cylinder``: domain [-40, 120] x [-40, 40],
+    resolution 1.25 / 0.115), built as ``scripts/dev_167k.py`` builds it."""
+    import torch
+    from lsafw_tpu_torch.config import load_bc_config, load_cylinder_flow_config, load_facet_config
+    from lsafw_tpu_torch.fem.assembly import AssemblyContext
+    from lsafw_tpu_torch.fem.bcs import define_bcs
+    from lsafw_tpu_torch.fem.spaces import define_spaces
+    from lsafw_tpu_torch.meshing.geometries import cylinder_flow_mesh
+    from lsafw_tpu_torch.meshing.tags import mark_boundary_facets
+
+    t0 = time.time()
+    cfg = PRODUCTION_CONFIG
+    mesh = cylinder_flow_mesh(load_cylinder_flow_config(cfg / "geometry.toml"))
+    mark_boundary_facets(mesh, load_facet_config(cfg / "facets.toml"))
+    spaces = define_spaces(mesh)
+    bcs_base = define_bcs(mesh, spaces, load_bc_config(cfg / "bcs.toml"))
+    bcs_pert = define_bcs(mesh, spaces, load_bc_config(cfg / "bcs_perturbation.toml"))
+    ctx = AssemblyContext.build(spaces, device=device)
+    torch.cuda.synchronize()
+    return dict(mesh=mesh, spaces=spaces, bcs_base=bcs_base, bcs_pert=bcs_pert, ctx=ctx,
+                seconds=time.time() - t0)
+
+
+def log_stage(what: str, st: dict) -> None:
+    log(f"{what}: {st['seconds']:.2f} s, device memory {st['resident_gb']:.3f} GB at its start, "
+        f"{st['peak_gb']:.3f} GB at its peak ({st['peak_gb'] - st['resident_gb']:.3f} GB above), "
+        f"band solves {st['solves']}, original-order matvecs {st['matvecs']}; launches "
+        f"{nonzero(st['launches'])}")
+
+
+def one_band_solve_ms(blu, device) -> float:
+    """CUDA-event time of one band solve (permute-in, K1, K2, permute-out)
+    of a factor on a complex128 vector from a seed."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(12)
+    n = blu.n
+    b = torch.complex(torch.randn(n, generator=g, device=device, dtype=torch.float64),
+                      torch.randn(n, generator=g, device=device, dtype=torch.float64))
+    return cuda_ms(lambda: blu.solve(b), 10)
+
+
+def production_path(dev) -> dict:
+    """Phase 6: the production cylinder at Re = 47, banded Newton baseflow
+    (ramped, 3 steps, tol 1e-8; real pivoted f32 factors), eigensystem,
+    and the shift-invert eigenpair nearest 0.74j on the default plan (the
+    pivot-free complex64 band, B = 17 at nb = 128: the pivoted factor's
+    extras do not fit its 8 GB budget), with host LU and the torch
+    substitution loops on CUDA tensors raising; each stage read on its
+    own."""
+    import torch
+    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.solver import band as tband
+    from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
+
+    case = production_case(dev)
+    stages: dict = {}
+    with plain_loops_forbidden():
+        with stage("baseflow", stages):
+            solver = BaseFlowSolver(case["ctx"], case["mesh"], case["bcs_base"], re=47.0)
+            w = solver.solve(ramp=True, steps=3, tol=1e-8, max_it=40, linear_solver="banded")
+        with stage("assemble", stages):
+            A, M = LinearizedNavierStokesAssembler(w, case["ctx"], 47.0, case["bcs_pert"],
+                                                   case["mesh"]).assemble_eigensystem()
+        with stage("eigen", stages):
+            sigma, resid, op, t_eig = leading_pair(A, M)
+    st, plan, rplan = solver.stats, tband.plan_for_csr(A), tband.plan_for_csr(A, real=True)
+    log(f"phase 6: production cylinder: {case['spaces'].num_dofs} DOFs, mesh {case['seconds']:.2f} "
+        f"s; complex plan nb = {plan.nb}, B = {plan.B}, nblk_pad = {plan.nblk_pad}, "
+        f"{plan.band_dtype}; real plan B = {rplan.B}, {rplan.band_dtype}")
+    for name, s_ in stages.items():
+        log_stage(f"phase 6: {name}", s_)
+    log(f"phase 6: baseflow: factor {st['factor_s']:.2f} s in {st['factors']} ({st['pivoted']} "
+        f"pivoted), band solves {st['solve_s']:.2f} s in {st['solves']}, SpMV {st['spmv_s']:.2f} s "
+        f"in {st['spmvs']}; Newton iterations {[r.iterations for r in solver.newton_results]}, GCR "
+        f"iterations {st['gcr_its']}")
+    log(f"phase 6: sigma = {sigma.real:+.12f}{sigma.imag:+.12f}j, residual {resid:.2e}; factor "
+        f"{op.factor_seconds:.2f} s, pivoted {op.pivoted}, contraction {op.rho:.2e}, refinement "
+        f"cap {op.refine_its}, {op.applies} shift-invert applies")
+    if not resid <= 1e-8:
+        raise RuntimeError(f"phase 6: eigen residual {resid:.2e} > 1e-8")
+    if abs(sigma.real - SIGMA_175K_RE) > 1e-3 or abs(sigma - SIGMA_167K) > 3e-3:
+        raise RuntimeError(f"phase 6: sigma {sigma} is not within 1e-3 of Re {SIGMA_175K_RE} and "
+                           f"3e-3 of {SIGMA_167K}")
+    if not all(r.converged for r in solver.newton_results):
+        raise RuntimeError("phase 6: a Newton solve of the ramp did not converge")
+    if rplan.band_dtype != "f32" or tband.bf16_unstable(A.pattern):
+        raise RuntimeError("phase 6: the baseflow's band left f32 (the bf16 rung fired)")
+    if st["pivoted"] != st["factors"] or op.pivoted or op.device_op.Cop is None:
+        raise RuntimeError(f"phase 6: baseflow factors {st}, eigen pivoted {op.pivoted}; expected "
+                           f"real pivoted factors and the pivot-free complex one with fused matvecs")
+    base, eig = stages["baseflow"], stages["eigen"]
+    for what, s_, key, cls, types in (
+            ("phase 6 baseflow", base, "pivoted.f32x1", "RealPivotedBandedLU", "f64.f32x1"),
+            ("phase 6 eigen", eig, "pivot_free.c64", "BandedLU", "c128.c64")):
+        n = s_["solves"].get(cls, 0)
+        if set(s_["solves"]) != {cls}:
+            raise RuntimeError(f"{what}: band solves {s_['solves']}, expected {cls} alone")
+        gate_band_launches(what, s_["launches"], key, n)
+        gate_permutes_and_spmv(what, s_["launches"], types, n, s_["matvecs"])
+    if base["solves"]["RealPivotedBandedLU"] != st["solves"]:
+        raise RuntimeError(f"phase 6: baseflow band solves {base['solves']} against {st['solves']}")
+    return dict(case=case, A=A, M=M, op=op, sigma=sigma, stages=stages,
+                launches={k: sum(s_["launches"][k] for s_ in stages.values()) for k in counts()})
+
+
+def production_rerun(p6: dict, phase: str, key: str, **switches: str) -> dict:
+    """Phase 6b / 6c: phase 6's eigen stage again under ``switches`` (a
+    plan switch), read as a stage: sigma within 1e-8 of phase 6's, the
+    residual gate, and K1/K2 in mode ``key`` once per band solve."""
+    with env(**switches), plain_loops_forbidden():
+        stages: dict = {}
+        with stage("eigen", stages):
+            sigma, resid, op, t_eig = leading_pair(p6["A"], p6["M"])
+    st = stages["eigen"]
+    blu = op.device_op.blu
+    log(f"phase {phase}: {' '.join(f'{k}={v}' for k, v in switches.items())}: sigma = "
+        f"{sigma.real:+.12f}{sigma.imag:+.12f}j, residual {resid:.2e}; factor "
+        f"{op.factor_seconds:.2f} s (phase 6: {p6['op'].factor_seconds:.2f} s), nb = {blu.nb}, "
+        f"B = {blu.B}, band {blu.band.dtype} {blu.band.numel() * blu.band.element_size() / 1e9:.3f} "
+        f"GB, contraction {op.rho:.2e} (phase 6: {p6['op'].rho:.2e}), trial GCR solve "
+        f"{op.trial_its} iterations, refinement cap {op.refine_its}, {op.applies} applies")
+    log_stage(f"phase {phase}: eigen", st)
+    if not resid <= 1e-8:
+        raise RuntimeError(f"phase {phase}: eigen residual {resid:.2e} > 1e-8")
+    if abs(sigma - p6["sigma"]) > 1e-8:
+        raise RuntimeError(f"phase {phase}: sigma {sigma} is not within 1e-8 of phase 6's "
+                           f"{p6['sigma']}")
+    n = st["solves"].get("BandedLU", 0)
+    if set(st["solves"]) != {"BandedLU"}:
+        raise RuntimeError(f"phase {phase}: band solves {st['solves']}, expected BandedLU alone")
+    gate_band_launches(f"phase {phase}", st["launches"], key, n)
+    gate_permutes_and_spmv(f"phase {phase}", st["launches"], "c128.c64", n, st["matvecs"])
+    return dict(op=op, sigma=sigma, stage=st, launches=st["launches"])
+
+
 def main() -> int:
     import torch
 
@@ -1301,6 +1587,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 2
     from lsafw_tpu_torch.ops import spmv_cuda as sc
+    from lsafw_tpu_torch.solver import band as tband
 
     t_start = time.time()
     dev = torch.device(DEVICE)
@@ -1309,36 +1596,48 @@ def main() -> int:
     build_all()
 
     nb = 128
-    errs: dict = {}  # "K1.pivoted.c64", ... -> max abs error over phases 2 and 4
+    errs: dict = {}  # launch key ("K1.pivoted.c64", ...) -> max abs error over phases 2 and 4
+    random_entries: dict = {}  # launch key -> phase 2's kernels-line entry
 
     def note(out: dict, f, kind: str) -> None:
         for k, (a, _) in out.items():
-            key = f"{k}.{mode_of(f)}.{kind}"
-            errs[key] = max(errs.get(key, 0.0), a)
+            errs[key_of(k, f, kind)] = max(errs.get(key_of(k, f, kind), 0.0), a)
 
-    for B, nblk in PHASE2_SHAPES:
-        for real in (False, True):
-            for pivoted in (False, True):
-                f = (random_pivoted(B, nb, nblk, dev, real) if pivoted
-                     else random_band(B, nb, nblk + B, nblk, dev, real))
-                for seed, kind in enumerate(kinds(f)):
-                    b = rhs(kind, nblk, nb, dev, seed)
-                    note(check_kernels(f, b, f"phase 2 random B={B} nblk={nblk}"), f, kind)
-                    fwd, _, bwd, _ = substitutions(f)
-                    y = fwd(b)
-                    log(f"  phase 2 random B={B} nblk={nblk}: {mode_of(f)} {kind}: K1 "
-                        f"{cuda_ms(lambda: fwd(b), 5):.4f} ms, K2 {cuda_ms(lambda: bwd(y), 5):.4f} ms")
-                del f
+    for (nb2, storage), shapes in PHASE2_SHAPES.items():
+        bf16 = storage == "bf16"
+        for B, nblk in shapes:
+            for real in (False, True):
+                for pivoted in ((False,) if bf16 else (False, True)):  # pivoted: never bf16
+                    f = (random_pivoted(B, nb2, nblk, dev, real) if pivoted
+                         else random_band(B, nb2, nblk + B, nblk, dev, real, bf16))
+                    for seed, kind in enumerate(kinds(f)):
+                        b = rhs(kind, nblk, nb2, dev, seed)
+                        note(check_kernels(f, b, f"phase 2 random B={B} nblk={nblk}"), f, kind)
+                        fwd, fwd_plain, bwd, bwd_plain = substitutions(f)
+                        y = fwd(b)
+                        ms = {"K1": cuda_ms(lambda: fwd(b), 5), "K2": cuda_ms(lambda: bwd(y), 5)}
+                        plain = {"K1": cuda_ms(lambda: fwd_plain(b), 1),
+                                 "K2": cuda_ms(lambda: bwd_plain(y), 1)}
+                        log(f"  phase 2 random B={B} nblk={nblk}: {mode_name(f, kind)}: K1 "
+                            f"{ms['K1']:.4f} ms, K2 {ms['K2']:.4f} ms")
+                        for k in ms:  # the last shape's, for modes no main path runs
+                            random_entries[key_of(k, f, kind)] = band_entry(
+                                k, f, kind, f", random factor B={B} nblk={nblk}",
+                                errs[key_of(k, f, kind)], ms[k], plain[k])
+                    del f
     gi = gather_inputs(dev)
     g_errs = check_gather(gi)
-    br, bc, perm, iperm = random_permutation(10007, nb, dev, seed=4)
-    check_permutes(permute_cases(br, bc, perm, iperm, nb), "on a random permutation")
+    for nb2, n in ((nb, 10007), (256, 20011)):
+        br, bc, perm, iperm = random_permutation(n, nb2, dev, seed=4)
+        check_permutes(permute_cases(br, bc, perm, iperm, nb2),
+                       f"on a random permutation at nb = {nb2}")
     rop = random_shifted_op(20011, dev, seed=5)
     check_spmv(spmv_cases(rop, dev), "on a random matrix")
     del rop
-    log(f"phase 2: K1/K2 match their plain versions in both modes and every type at (B, block "
-        f"rows) {PHASE2_SHAPES}; G matches x[idx] at the probes' shapes, its permute forms "
-        f"their plain versions; S its plain version in every mode and order")
+    log(f"phase 2: K1/K2 match their plain versions in both modes and every type, f32 and bf16 "
+        f"storage, at (B, block rows) per (nb, storage) {PHASE2_SHAPES}; G matches x[idx] at the "
+        f"probes' shapes, its permute forms their plain versions at nb = 128 and 256; S its "
+        f"plain version in every mode and order")
     if "--kernels" in sys.argv[1:]:
         return 0
 
@@ -1347,6 +1646,7 @@ def main() -> int:
     with plain_loops_forbidden():
         mp = main_path(case)
     pf = pivot_free_path(mp["A"], mp["M"], mp["sigma"])
+    p3c = bf16_path(case, mp, pf)
 
     # phase 4: agreement and times
     cop = mp["op"].device_op.Cop
@@ -1354,7 +1654,13 @@ def main() -> int:
     s_errs = check_spmv(cases, "on the main path's (A, M)")
     mg = main_path_gathers(mp["A"], cop, dev)
     mg_errs = check_main_gathers(mg)
-    kernels = band_kernels(mp, pf, errs, dev)
+    with env(LSAFW_PIVOT_MEM_GB="0"):  # phase 3c's real bf16 band, factored again
+        J = p3c["J"]
+        jac_bf16 = tband.factor_auto(p3c["rplan"], J.data, diag_slots=J.pattern.diag_slots)[0]
+    kernels = band_kernels([("", f) for f in main_path_factors(mp, pf)]
+                           + [(", 43k phase 3c", p3c["op"].device_op.blu),
+                              (", 43k phase 3c Jacobian", jac_bf16)], errs, dev)
+    del jac_bf16
     launches = {k: mp["launches"][k] + pf["launches"][k] for k in sc.LAUNCHES}
 
     src = "lsafw_tpu_torch/csrc/spmv_gather.cu"
@@ -1446,12 +1752,6 @@ def main() -> int:
         log(f"phase 4: S {mode} {order}: with L2 warm (graph replays) {graph_ms(kern):.4f} ms, "
             f"cuSPARSE {graph_ms(libs[mode]):.4f} ms; one call with its host overhead (CUDA "
             f"events) {cuda_ms(kern, 20):.4f} ms, cuSPARSE {cuda_ms(libs[mode], 20):.4f} ms")
-    for e in kernels:
-        log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
-            f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
-            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
-            f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound, {e['launches']} launches")
-
     # the panel LU backends
     for dt in (torch.float32, torch.complex64):
         panel = torch.randn(((mp["op"].device_op.blu.B + 1) * nb, nb), dtype=dt, device=dev)
@@ -1475,9 +1775,47 @@ def main() -> int:
         f"{mp['per_gcr']:.2f} of the port's kernels per GCR iteration")
 
     p5 = sensitivity_path(case, mp)
+    mp_launches, pf_launches, p3c_launches = mp["launches"], pf["launches"], p3c["launches"]
+    del case, mp, pf, p3c, cop, cases, mg, p5["stages"]
+    torch.cuda.empty_cache()
+
+    p6 = production_path(dev)
+    p6b = production_rerun(p6, "6b", "pivot_free.c64.nb256", LSAFW_BAND_NB="256")
+    p6c = production_rerun(p6, "6c", "pivot_free.bf16.c64", LSAFW_BAND_MEM_GB="4")
+    eig6, eig6c = p6["stages"]["eigen"], p6c["stage"]
+    above6, above6c = (s_["peak_gb"] - s_["resident_gb"] for s_ in (eig6, eig6c))
+    solve_ms = {ph: one_band_solve_ms(r["op"].device_op.blu, dev)
+                for ph, r in (("6", p6), ("6b", p6b), ("6c", p6c))}
+    log(f"phase 6: one band solve (permute-in, K1, K2, permute-out) {solve_ms['6']:.3f} ms at "
+        f"nb = 128 (phase 6), {solve_ms['6b']:.3f} ms at nb = 256 (6b), {solve_ms['6c']:.3f} ms on "
+        f"the bf16 band (6c); factors {p6['op'].factor_seconds:.2f} / "
+        f"{p6b['op'].factor_seconds:.2f} / {p6c['op'].factor_seconds:.2f} s; eigen stages "
+        f"{eig6['seconds']:.2f} / {p6b['stage']['seconds']:.2f} / {eig6c['seconds']:.2f} s")
+    log(f"phase 6c: peak device memory {above6c:.3f} GB above the stage's start against phase 6's "
+        f"{above6:.3f} GB: {above6c / max(above6, 1e-9):.3f} (limit 0.6)")
+    if not above6c <= 0.6 * above6:
+        raise RuntimeError(f"phase 6c: the bf16 stage's peak {above6c:.3f} GB above its start is "
+                           f"over 0.6 x phase 6's {above6:.3f} GB")
+    # phase 4, continued: K1/K2 on the production factors
+    kernels += band_kernels([(", 175k phase 6", p6["op"].device_op.blu),
+                             (", 175k phase 6b", p6b["op"].device_op.blu),
+                             (", 175k phase 6c", p6c["op"].device_op.blu)], errs, dev)
+    timed = {e["_key"] for e in kernels}
+    kernels += [e for key, e in random_entries.items() if key not in timed]
+    mains = {"3": mp_launches, "3b": pf_launches, "3c": p3c_launches, "6": p6["launches"],
+             "6b": p6b["launches"], "6c": p6c["launches"]}
     for e in kernels:
         key = e.pop("_key")
+        if key:
+            e["launches"] = sum(m[key] for m in mains.values())
         e["launches_phase5"] = p5["launches"][key] if key else 0
+        e["launches_phase6"] = sum(mains[ph][key] for ph in ("6", "6b", "6c")) if key else 0
+    for e in kernels:
+        log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
+            f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
+            f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound, {e['launches']} launches "
+            f"({e['launches_phase5']} in phase 5, {e['launches_phase6']} in phase 6)")
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
 
     log(name_power)

@@ -21,14 +21,19 @@
 //
 // Types: complex64 with one right-hand-side column (C64), and float32
 // with m = 1 or 2 columns (R32x1, R32x2: a complex right-hand side on a
-// real factor travels as two real columns).  Layouts are the factors'
-// own, folded (see Design): the band is (rows_total, 2B+1, nb, nb),
-// row-major, slot r of block row K holding block (K, K + r - B)
-// pivot-free and block (K, K + r) pivoted (U rows); L2 is
-// (nblk, B, nb, nb), L1inv/Uinv/Dinv (nblk, nb, nb), perms
-// (nblk, (B+1) nb) int64; vectors are (rows, nb, m) blocks.  The
-// pivot-free lookahead rows past nblk take a zero right-hand side and
-// Dinv = I.  The kernels are built for nb = 128.
+// real factor travels as two real columns).  A pivot-free band may be
+// stored in bf16 (C64bf, R32x1bf, R32x2bf: the reference's at-rest band
+// over its memory budget): its tiles land in shared memory as bf16 and
+// are widened to float32 in the row dots; Dinv stays float32 /
+// complex64, and a pivoted factor is never bf16.  Layouts are the
+// factors' own, folded (see Design): the band is (rows_total, 2B+1, nb,
+// nb), row-major, slot r of block row K holding block (K, K + r - B)
+// pivot-free and block (K, K + r) pivoted (U rows), a bf16 complex entry
+// being its (re, im) pair; L2 is (nblk, B, nb, nb), L1inv/Uinv/Dinv
+// (nblk, nb, nb), perms (nblk, (B+1) nb) int64; vectors are (rows, nb, m)
+// blocks.  The pivot-free lookahead rows past nblk take a zero
+// right-hand side and Dinv = I.  One library is built per block size nb
+// (BAND_NB, 128 or 256: the wrapper builds both, in parallel).
 //
 // Bound: every factor byte is read once per solve.  At the 43k cylinder
 // shapes (B = 7, nb = 128, nblk = 384, complex64) the pivot-free K1 reads
@@ -36,7 +41,8 @@
 // reads L2 (352 MB) and L1inv (50 MB), the pivoted backward 2B U slots
 // (705 MB) and Uinv (50 MB).  At 3.35 TB/s one pivot-free solve is
 // bounded at about 0.23 ms and one pivoted solve at 0.35 ms; the float32
-// factors at about half.  Two flops per byte: bytes bound every mode.
+// factors at about half, and a bf16 band halves the band's bytes again.
+// Two flops per byte (four per bf16 byte): bytes bound every mode.
 //
 // Design.  The recursion is serial in the block row K, but only a small
 // carry window depends on the solution: all factor data is known before
@@ -89,12 +95,18 @@
 
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
+
+#ifndef BAND_NB
+#define BAND_NB 128
+#endif
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kNb = 128;     // block size the kernels are built for
+constexpr int kNb = BAND_NB;  // block size this library's kernels take
+static_assert(kNb == 128 || kNb == 256, "band_subst.cu is built for nb = 128 or 256");
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32 - 1;   // warps that compute; the last one copies
 constexpr int kProducer = kWarps * 32;      // the thread that issues the copies
@@ -118,12 +130,15 @@ __device__ __forceinline__ V warp_sum(V v) {
   return v;
 }
 
-// Mat: one factor entry; Vec: one right-hand-side entry (its m columns).
-// fma: acc += (the entries of one 16-byte load a, at float4 index p of a
-// row) . (the matching entries of the shared-memory vector v).
+// Mat: one stored factor entry; Vec: one right-hand-side entry (its m
+// columns); Dense: the traits of the float32 tiles (Dinv) beside a band
+// of these traits.  fma: acc += (the entries of one 16-byte load a, at
+// 16-byte index p of a row) . (the matching entries of the shared-memory
+// vector v).
 struct C64 {
   using Mat = float2;
   using Vec = float2;
+  using Dense = C64;
   static constexpr int kF4 = kNb / 2;  // 16-byte loads per factor row
   __device__ static Vec zero() { return make_float2(0.f, 0.f); }
   __device__ static void fma(const float4& a, const Vec* v, int p, Vec& acc) {
@@ -136,6 +151,7 @@ struct C64 {
 struct R32x1 {
   using Mat = float;
   using Vec = float;
+  using Dense = R32x1;
   static constexpr int kF4 = kNb / 4;
   __device__ static Vec zero() { return 0.f; }
   __device__ static void fma(const float4& a, const Vec* v, int p, Vec& acc) {
@@ -147,6 +163,7 @@ struct R32x1 {
 struct R32x2 {
   using Mat = float;
   using Vec = float2;
+  using Dense = R32x2;
   static constexpr int kF4 = kNb / 4;
   __device__ static Vec zero() { return make_float2(0.f, 0.f); }
   __device__ static void fma(const float4& a, const Vec* v, int p, Vec& acc) {
@@ -155,6 +172,73 @@ struct R32x2 {
     acc.x += a.x * x0.x + a.y * x0.z + a.z * x1.x + a.w * x1.z;
     acc.y += a.x * x0.y + a.y * x0.w + a.z * x1.y + a.w * x1.w;
   }
+};
+
+// The bf16 bands: a 16-byte load holds 4 complex or 8 real entries, two
+// to a 32-bit word, the first in its low half; wide() widens them to
+// float32 exactly (a bf16 value is the high half of a float32).
+__device__ __forceinline__ float2 wide(float word) {
+  const uint32_t u = __float_as_uint(word);
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+struct C64bf {
+  using Mat = uint32_t;  // one complex entry: bf16 (re, im)
+  using Vec = float2;
+  using Dense = C64;
+  static constexpr int kF4 = kNb / 4;
+  __device__ static Vec zero() { return make_float2(0.f, 0.f); }
+  __device__ static void fma(const float4& a, const Vec* v, int p, Vec& acc) {
+    const float4* w = reinterpret_cast<const float4*>(v);
+    const float4 x0 = w[2 * p], x1 = w[2 * p + 1];  // entries 4p..4p+3
+    const float2 e0 = wide(a.x), e1 = wide(a.y), e2 = wide(a.z), e3 = wide(a.w);
+    acc.x += e0.x * x0.x - e0.y * x0.y + e1.x * x0.z - e1.y * x0.w +
+             e2.x * x1.x - e2.y * x1.y + e3.x * x1.z - e3.y * x1.w;
+    acc.y += e0.x * x0.y + e0.y * x0.x + e1.x * x0.w + e1.y * x0.z +
+             e2.x * x1.y + e2.y * x1.x + e3.x * x1.w + e3.y * x1.z;
+  }
+};
+
+struct R32x1bf {
+  using Mat = uint16_t;  // bf16
+  using Vec = float;
+  using Dense = R32x1;
+  static constexpr int kF4 = kNb / 8;
+  __device__ static Vec zero() { return 0.f; }
+  __device__ static void fma(const float4& a, const Vec* v, int p, Vec& acc) {
+    const float4* w = reinterpret_cast<const float4*>(v);
+    const float4 x0 = w[2 * p], x1 = w[2 * p + 1];  // entries 8p..8p+7
+    const float2 e0 = wide(a.x), e1 = wide(a.y), e2 = wide(a.z), e3 = wide(a.w);
+    acc += e0.x * x0.x + e0.y * x0.y + e1.x * x0.z + e1.y * x0.w +
+           e2.x * x1.x + e2.y * x1.y + e3.x * x1.z + e3.y * x1.w;
+  }
+};
+
+struct R32x2bf {
+  using Mat = uint16_t;  // bf16
+  using Vec = float2;
+  using Dense = R32x2;
+  static constexpr int kF4 = kNb / 8;
+  __device__ static Vec zero() { return make_float2(0.f, 0.f); }
+  __device__ static void fma(const float4& a, const Vec* v, int p, Vec& acc) {
+    const float4* w = reinterpret_cast<const float4*>(v) + 4 * p;  // entries 8p..8p+7, two columns each
+    const float2 e0 = wide(a.x), e1 = wide(a.y), e2 = wide(a.z), e3 = wide(a.w);
+    const float4 x0 = w[0], x1 = w[1], x2 = w[2], x3 = w[3];
+    acc.x += e0.x * x0.x + e0.y * x0.z + e1.x * x1.x + e1.y * x1.z +
+             e2.x * x2.x + e2.y * x2.z + e3.x * x3.x + e3.y * x3.z;
+    acc.y += e0.x * x0.y + e0.y * x0.w + e1.x * x1.y + e1.y * x1.w +
+             e2.x * x2.y + e2.y * x2.w + e3.x * x3.y + e3.y * x3.w;
+  }
+};
+
+// Rows a row-dot task takes, as a power of two: at least enough that each
+// lane loads one 16-byte piece of its row, at most eight, and at most as
+// many as keep a lane's loads within 16 registers of float4.
+constexpr int lg2(int v) { return v <= 1 ? 0 : 1 + lg2(v / 2); }
+template <class Tr>
+struct Rpt {
+  static constexpr int kMin = Tr::kF4 >= 32 ? 0 : lg2(32 / Tr::kF4);
+  static constexpr int kMax = lg2(512 / Tr::kF4) < 3 ? lg2(512 / Tr::kF4) : 3;
 };
 
 // --- mbarriers and bulk copies ---------------------------------------------
@@ -195,8 +279,15 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// The ring of nt factor tiles of T bytes; tile g of the stream sits in slot
-// g % nt, its mbarrier completing for the (g / nt)-th time.
+// One tile of the stream: where it is copied from, and its bytes (at most
+// the ring's T: a bf16 band tile fills half of a slot sized for Dinv).
+struct Tile {
+  const void* src;
+  uint32_t bytes;
+};
+
+// The ring of nt factor tile slots of T bytes; tile g of the stream sits in
+// slot g % nt, its mbarrier completing for the (g / nt)-th time.
 struct Ring {
   char* buf;
   uint32_t bars;   // shared address of nt mbarriers, one per slot
@@ -205,10 +296,10 @@ struct Ring {
   uint32_t T;
   __device__ const void* tile(int slot) const { return buf + (size_t)slot * T; }
   __device__ void wait(int slot, int fill) const { mbar_wait(bars + 8 * slot, fill & 1); }
-  __device__ void issue(int slot, const void* src) const {  // the producer thread
+  __device__ void issue(int slot, const Tile& t) const {  // the producer thread
     const uint32_t bar = bars + 8 * slot;
-    mbar_expect(bar, T);
-    bulk_copy(buf + (size_t)slot * T, src, T, bar);
+    mbar_expect(bar, t.bytes);
+    bulk_copy(buf + (size_t)slot * T, t.src, t.bytes, bar);
   }
 };
 
@@ -259,31 +350,34 @@ __device__ __forceinline__ void publish(RefillFn refill, int consumed) {
 // Warp w takes tasks w, w + kWarps, ...: 32 / kRpt lanes per row, each
 // lane loading its 16-byte pieces of the row before the products, then a
 // shuffle sum over the row's lanes.  Lane 0 waits for the task's tile
-// (ready(q)) for the whole warp.
+// (ready(q)) for the whole warp.  Only the kRpt of Rpt<Tr>'s range are
+// compiled (tile_dots takes no other).
 template <class Tr, int kRpt, class ReadyFn, class RowFn, class VecFn, class OutFn>
 __device__ __forceinline__ void row_dots(int ntasks, ReadyFn ready, RowFn rows_of, VecFn vec_of,
                                          OutFn out_of, typename Tr::Vec* part) {
-  using Vec = typename Tr::Vec;
-  constexpr int kLpr = 32 / kRpt;          // lanes per row
-  constexpr int kLoads = Tr::kF4 / kLpr;   // 16-byte loads per lane
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (warp >= kWarps) return;
-  const int r = lane / kLpr, seg = lane % kLpr;
-  for (int q = warp; q < ntasks; q += kWarps) {
-    if (lane == 0) ready(q);
-    __syncwarp();
-    const float4* row = reinterpret_cast<const float4*>(rows_of(q) + r * kNb);
-    float4 a[kLoads];
+  if constexpr (kRpt >= (1 << Rpt<Tr>::kMin) && kRpt <= (1 << Rpt<Tr>::kMax)) {
+    using Vec = typename Tr::Vec;
+    constexpr int kLpr = 32 / kRpt;          // lanes per row
+    constexpr int kLoads = Tr::kF4 / kLpr;   // 16-byte loads per lane
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    if (warp >= kWarps) return;
+    const int r = lane / kLpr, seg = lane % kLpr;
+    for (int q = warp; q < ntasks; q += kWarps) {
+      if (lane == 0) ready(q);
+      __syncwarp();
+      const float4* row = reinterpret_cast<const float4*>(rows_of(q) + r * kNb);
+      float4 a[kLoads];
 #pragma unroll
-    for (int k = 0; k < kLoads; ++k) a[k] = row[seg + kLpr * k];
-    const Vec* v = vec_of(q);
-    Vec acc = Tr::zero();
+      for (int k = 0; k < kLoads; ++k) a[k] = row[seg + kLpr * k];
+      const Vec* v = vec_of(q);
+      Vec acc = Tr::zero();
 #pragma unroll
-    for (int k = 0; k < kLoads; ++k) Tr::fma(a[k], v, seg + kLpr * k, acc);
+      for (int k = 0; k < kLoads; ++k) Tr::fma(a[k], v, seg + kLpr * k, acc);
 #pragma unroll
-    for (int off = kLpr / 2; off > 0; off >>= 1) acc = vadd(acc, shfl_xor(acc, off));
-    if (seg == 0) part[out_of(q, r)] = acc;
+      for (int off = kLpr / 2; off > 0; off >>= 1) acc = vadd(acc, shfl_xor(acc, off));
+      if (seg == 0) part[out_of(q, r)] = acc;
+    }
   }
 }
 
@@ -293,19 +387,21 @@ __device__ __forceinline__ void row_dots(int ntasks, ReadyFn ready, RowFn rows_o
 // that still give each warp as few rounds as it can get; between groups
 // the consumers free the group (``freed``) and the producer, once it sees
 // that, refills its slots (midrefill(consumed) issues tiles up to
-// consumed + nt; after the last group ``publish`` refills).
+// consumed + nt; after the last group ``publish`` refills, unless ``more``
+// tiles of the step follow in another call, which frees this group too).
 template <class Tr, class VecFn, class OutFn, class RefillFn>
 __device__ __forceinline__ void tile_dots(const Ring& ring, int g0, int n, int lg_rc, VecFn vec_of,
                                           OutFn out_of, RefillFn midrefill,
-                                          typename Tr::Vec* part) {
+                                          typename Tr::Vec* part, bool more = false) {
   using Mat = typename Tr::Mat;
   for (int c0 = 0; c0 < n; c0 += ring.nt) {
     const int nc = min(ring.nt, n - c0);
     const int slot0 = (g0 + c0) % ring.nt, fill0 = (g0 + c0) / ring.nt;
     const int rows = nc << lg_rc;
     const int rounds = (rows + 8 * kWarps - 1) / (8 * kWarps);  // at 8 rows a task
-    int lg_rpt = 0;
-    while (lg_rpt < 3 && lg_rpt < lg_rc && ((rows >> lg_rpt) + kWarps - 1) / kWarps > rounds)
+    int lg_rpt = Rpt<Tr>::kMin;
+    while (lg_rpt < Rpt<Tr>::kMax && lg_rpt < lg_rc &&
+           ((rows >> lg_rpt) + kWarps - 1) / kWarps > rounds)
       ++lg_rpt;
     const int lg_tpt = lg_rc - lg_rpt;  // tasks per tile, as a power of two
     auto ready = [&](int q) {
@@ -329,7 +425,7 @@ __device__ __forceinline__ void tile_dots(const Ring& ring, int g0, int n, int l
       default: row_dots<Tr, 8>(ntasks, ready, rows_of, vec, out, part); break;
     }
     if (threadIdx.x < kWarps * 32) consumer_sync();
-    if (c0 + nc < n) {
+    if (c0 + nc < n || more) {
       if (threadIdx.x == 0) mbar_arrive(ring.freed);
       if (threadIdx.x == kProducer) midrefill(g0 + c0 + nc);
     }
@@ -387,6 +483,8 @@ struct Layout {
 
 // Per mode: the tile size, the side slice bytes per step and the window
 // bytes, for a cluster of C blocks (host and device agree through these).
+// A block's tile of one slot: nb / C rows of Tr's entries.  The ring's
+// slots take the stream's largest tile: the band's in K1, Dinv's in K2.
 template <class Tr>
 __host__ __device__ inline size_t tile_bytes(int C) {
   return (size_t)(kNb / C) * kNb * sizeof(typename Tr::Mat);
@@ -455,8 +553,11 @@ __device__ void fwd_pivot_free(const FwdArgs& a, char* base) {
   Vec* win = reinterpret_cast<Vec*>(sm.rest);
   Vec* part = win + ring * kNb;
   const int ntiles = rows * B;
+  const uint32_t T = (uint32_t)tile_bytes<Tr>(C);
   Producer prod(Walk{0, 0});
-  auto src = [&](const Walk& w) { return band + (((int64_t)w.K * R + w.j) * kNb + r0) * kNb; };
+  auto src = [&](const Walk& w) {
+    return Tile{band + (((int64_t)w.K * R + w.j) * kNb + r0) * kNb, T};
+  };
   auto step = [&](Walk& w) {
     if (++w.j == B) w.j = 0, ++w.K;
   };
@@ -527,10 +628,12 @@ __device__ void fwd_pivoted(const FwdArgs& a, char* base) {
   const size_t tail_off = align128(kNb * 8), fresh_off = tail_off + align128((size_t)Rw * 8);
   const int per_step = B + 1;
   const int ntiles = nblk * per_step;
+  const uint32_t T = (uint32_t)tile_bytes<Tr>(C);
   Producer prod(Walk{0, 0});
   auto src = [&](const Walk& w) {
-    return w.j == 0 ? L1inv + ((int64_t)w.K * kNb + r0) * kNb
-                    : L2 + ((int64_t)w.K * B * kNb + rw0 + (w.j - 1) * Rc) * kNb;
+    return Tile{w.j == 0 ? L1inv + ((int64_t)w.K * kNb + r0) * kNb
+                         : L2 + ((int64_t)w.K * B * kNb + rw0 + (w.j - 1) * Rc) * kNb,
+                T};
   };
   auto step = [&](Walk& w) {
     if (++w.j == per_step) w.j = 0, ++w.K;
@@ -601,31 +704,34 @@ __global__ void __launch_bounds__(kThreads, 1) band_fwd_kernel(FwdArgs a) {
 // x_K into the slot of x_{K+S+1}.  Rows at or past nblk (the pivot-free
 // lookahead rows) take Dinv = I and are not written out.  Tile stream per
 // step: my rows of the S folded slots, then my rows of Dinv_K where
-// K < nblk.
+// K < nblk.  A bf16 band's slots and the float32 Dinv are dotted in two
+// calls of tile_dots, one per type.
 template <class Tr>
 __global__ void __launch_bounds__(kThreads, 1) band_bwd_kernel(BwdArgs a) {
   using Mat = typename Tr::Mat;
   using Vec = typename Tr::Vec;
+  using Dense = typename Tr::Dense;
   extern __shared__ __align__(128) char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = cluster.num_blocks(), rank = cluster.block_rank();
   const int Rc = kNb / C, lg_rc = __ffs(Rc) - 1, r0 = rank * Rc, S = a.S, ring = S + 1;
   const int nsteps = (int)a.nsteps, nblk = (int)a.nblk;
   const Mat* band = static_cast<const Mat*>(a.band);
-  const Mat* dinv = static_cast<const Mat*>(a.dinv);
+  const typename Dense::Mat* dinv = static_cast<const typename Dense::Mat*>(a.dinv);
   const Vec* y = static_cast<const Vec*>(a.y);
   Vec* x = static_cast<Vec*>(a.x);
   size_t side_bytes, rest_bytes;
   bwd_sizes<Tr>(S, C, side_bytes, rest_bytes);
-  const Layout L(a.nt, tile_bytes<Tr>(C), side_bytes, rest_bytes);
-  Smem sm(smem, L, a.nt, tile_bytes<Tr>(C), side_bytes);
+  const Layout L(a.nt, tile_bytes<Dense>(C), side_bytes, rest_bytes);
+  Smem sm(smem, L, a.nt, tile_bytes<Dense>(C), side_bytes);
   Vec* win = reinterpret_cast<Vec*>(sm.rest);
   Vec* part = win + ring * kNb;
   const int ntiles = (nsteps - nblk) * S + nblk * (S + 1);
+  const uint32_t Tb = (uint32_t)tile_bytes<Tr>(C), Td = (uint32_t)tile_bytes<Dense>(C);
   Producer prod(Walk{nsteps - 1, 0});
   auto src = [&](const Walk& w) {
-    return w.j < S ? band + (((int64_t)w.K * a.R + a.s0 + w.j) * kNb + r0) * kNb
-                   : dinv + ((int64_t)w.K * kNb + r0) * kNb;
+    return w.j < S ? Tile{band + (((int64_t)w.K * a.R + a.s0 + w.j) * kNb + r0) * kNb, Tb}
+                   : Tile{dinv + ((int64_t)w.K * kNb + r0) * kNb, Td};
   };
   auto step = [&](Walk& w) {
     if (++w.j == S + (w.K < nblk)) w.j = 0, --w.K;
@@ -657,13 +763,19 @@ __global__ void __launch_bounds__(kThreads, 1) band_bwd_kernel(BwdArgs a) {
     // my rows of Dinv_K y_K (the last tile, where K < nblk) less the S
     // folded slots times the window
     const int base_slot = (K + 1) % ring;
-    tile_dots<Tr>(
-        sm.ring, g, n, lg_rc,
-        [&](int t) {
-          const int s = base_slot + t;
-          return t < S ? win + (s < ring ? s : s - ring) * kNb : yk;
-        },
-        [&](int t, int i) { return i * (S + 1) + t; }, midrefill, part);
+    auto vec = [&](int t) {
+      const int s = base_slot + t;
+      return t < S ? win + (s < ring ? s : s - ring) * kNb : yk;
+    };
+    auto out = [&](int t, int i) { return i * (S + 1) + t; };
+    if constexpr (std::is_same<Tr, Dense>::value) {
+      tile_dots<Tr>(sm.ring, g, n, lg_rc, vec, out, midrefill, part);
+    } else {
+      tile_dots<Tr>(sm.ring, g, S, lg_rc, vec, out, midrefill, part, K < nblk);
+      if (K < nblk)
+        tile_dots<Dense>(sm.ring, g + S, 1, lg_rc, [&](int) { return yk; },
+                         [&](int, int i) { return i * (S + 1) + S; }, midrefill, part);
+    }
     g += n;
     if (threadIdx.x < Rc * C) {
       const int i = threadIdx.x & (Rc - 1), dst = threadIdx.x >> lg_rc;
@@ -706,7 +818,8 @@ struct Choice {
   size_t smem;
 };
 std::mutex g_choices_mu;
-Choice g_choices[64];
+constexpr int kMaxChoices = 256;
+Choice g_choices[kMaxChoices];
 int g_nchoices = 0;
 
 bool find_choice(Choice& ch) {
@@ -723,13 +836,14 @@ bool find_choice(Choice& ch) {
 
 void keep_choice(const Choice& ch) {
   std::lock_guard<std::mutex> lock(g_choices_mu);
-  if (g_nchoices < 64) g_choices[g_nchoices++] = ch;
+  if (g_nchoices < kMaxChoices) g_choices[g_nchoices++] = ch;
 }
 
 // The largest cluster of kMaxCluster, kMaxCluster / 2, ..., 1 blocks whose
 // shared memory fits and that the card can co-schedule.  For each size c,
-// sizes(c, side, rest) gives the mode's side and window bytes; the tile
-// ring takes what shared memory is left (at most kMaxTiles tiles).
+// sizes(c, side, rest) gives the mode's side and window bytes; the ring of
+// tiles of Tr (its slot's type) takes what shared memory is left (at most
+// kMaxTiles tiles).
 template <class Tr, class SizesFn>
 cudaError_t choose(SizesFn sizes, Choice& ch) {
   cudaError_t err = cudaFuncSetAttribute(ch.fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -780,47 +894,63 @@ int launch(void (*kernel)(Args), Args args, int key, SizesFn sizes, void* stream
 template <class Tr>
 int fwd_typed(bool pivoted, const FwdArgs& a, void* stream) {
   auto sizes = [&](int c, size_t& side, size_t& rest) { fwd_sizes<Tr>(pivoted, a.B, c, side, rest); };
-  return pivoted ? launch<Tr>(band_fwd_kernel<Tr, true>, a, a.B, sizes, stream)
-                 : launch<Tr>(band_fwd_kernel<Tr, false>, a, a.B, sizes, stream);
+  if constexpr (std::is_same<Tr, typename Tr::Dense>::value) {
+    if (pivoted) return launch<Tr>(band_fwd_kernel<Tr, true>, a, a.B, sizes, stream);
+  } else {
+    if (pivoted) return (int)cudaErrorInvalidValue;  // pivoted factors are never bf16
+  }
+  return launch<Tr>(band_fwd_kernel<Tr, false>, a, a.B, sizes, stream);
 }
 
 template <class Tr>
 int bwd_typed(const BwdArgs& a, void* stream) {
   auto sizes = [&](int c, size_t& side, size_t& rest) { bwd_sizes<Tr>(a.S, c, side, rest); };
-  return launch<Tr>(band_bwd_kernel<Tr>, a, a.S, sizes, stream);
+  return launch<typename Tr::Dense>(band_bwd_kernel<Tr>, a, a.S, sizes, stream);
 }
 
-// type: 0 complex64, 1 float32 with one column, 2 float32 with two columns.
-int fwd_any(int type, bool pivoted, const FwdArgs& a, void* stream) {
-  switch (type) {
-    case 0: return fwd_typed<C64>(pivoted, a, stream);
-    case 1: return fwd_typed<R32x1>(pivoted, a, stream);
-    case 2: return fwd_typed<R32x2>(pivoted, a, stream);
+// type: 0 complex64, 1 float32 with one column, 2 float32 with two columns;
+// bf16: the band is stored in bf16.
+template <template <class> class Fn, class Args>
+int dispatch(int type, int bf16, const Args& a, void* stream, bool pivoted = false) {
+  switch (type + 3 * (bf16 != 0)) {
+    case 0: return Fn<C64>::run(a, stream, pivoted);
+    case 1: return Fn<R32x1>::run(a, stream, pivoted);
+    case 2: return Fn<R32x2>::run(a, stream, pivoted);
+    case 3: return Fn<C64bf>::run(a, stream, pivoted);
+    case 4: return Fn<R32x1bf>::run(a, stream, pivoted);
+    case 5: return Fn<R32x2bf>::run(a, stream, pivoted);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+template <class Tr>
+struct Fwd {
+  static int run(const FwdArgs& a, void* stream, bool pivoted) { return fwd_typed<Tr>(pivoted, a, stream); }
+};
+
+template <class Tr>
+struct Bwd {
+  static int run(const BwdArgs& a, void* stream, bool) { return bwd_typed<Tr>(a, stream); }
+};
+
 }  // namespace
 
-extern "C" int band_fwd(int type, const void* band, const void* b, void* y, int64_t rows_total,
-                        int64_t nblk, int B, void* stream) {
+extern "C" int band_nb() { return kNb; }
+
+extern "C" int band_fwd(int type, int bf16, const void* band, const void* b, void* y,
+                        int64_t rows_total, int64_t nblk, int B, void* stream) {
   FwdArgs a = {band, nullptr, nullptr, nullptr, b, y, rows_total, nblk, B, 0};
-  return fwd_any(type, false, a, stream);
+  return dispatch<Fwd>(type, bf16, a, stream);
 }
 
 extern "C" int band_fwd_pivoted(int type, const void* L2, const void* L1inv, const void* perms,
                                 const void* b, void* y, int64_t nblk, int B, void* stream) {
   FwdArgs a = {nullptr, L2, L1inv, static_cast<const int64_t*>(perms), b, y, nblk, nblk, B, 0};
-  return fwd_any(type, true, a, stream);
+  return dispatch<Fwd>(type, 0, a, stream, true);
 }
 
-extern "C" int band_bwd(int type, const void* band, const void* dinv, const void* y, void* x,
-                        int64_t nsteps, int64_t nblk, int R, int s0, int S, void* stream) {
+extern "C" int band_bwd(int type, int bf16, const void* band, const void* dinv, const void* y,
+                        void* x, int64_t nsteps, int64_t nblk, int R, int s0, int S, void* stream) {
   BwdArgs a = {band, dinv, y, x, nsteps, nblk, R, s0, S, 0};
-  switch (type) {
-    case 0: return bwd_typed<C64>(a, stream);
-    case 1: return bwd_typed<R32x1>(a, stream);
-    case 2: return bwd_typed<R32x2>(a, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<Bwd>(type, bf16, a, stream);
 }

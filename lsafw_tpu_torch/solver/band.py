@@ -8,7 +8,12 @@ Design:
   * The band is filled on the device by scattering CSR data through a
     precomputed :class:`BandPlan`, into a (rows_total, 2B+1, nb, nb)
     tensor (complex64, or float32 for a real operator); slot r of block
-    row K holds block (K, K + r - B).
+    row K holds block (K, K + r - B).  The plan's switches
+    (:func:`plan_for_csr`): block size ``LSAFW_BAND_NB`` (default 128;
+    the card's kernels take 128 and 256), the band's memory budget
+    ``LSAFW_BAND_MEM_GB`` (default 12), over which the band is stored in
+    bf16 and then clipped, and ``LSAFW_BAND_DTYPE=f32`` (or a pattern
+    marked :func:`mark_bf16_unstable`), which clips it in f32 instead.
   * :class:`PivotedBandedLU` / :class:`RealPivotedBandedLU` (the default
     of :func:`factor_auto` whenever their memory fits): per block row,
     an LU with partial pivoting of the (B+1)·nb x nb panel of block
@@ -19,14 +24,20 @@ Design:
   * :class:`BandedLU` / :class:`RealBandedLU` (over the pivot budget):
     pivot-free elimination in place in the band, with saddle
     regularization of the zero pressure diagonals.  LU of a banded
-    matrix without cross-block pivoting fills only inside the band.
+    matrix without cross-block pivoting fills only inside the band.  On
+    a bf16 plan the band is stored in bf16 ((..., 2) (re, im) pairs for
+    a complex band): the elimination runs in an f32 window of the B + 1
+    live block rows, and each row is rounded to bf16 once, when it
+    retires (the reference's ``_factor_chunk``); Dinv stays f32.  The
+    pivoted factors are always stored in f32, as the reference's.
   * Stored folded (:func:`fold_pivoted`, :func:`fold_pivot_free`): each
     off-diagonal U block is kept premultiplied by its row's diagonal
     inverse (U^-1 U_j, D^-1 U_j) and each L2 panel postmultiplied by
     L1^-1, so that a substitution step is one product per block on the
     solution's critical path (``band_cuda``'s head comment).
-  * Every factor is f32/complex64: it preconditions an f64 iterative
-    refinement (mixed-precision direct-iterative solve).  Every factor's
+  * Every factor computes in f32/complex64 (a bf16 band only stores
+    its result): it preconditions an f64 iterative refinement
+    (mixed-precision direct-iterative solve).  Every factor's
     substitution runs through the CUDA kernels K1/K2 of
     :mod:`lsafw_tpu_torch.solver.band_cuda` (pivot-free or pivoted mode,
     complex64 or float32) on the card, and through their plain torch
@@ -47,6 +58,7 @@ from __future__ import annotations
 
 import os
 import time
+import weakref
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 
@@ -84,7 +96,7 @@ class BandPlan:
     B: int
     nblk_pad: int
     chunk: int
-    band_dtype: str  # "f32" | "bf16" (bf16 at-rest storage is not ported)
+    band_dtype: str  # "f32" | "bf16": the pivot-free factors' at-rest storage
     real: bool
     perm: np.ndarray  # (n,) permuted index -> original
     pos_row: np.ndarray  # (nnz,) band block row of each CSR entry
@@ -227,11 +239,34 @@ def band_mem_budget() -> int:
     return int(float(os.environ.get("LSAFW_BAND_MEM_GB", "12")) * 1e9)
 
 
-def plan_for_csr(A: CSRMatrix, *, nb: int = 128, chunk: int = 128,
+# Patterns whose bf16 full-width factor failed (a stalled or non-finite
+# refinement) in this process: their later plans take the f32 rung at
+# once instead of paying for a failed bf16 factor per Newton step.
+_BF16_UNSTABLE: weakref.WeakSet = weakref.WeakSet()
+
+
+def mark_bf16_unstable(pattern: SparsityPattern) -> None:
+    _BF16_UNSTABLE.add(pattern)
+
+
+def bf16_unstable(pattern: SparsityPattern) -> bool:
+    return pattern in _BF16_UNSTABLE
+
+
+def plan_for_csr(A: CSRMatrix, *, nb: int | None = None, chunk: int = 128,
                  max_bytes: int | None = None, real: bool = False,
                  force_f32: bool = False) -> BandPlan:
     """:class:`BandPlan` of a CSRMatrix's pattern, cached per (pattern,
-    nb, chunk, budget, real, force_f32)."""
+    nb, chunk, budget, real, force_f32) as resolved from the switches:
+    ``nb`` defaults to ``LSAFW_BAND_NB`` (128; a larger nb takes fewer,
+    larger substitution steps), ``max_bytes`` to :func:`band_mem_budget`,
+    and ``LSAFW_BAND_DTYPE=f32`` or a pattern marked
+    :func:`mark_bf16_unstable` force ``force_f32`` (the budget clips B at
+    f32 storage instead of asking for bf16)."""
+    if nb is None:
+        nb = int(os.environ.get("LSAFW_BAND_NB", "128"))
+    if os.environ.get("LSAFW_BAND_DTYPE", "").lower() == "f32" or bf16_unstable(A.pattern):
+        force_f32 = True
     if max_bytes is None:
         max_bytes = band_mem_budget()
     pat = A.pattern
@@ -254,19 +289,33 @@ def regularize_saddle_data(dre: torch.Tensor, dim_: torch.Tensor | None, diag_sl
     return dre.index_add(0, diag_slots, shift)
 
 
-def fill_band(plan: BandPlan, data: torch.Tensor) -> torch.Tensor:
-    """Scatter CSR data into a fresh band on the data's device (complex64
-    for complex data, float32 for real data), with identity on the
-    padding diagonal."""
-    if plan.band_dtype != "f32":
-        raise NotImplementedError(
-            "bf16 at-rest band storage (band over the memory budget) is not ported")
+def fill_band(plan: BandPlan, data: torch.Tensor, *, bf16: bool | None = None) -> torch.Tensor:
+    """Scatter CSR data into a fresh band on the data's device, with
+    identity on the padding diagonal: complex64 for complex data, float32
+    for real data, or (``bf16``, default: the plan's storage) bf16, the
+    complex band as (..., 2) (re, im) pairs, each value rounded once from
+    the data.  On the card the plan's nb must be one the kernels take."""
+    if data.is_cuda:
+        band_cuda.check_nb(plan.nb)
+    if bf16 is None:
+        bf16 = plan.band_dtype == "bf16"
     ix = plan.on(data.device)
-    dtype = torch.complex64 if data.is_complex() else torch.float32
-    band = torch.zeros((plan.rows_total, plan.R, plan.nb, plan.nb), dtype=dtype,
-                       device=data.device)
+    cplx = data.is_complex()
+    shape = (plan.rows_total, plan.R, plan.nb, plan.nb)
+    vals = data[ix["keep"]]
+    if bf16:
+        band = torch.zeros(shape + ((2,) if cplx else ()), dtype=torch.bfloat16,
+                           device=data.device)
+        flat = band.view(-1, 2) if cplx else band.view(-1, 1)
+        flat[ix["flat"], 0] = vals.real.to(torch.bfloat16)
+        if cplx:
+            flat[ix["flat"], 1] = vals.imag.to(torch.bfloat16)
+        flat[ix["pad"], 0] = 1.0
+        return band
+    dtype = torch.complex64 if cplx else torch.float32
+    band = torch.zeros(shape, dtype=dtype, device=data.device)
     flat = band.view(-1)
-    flat[ix["flat"]] = data[ix["keep"]].to(dtype)
+    flat[ix["flat"]] = vals.to(dtype)
     flat[ix["pad"]] = 1.0
     return band
 
@@ -307,7 +356,7 @@ class _PermutedSolve:
         raise NotImplementedError
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
-        bp = spmv_cuda.permute_in(b, self.perm, self.nb, self.band.dtype)
+        bp = spmv_cuda.permute_in(b, self.perm, self.nb, band_cuda.compute_dtype(self.band))
         return spmv_cuda.permute_out(self._substitute(bp), self.iperm, b.dtype)
 
     def solve_vec(self, b: torch.Tensor) -> torch.Tensor:
@@ -323,27 +372,49 @@ def factor_band(band: torch.Tensor, nblk_pad: int, *, delta: float = 0.0) -> tor
     """Pivot-free blocked LU of a filled band (complex or real), in place,
     its U blocks stored folded (:func:`fold_pivot_free`); returns the
     (nblk_pad, nb, nb) inverse diagonal blocks.  ``delta`` is a ridge
-    relative to the mean |Re| of each diagonal block's diagonal."""
-    B = (band.shape[1] - 1) // 2
-    nb = band.shape[2]
+    relative to the mean |Re| of each diagonal block's diagonal.
+
+    A bf16 band is eliminated in ``work``, an f32 window of the B + 1
+    block rows K..K+B that step K reads and updates (row J in slot
+    J mod (B+1)): row K + B + 1 is widened into it as row K retires,
+    rounded to bf16 once.  An f32 band is its own window."""
+    rows_total, R, nb = band.shape[:3]
+    B = (R - 1) // 2
     dev = band.device
-    dinv = torch.empty((nblk_pad, nb, nb), dtype=band.dtype, device=dev)
+    cplx = band_cuda.band_is_complex(band)
+    dtype = band_cuda.compute_dtype(band)
+    ring = B + 1 if band.dtype == torch.bfloat16 else None
+    if ring:
+        work = torch.zeros((ring, R, nb, nb), dtype=dtype, device=dev)
+        for J in range(min(ring, rows_total)):
+            work[J] = band_cuda.widen(band[J], cplx)
+    else:
+        work = band
+    dinv = torch.empty((nblk_pad, nb, nb), dtype=dtype, device=dev)
     i = torch.arange(1, B + 1, device=dev)
     rows = i[:, None].expand(B, B)  # block (K+i, K+j) sits at row K+i,
     slots = B + i[None, :] - i[:, None]  # slot B + j - i
-    eye = torch.eye(nb, dtype=band.dtype, device=dev)
+    eye = torch.eye(nb, dtype=dtype, device=dev)
     for K in range(nblk_pad):
-        D = band[K, B]
+        k, ki = (K % ring, (K + i) % ring) if ring else (K, K + i)
+        D = work[k, B]
         if delta:
             D = D + (delta * _ridge_scale(D)) * eye
         X, _ = torch.linalg.inv_ex(D)
         dinv[K] = X
-        L = band[K + i, B - i] @ X  # (B, nb, nb): L_i = E_i D^-1
-        U = band[K, B + 1:]  # (B, nb, nb)
-        r = rows + K
-        band[r, slots] = band[r, slots] - L[:, None] @ U[None, :]
-        band[K + i, B - i] = L
-        band[K, B + 1:] = X @ U  # folded: D^-1 U
+        L = work[ki, B - i] @ X  # (B, nb, nb): L_i = E_i D^-1
+        U = work[k, B + 1:]  # (B, nb, nb)
+        r = (rows + K) % ring if ring else rows + K
+        work[r, slots] = work[r, slots] - L[:, None] @ U[None, :]
+        work[ki, B - i] = L
+        work[k, B + 1:] = X @ U  # folded: D^-1 U
+        if ring:  # row K retires; row K + B + 1 takes its slot
+            band[K] = band_cuda.narrow(work[k])
+            if K + ring < rows_total:
+                work[k] = band_cuda.widen(band[K + ring], cplx)
+    if ring:
+        for J in range(nblk_pad, rows_total):
+            band[J] = band_cuda.narrow(work[J % ring])
     return dinv
 
 
@@ -351,10 +422,12 @@ def fold_pivot_free(band: torch.Tensor, dinv: torch.Tensor) -> torch.Tensor:
     """A pivot-free factor's band in the stored (folded) layout: the U
     blocks of each row K < nblk premultiplied by Dinv_K, so that
     x_K = Dinv_K y_K - sum_t (Dinv_K U_Kt) x_{K+1+t}.  ``factor_band``
-    folds as it goes; this carries an unfolded band across (a copy)."""
+    folds as it goes; this carries an unfolded band across (a copy; a
+    bf16 band's products are widened, then rounded once)."""
     B, nblk = (band.shape[1] - 1) // 2, dinv.shape[0]
     out = band.clone()
-    out[:nblk, B + 1:] = dinv[:, None] @ band[:nblk, B + 1:]
+    U = dinv[:, None] @ band_cuda.widen(band[:nblk, B + 1:], band_cuda.band_is_complex(band))
+    out[:nblk, B + 1:] = band_cuda.narrow(U) if band.dtype == torch.bfloat16 else U
     return out
 
 
@@ -377,7 +450,7 @@ class BandedLU(_PermutedSolve):
     """Factored pivot-free complex band on a device; :meth:`solve`
     applies C^-1 through the K1/K2 substitution kernels."""
 
-    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) complex64, factored (U folded)
+    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) complex64, or bf16 (..., 2); factored, U folded
     dinv: torch.Tensor  # (nblk_pad, nb, nb) complex64
     perm: torch.Tensor  # (nblk_pad * nb,) int32: padded permuted index -> original
     iperm: torch.Tensor  # (n,) int32: original -> permuted position
@@ -393,7 +466,8 @@ class BandedLU(_PermutedSolve):
         band = fill_band(plan, _complex_data(data_re, data_im))
         dinv = factor_band(band, plan.nblk_pad, delta=delta)
         _sync(band)
-        logger.info("BandedLU: factored n=%d B=%d in %.2f s", plan.n, plan.B, time.time() - t0)
+        logger.info("BandedLU: factored n=%d B=%d nb=%d (%s band) in %.2f s", plan.n, plan.B,
+                    plan.nb, plan.band_dtype, time.time() - t0)
         ix = plan.on(band.device)
         return cls(band, dinv, ix["perm_pad"], ix["iperm"], plan.n, plan.nb, plan.B)
 
@@ -406,7 +480,7 @@ class RealBandedLU(_PermutedSolve):
     """Pivot-free factor of a real operator: one f32 band (half the memory
     of the complex band); its substitution runs K1/K2 in float32."""
 
-    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) float32, factored (U folded)
+    band: torch.Tensor  # (nblk_pad + B, 2B+1, nb, nb) float32 or bf16, factored (U folded)
     dinv: torch.Tensor  # (nblk_pad, nb, nb) float32
     perm: torch.Tensor  # (nblk_pad * nb,) int32
     iperm: torch.Tensor  # (n,) int32
@@ -420,7 +494,8 @@ class RealBandedLU(_PermutedSolve):
         band = fill_band(plan, data_re.to(torch.float64))
         dinv = factor_band(band, plan.nblk_pad, delta=delta)
         _sync(band)
-        logger.info("RealBandedLU: factored n=%d B=%d in %.2f s", plan.n, plan.B, time.time() - t0)
+        logger.info("RealBandedLU: factored n=%d B=%d nb=%d (%s band) in %.2f s", plan.n,
+                    plan.B, plan.nb, plan.band_dtype, time.time() - t0)
         ix = plan.on(band.device)
         return cls(band, dinv, ix["perm_pad"], ix["iperm"], plan.n, plan.nb, plan.B)
 
@@ -526,7 +601,7 @@ class PivotedBandedLU(_PermutedSolve):
                *, delta: float = 0.0) -> "PivotedBandedLU":
         """Fill the band from CSR data and factor it with panel pivoting."""
         t0 = time.time()
-        band = fill_band(plan, _complex_data(data_re, data_im))
+        band = fill_band(plan, _complex_data(data_re, data_im), bf16=False)
         L2, L1inv, Uinv, perms = _pfactor(band, plan.nblk_pad, delta)
         _sync(band)
         logger.info("PivotedBandedLU: factored n=%d B=%d in %.2f s", plan.n, plan.B,
@@ -559,7 +634,7 @@ class RealPivotedBandedLU(_PermutedSolve):
     def factor(cls, plan: BandPlan, data_re: torch.Tensor, *,
                delta: float = 0.0) -> "RealPivotedBandedLU":
         t0 = time.time()
-        band = fill_band(plan, data_re.to(torch.float64))
+        band = fill_band(plan, data_re.to(torch.float64), bf16=False)
         L2, L1inv, Uinv, perms = _pfactor(band, plan.nblk_pad, delta)
         _sync(band)
         logger.info("RealPivotedBandedLU: factored n=%d B=%d in %.2f s", plan.n, plan.B,

@@ -4,8 +4,10 @@ step, and the recirculation-length diagnostic.
 
 ``linear_solver="banded"`` runs the Stokes solve and every Newton step
 on the device band LU with f64 GCR refinement (one real band plan,
-shared by the Stokes operator and the Jacobians of the same pattern);
-a stalled banded Stokes solve raises.  ``"lu"`` solves on the host."""
+shared by the Stokes operator and the Jacobians of the same pattern).
+A stalled banded Stokes solve on a bf16 band is retried once on a
+budget-clipped f32 plan (the pattern marked bf16-unstable, as Newton's
+rung does); a stalled f32 solve raises.  ``"lu"`` solves on the host."""
 
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ from lsafw_tpu_torch.models.navier_stokes import (
     StokesAssembler,
 )
 from lsafw_tpu_torch.solver.direct import direct_solve
-from lsafw_tpu_torch.solver.band import plan_for_csr
+from lsafw_tpu_torch.solver.band import mark_bf16_unstable, plan_for_csr
 from lsafw_tpu_torch.solver.newton import NewtonResult, NewtonSolver, banded_solve, new_stats
 from lsafw_tpu_torch.utils.logging import get_logger, timed
 
@@ -43,7 +45,14 @@ class BaseFlowSolver:
         logger.info("Solving Stokes flow as Newton initial guess.")
         A, b = StokesAssembler(self._ctx, self._mesh, self._bcs, re=self._re).get_matrix_forms()
         if linear_solver == "banded":
-            res = banded_solve(A, b, plan_for_csr(A, real=True), tol=1e-10, stats=self.stats)
+            plan = plan_for_csr(A, real=True)
+            res = banded_solve(A, b, plan, tol=1e-10, stats=self.stats)
+            if not res.converged and plan.band_dtype == "bf16":
+                logger.warning("bf16 Stokes band stalled (rel res %.2e); retrying with a "
+                               "budget-clipped f32 band", res.residual)
+                mark_bf16_unstable(A.pattern)
+                res = banded_solve(A, b, plan_for_csr(A, real=True, force_f32=True), tol=1e-10,
+                                   stats=self.stats)
             if not res.converged:
                 raise RuntimeError(f"banded Stokes solve stalled (relative residual "
                                    f"{res.residual:.2e})")

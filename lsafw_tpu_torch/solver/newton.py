@@ -11,7 +11,11 @@ Residual and Jacobian are assembled on the device.  Inner solves:
   (:func:`_banded_mr`), whose matvecs run through the S kernel on the
   permuted CSR (``ops/bcsr.py``, refilled from J's data every step).  A
   step the refinement brings under a relative residual of 1e-3 is
-  accepted (inexact Newton); a worse one raises.
+  accepted (inexact Newton).  A worse one on a bf16 band (a band over
+  its memory budget) takes the reference's retry rung: the failed band
+  is freed, the pattern marked :func:`~lsafw_tpu_torch.solver.band.mark_bf16_unstable`,
+  and the step is solved again on a budget-clipped f32 plan; a failure
+  there, or on an f32 band, raises.
 * ``linear_solver="lu"``: host SuperLU.
 """
 
@@ -26,7 +30,7 @@ import torch
 from lsafw_tpu_torch.models.navier_stokes import StationaryNavierStokesAssembler
 from lsafw_tpu_torch.ops.bcsr import operator_for_budget
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
-from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
+from lsafw_tpu_torch.solver.band import factor_auto, mark_bf16_unstable, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
 from lsafw_tpu_torch.solver.linear import SolveResult
 from lsafw_tpu_torch.utils.logging import get_logger
@@ -118,6 +122,20 @@ def banded_solve(A: CSRMatrix, b: torch.Tensor, plan, *, tol: float,
     return _banded_mr(A, blu, b, operator_for_budget(A), tol=tol, stats=stats)
 
 
+def _accepted(res: SolveResult) -> torch.Tensor | None:
+    """A banded step's solution if it is finite and converged, or under a
+    relative residual of 1e-3 (inexact Newton: the outer |F| criterion
+    alone decides convergence); else None."""
+    if not bool(torch.isfinite(res.x).all()):
+        return None
+    if res.converged:
+        return res.x
+    if res.residual < 1e-3:
+        logger.info("Accepting inexact banded Newton step (rel res %.1e).", res.residual)
+        return res.x
+    return None
+
+
 @dataclass
 class NewtonResult:
     w: np.ndarray
@@ -155,20 +173,24 @@ class NewtonSolver:
         return torch.where(self._asm.bc_mask, torch.zeros_like(F), F)
 
     def _banded_solve(self, J: CSRMatrix, b: torch.Tensor) -> torch.Tensor:
-        """Device band LU (f32) of the real Jacobian + f64 GCR refinement."""
+        """Device band LU (f32, or bf16 at rest) of the real Jacobian + f64
+        GCR refinement, with the bf16 -> f32 retry rung."""
         if self._band_plan is None:
             self._band_plan = plan_for_csr(J, real=True)
         res = banded_solve(J, b, self._band_plan, tol=self._linear_tol, stats=self.stats)
-        finite = bool(torch.isfinite(res.x).all())
-        if res.converged and finite:
-            return res.x
-        if res.residual < 1e-3 and finite:
-            # inexact Newton: the outer |F| criterion alone decides convergence
-            logger.info("Accepting inexact banded Newton step (rel res %.1e).", res.residual)
-            return res.x
-        raise RuntimeError(
-            f"banded Newton step failed: relative residual {res.residual:.2e} after "
-            f"{res.iterations} refinement iterations")
+        x = _accepted(res)
+        if x is None and self._band_plan.band_dtype == "bf16":
+            logger.warning("bf16 full-width band failed (rel res %.2e); retrying with a "
+                           "budget-clipped f32 band", res.residual)
+            mark_bf16_unstable(J.pattern)
+            self._band_plan = plan_for_csr(J, real=True, force_f32=True)
+            res = banded_solve(J, b, self._band_plan, tol=self._linear_tol, stats=self.stats)
+            x = _accepted(res)
+        if x is None:
+            raise RuntimeError(
+                f"banded Newton step failed: relative residual {res.residual:.2e} after "
+                f"{res.iterations} refinement iterations")
+        return x
 
     def solve(self, w0, re: float, *, max_it: int = 50, tol: float = 1e-6) -> NewtonResult:
         """Iterate to the steady state (divergence -> warning + partial

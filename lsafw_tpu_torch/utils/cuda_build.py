@@ -35,11 +35,13 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def compile_library(src: Path) -> Path:
-    """Compile ``src`` for sm_90a (once per source version) and return the
-    shared library's path; a failed build raises with nvcc's output."""
-    code = src.read_bytes()
-    out = BUILD_DIR / f"lib{src.stem}_{hashlib.sha256(code).hexdigest()[:12]}.so"
+def compile_library(src: Path, defines: tuple[str, ...] = ()) -> Path:
+    """Compile ``src`` for sm_90a with the macros ``defines`` (``"NAME=value"``;
+    once per source version and macros) and return the shared library's
+    path; a failed build raises with nvcc's output."""
+    code = src.read_bytes() + "\0".join(defines).encode()
+    tag = "".join(f"_{d.replace('=', '')}" for d in defines)
+    out = BUILD_DIR / f"lib{src.stem}{tag}_{hashlib.sha256(code).hexdigest()[:12]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -47,13 +49,14 @@ def compile_library(src: Path) -> Path:
     os.close(fd)
     cmd = [
         nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(src),
+        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", *(f"-D{d}" for d in defines),
+        "-o", tmp, str(src),
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOGS[src.name] = proc.stderr
+    BUILD_LOGS[src.name + "".join(f" -D{d}" for d in defines)] = proc.stderr
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {src.name} {' '.join(defines)}:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
 

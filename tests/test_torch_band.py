@@ -6,7 +6,10 @@ Tolerances: the plan is integer geometry (exact); the factor is f32 on
 both sides with a different inversion route (native complex inverse vs
 the 2nb real embedding) and summation order (rel 1e-4 in max-norm); the
 substitution of one factor in f32 (rel 1e-5); the refined solve is f64
-(1e-10 against SuperLU).
+(1e-10 against SuperLU).  The bf16 at-rest factors round each entry
+once, at other places on the two sides (rel 2e-2 for the band, 1e-2 for
+an unrefined solve); carrying a bf16 factor across is exact; the plan
+switches resolve to the same integers.
 """
 
 import jax.numpy as jnp
@@ -16,10 +19,13 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 import torch
 
+from lsafw_tpu.ops import sparse as jsparse
 from lsafw_tpu.solver import band as jband
 from lsafw_tpu_torch import interop
+from lsafw_tpu_torch.ops import sparse as tsparse
 from lsafw_tpu_torch.solver import band as tband
 from lsafw_tpu_torch.solver import band_cuda
+from lsafw_tpu_torch.solver import newton as tnewton
 from lsafw_tpu_torch.solver.direct import direct_solve
 from lsafw_tpu_torch.solver.eigen import BandedSIOp, banded_solve_raw
 from tests.test_torch_fem import RE, cylinder_case, one_blas_thread  # noqa: F401
@@ -212,3 +218,240 @@ def test_wrappers_reject_what_the_kernels_do_not_take(factors):
         band_cuda.bwd_substitute_pivoted(rband, L1inv, torch.zeros((nblk + B, nb, 1)))
     with pytest.raises(TypeError):  # a complex Uinv beside a real band
         band_cuda.bwd_substitute_pivoted(rband, L1inv.to(torch.complex64), rb)
+
+
+# ---------------------------------------------------------------------------
+# The band plan's switches, the bf16 at-rest band, nb = 256
+# ---------------------------------------------------------------------------
+
+# budget: a fraction of the complex f32 band's bytes at nb = 128
+SWITCHES = {
+    "nb128": dict(env={"LSAFW_BAND_NB": "128"}, want=("f32", "full")),
+    "nb256": dict(env={"LSAFW_BAND_NB": "256"}, want=("f32", "full")),
+    "dtype_f32": dict(env={"LSAFW_BAND_DTYPE": "f32"}, budget=0.75, want=("f32", "clipped")),
+    "bf16_full": dict(budget=0.75, want=("bf16", "full")),
+    "bf16_clipped": dict(budget=0.3, want=("bf16", "clipped")),
+    "f32_clipped": dict(budget=0.3, force_f32=True, want=("f32", "clipped")),
+    "marked": dict(budget=0.75, mark=True, want=("f32", "clipped")),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_A(system):
+    """The JAX package's CSRMatrix of the port's A (one pattern object, so
+    that its plan cache and bf16 marks see one pattern)."""
+    return jsparse.CSRMatrix.from_scipy(system["A"].to_scipy())
+
+
+@pytest.mark.parametrize("case", SWITCHES)
+def test_plan_switches_match_jax(system, jax_A, case, monkeypatch):
+    """``plan_for_csr`` resolves ``LSAFW_BAND_NB``, ``LSAFW_BAND_DTYPE``,
+    the memory budget, ``force_f32`` and the bf16-unstable mark as the JAX
+    package does: the same (nb, B, nblk_pad, band_dtype), exactly."""
+    c = SWITCHES[case]
+    A, jp = system["A"], system["jplan"]
+    for k, v in c.get("env", {}).items():
+        monkeypatch.setenv(k, v)
+    kw = dict(force_f32=c.get("force_f32", False))
+    if "budget" in c:
+        kw["max_bytes"] = int(c["budget"] * jp.rows_total * jp.R * jp.nb * jp.nb * 8)
+    if c.get("mark"):
+        tband.mark_bf16_unstable(A.pattern)
+        jband.mark_bf16_unstable(jax_A.pattern)
+    try:
+        got, ref = tband.plan_for_csr(A, **kw), jband.plan_for_csr(jax_A, **kw)
+        unmarked = tband.plan_for_csr(A, **kw) if not c.get("mark") else None
+    finally:
+        tband._BF16_UNSTABLE.discard(A.pattern)
+        jband._BF16_UNSTABLE.discard(id(jax_A.pattern))
+    assert (got.nb, got.B, got.nblk_pad, got.band_dtype) == (ref.nb, ref.B, ref.nblk_pad,
+                                                             ref.band_dtype)
+    assert got.band_dtype == c["want"][0]
+    full_B = jp.B if got.nb == 128 else tband.plan_for_csr(A, nb=got.nb).B
+    assert (got.B == full_B) == (c["want"][1] == "full")
+    if c.get("mark"):  # the mark forces f32; unmarked, the same budget keeps bf16
+        assert tband.plan_for_csr(A, **kw).band_dtype == "bf16"
+    else:
+        assert unmarked is got  # cached per resolved (nb, budget, force_f32)
+    if case == "nb256":
+        assert got.nb == 256 and tband.plan_for_csr(A, nb=128) is not got
+
+
+def test_unsupported_nb_raises_before_a_cuda_factor(system):
+    """On the CPU the plain versions take any nb; on the card a plan of an
+    nb the kernels were not built for raises before its band is made."""
+    s = system
+    plan = tband.BandPlan.build(s["csr"], nb=64, chunk=1)
+    lu, pivoted = tband.factor_auto(plan, s["dre"], s["dim"], diag_slots=s["diag"])
+    assert pivoted and lu.band.shape[2] == 64
+
+    class OnTheCard:
+        is_cuda = True
+
+    with pytest.raises(ValueError, match=r"nb in \(128, 256\)"):
+        tband.fill_band(plan, OnTheCard())
+
+
+@pytest.fixture(scope="module", params=["complex", "real"])
+def bf16_factors(request, system):
+    """Both packages' pivot-free factors on a bf16 plan at full width (a
+    budget between the bf16 and the f32 band), unpadded (chunk 1), of the
+    same data: the shift-invert operator's, or its real part's."""
+    s = system
+    real = request.param == "real"
+    per = 4 if real else 8
+    full = jband.BandPlan.build(s["csr"], nb=128, chunk=1, real=real)
+    budget = int(0.75 * full.rows_total * full.R * 128 * 128 * per)
+    jplan = jband.BandPlan.build(s["csr"], nb=128, chunk=1, max_bytes=budget, real=real)
+    plan = interop.band_plan_from_numpy(s["csr"], jplan.perm, jplan.n, 128, jplan.B,
+                                        jplan.nblk_pad, 1, band_dtype="bf16", max_bytes=budget,
+                                        real=real)
+    assert jplan.band_dtype == "bf16" and jplan.B == full.B
+    mp = pytest.MonkeyPatch()
+    mp.setenv("LSAFW_PIVOT_MEM_GB", "0")
+    try:
+        data = (s["dre"],) if real else (s["dre"], s["dim"])
+        jlu, jpiv = jband.factor_auto(jplan, *(jnp.asarray(d.numpy()) for d in data),
+                                      diag_slots=s["diag"])
+        tlu, tpiv = tband.factor_auto(plan, *data, diag_slots=s["diag"])
+    finally:
+        mp.undo()
+    assert (jpiv, tpiv) == (False, False)
+    return dict(real=real, jlu=jlu, tlu=tlu)
+
+
+def _jax_bf16_band(f):
+    """The JAX factor's bf16 band, as the port lays it out (complex: (..., 2)
+    pairs), and its Dinv."""
+    jlu = f["jlu"]
+    if f["real"]:
+        return interop._bf16(jlu.band, "cpu"), torch.from_numpy(np.array(jlu.dinv))
+    band = torch.stack([interop._bf16(jlu.band_re, "cpu"), interop._bf16(jlu.band_im, "cpu")], -1)
+    dinv = np.asarray(jlu.dinv_r) + 1j * np.asarray(jlu.dinv_i)
+    return band, torch.from_numpy(dinv.astype(np.complex64))
+
+
+def test_bf16_factor_matches_jax(bf16_factors):
+    """The port's bf16 band, widened, against the JAX package's bf16 band
+    folded in f32 (U blocks premultiplied by Dinv): rel 2e-2 in max-norm,
+    as is Dinv (f32 on both sides, from f32 windows); the two round once
+    per entry, but at other places (the port rounds folded blocks)."""
+    f = bf16_factors
+    tlu = f["tlu"]
+    cplx = not f["real"]
+    assert tlu.band.dtype == torch.bfloat16 and band_cuda.band_is_complex(tlu.band) == cplx
+    assert tlu.dinv.dtype == (torch.complex64 if cplx else torch.float32)
+    jband_, jdinv = _jax_bf16_band(f)
+    B = (jband_.shape[1] - 1) // 2
+    ref = band_cuda.widen(jband_, cplx).clone()
+    ref[:jdinv.shape[0], B + 1:] = jdinv[:, None] @ ref[:jdinv.shape[0], B + 1:]
+    assert _rel(band_cuda.widen(tlu.band, cplx).numpy(), ref.numpy()) <= 2e-2
+    assert _rel(tlu.dinv.numpy(), jdinv.numpy()) <= 2e-2
+
+
+def test_bf16_substitution_matches_jax(system, bf16_factors):
+    """One unrefined solve of the port's bf16 factor against one of the
+    JAX package's bf16 factor carried across (``interop``; both through
+    the plain substitutions on the CPU): rel 1e-2 (two bf16 factors)."""
+    f = bf16_factors
+    jlu = f["jlu"]
+    if f["real"]:
+        ref_lu = interop.real_banded_lu_from_numpy(jlu.band, jlu.dinv, jlu.perm, jlu.iperm, jlu.n,
+                                                   jlu.nb, jlu.B, device="cpu")
+    else:
+        ref_lu = interop.banded_lu_from_numpy(jlu.band_re, jlu.band_im, jlu.dinv_r, jlu.dinv_i,
+                                              jlu.perm, jlu.iperm, jlu.n, jlu.nb, jlu.B,
+                                              device="cpu")
+    rng = np.random.default_rng(6)
+    n = system["A"].shape[0]
+    b = rng.standard_normal(n) if f["real"] else rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    before = dict(band_cuda.LAUNCHES)
+    got = f["tlu"].solve(torch.as_tensor(b)).numpy()
+    assert band_cuda.LAUNCHES == before
+    assert _rel(got, ref_lu.solve(torch.as_tensor(b)).numpy()) <= 1e-2
+
+
+def test_bf16_refined_solve_matches_superlu(system, bf16_factors):
+    """GCR refinement preconditioned by the bf16 factor reaches SuperLU's
+    f64 solve: 1e-10."""
+    s, f = system, bf16_factors
+    rng = np.random.default_rng(10)
+    n = s["A"].shape[0]
+    if f["real"]:
+        J = tsparse.CSRMatrix(s["A"].pattern, s["dre"])
+        b = rng.standard_normal(n)
+        res = tnewton._banded_mr(J, f["tlu"], torch.as_tensor(b), tol=1e-13, max_its=60)
+        x, C = res.x.numpy(), J.to_scipy()
+    else:
+        op = BandedSIOp(s["A"], s["M"], f["tlu"], SIGMA)
+        b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+        x = banded_solve_raw(op, torch.as_tensor(b), tol=1e-13, max_its=60).numpy()
+        C = s["A"].to_scipy() - SIGMA * s["M"].to_scipy()
+    ref = spla.spsolve(C.tocsc(), b)
+    assert np.linalg.norm(x - ref) / np.linalg.norm(ref) <= 1e-10
+
+
+def test_bf16_interop_round_trip_is_exact(bf16_factors):
+    """A JAX bf16 factor carried into the port keeps its bits: the L and
+    diagonal slots and the lookahead rows as they were, the U blocks as
+    the bf16 rounding of Dinv times the widened JAX blocks, Dinv exact;
+    and the port's band read back as numpy bfloat16 equals it."""
+    f = bf16_factors
+    jlu = f["jlu"]
+    if f["real"]:
+        lu = interop.real_banded_lu_from_numpy(jlu.band, jlu.dinv, jlu.perm, jlu.iperm, jlu.n,
+                                               jlu.nb, jlu.B, device="cpu")
+    else:
+        lu = interop.banded_lu_from_numpy(jlu.band_re, jlu.band_im, jlu.dinv_r, jlu.dinv_i,
+                                          jlu.perm, jlu.iperm, jlu.n, jlu.nb, jlu.B, device="cpu")
+    band, dinv = _jax_bf16_band(f)
+    cplx = not f["real"]
+    B, nblk = jlu.B, dinv.shape[0]
+    bits = lambda t: t.view(torch.int16)  # noqa: E731
+    assert torch.equal(lu.dinv, dinv)
+    assert torch.equal(bits(lu.band[:, :B + 1]), bits(band[:, :B + 1]))
+    assert torch.equal(bits(lu.band[nblk:]), bits(band[nblk:]))
+    folded = band_cuda.narrow(dinv[:, None] @ band_cuda.widen(band[:nblk, B + 1:], cplx))
+    assert torch.equal(bits(lu.band[:nblk, B + 1:]), bits(folded))
+    back = interop.band_to_numpy(lu.band)
+    assert back.dtype.name == "bfloat16" and back.shape == tuple(lu.band.shape)
+    assert np.array_equal(back.view(np.int16), bits(lu.band).numpy())
+
+
+@pytest.mark.parametrize("mode", ["pivot_free", "pivoted"])
+def test_nb256_matches_jax(mode):
+    """K1 + K2 at nb = 256 (plain versions on the CPU) on a real factor of
+    the JAX package's layout carried across by ``interop``, against the
+    JAX package's scan (``_solve_banded_real`` / ``_solve_pivoted_real``):
+    rel 1e-5 (one f32 factor, sums in another order).  The factor is
+    random and well conditioned (identity plus 2e-3 noise; the pivoted
+    one with random panel permutations)."""
+    rng = np.random.default_rng(256)
+    nb, B, nblk = 256, 2, 5
+    m = (B + 1) * nb
+
+    def noise(*shape):
+        return (2e-3 * rng.standard_normal(shape)).astype(np.float32)
+
+    eye = np.eye(nb, dtype=np.float32)
+    n = nblk * nb - 37
+    perm = np.concatenate([rng.permutation(n), np.arange(n, nblk * nb)]).astype(np.int32)
+    iperm = np.argsort(perm)[:n].astype(np.int32)
+    b = rng.standard_normal((nblk, nb, 1)).astype(np.float32)
+    if mode == "pivot_free":
+        band, dinv = noise(nblk + B, 2 * B + 1, nb, nb), noise(nblk, nb, nb) + eye
+        ref = jband._solve_banded_real(jnp.asarray(band), jnp.asarray(dinv), jnp.asarray(b), B=B,
+                                       nb=nb)
+        lu = interop.real_banded_lu_from_numpy(band, dinv, perm, iperm, n, nb, B, device="cpu")
+        x = band_cuda.solve_banded(lu.band, lu.dinv, torch.from_numpy(b))
+    else:
+        band, L2 = noise(nblk + B, 2 * B + 1, nb, nb), noise(nblk, B, nb, nb)
+        L1inv, Uinv = noise(nblk, nb, nb) + eye, noise(nblk, nb, nb) + eye
+        perms = np.stack([rng.permutation(m) for _ in range(nblk)])
+        ref = jband._solve_pivoted_real(*(jnp.asarray(a) for a in (band, L2, L1inv, Uinv, perms, b)),
+                                        B=B, nb=nb)
+        lu = interop.real_pivoted_lu_from_numpy(band, L2, L1inv, Uinv, perms, perm, iperm, n, nb,
+                                                B, device="cpu")
+        x = band_cuda.solve_pivoted(lu.band, lu.L2, lu.L1inv, lu.Uinv, lu.perms, torch.from_numpy(b))
+    assert lu.nb == 256 and x.shape == (nblk, nb, 1)
+    assert _rel(x.numpy(), np.asarray(ref)) <= 1e-5

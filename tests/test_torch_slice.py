@@ -18,6 +18,10 @@ device route with host LU forbidden, and its adjoint vector is held to
 the JAX package's through the phase between the two direct vectors.
 The JAX package's direct pair, adjoint vector and du/dRe, carried into
 the port, drive ``evaluate_sensitivity`` and ``compute_wavemaker``.
+The bf16 retry rung (Newton and Stokes) is held to the JAX package's
+plan of the marked pattern (exact) and its result to SuperLU (1e-9, GCR
+at 1e-10); the TOML loaders to the JAX package's (exact).
+
 Tolerances: the transposes exact; the scalar forms rel 1e-12 (f64
 einsums in another order); sigma_adj 1e-8 and the adjoint vector rel
 1e-6 (the adjoint eigensolve's ``atol`` is 1e-8); du/dRe rel 1e-7 (GCR
@@ -31,10 +35,13 @@ unpadded (``chunk=1``) instead of padding them to 128 with identity
 rows: the same factors at a fraction of the CPU time.
 """
 
+from dataclasses import replace
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import scipy.sparse as sp
+import scipy.sparse.linalg as spla
 import torch
 
 from lsafw_tpu import sensitivity as jsens
@@ -119,6 +126,7 @@ def jax_leading(jax_system):
     mp.setenv("LSAFW_PIVOT_MEM_GB", "0")
     mp.setattr(jband, "factor_auto", spy)
     mp.setattr(jeigen, "SparseLU", _no_host_lu)
+    mp.setitem(jband.plan_for_csr.__kwdefaults__, "chunk", 1)  # unpadded, as _small_plans
     try:
         jpairs, _ = _leading(jeigen, *jax_system)
     finally:
@@ -434,14 +442,8 @@ def test_shift_on_an_exact_eigenvalue_retries_offset(monkeypatch):
     """A shift exactly on an eigenvalue makes C singular: the band factor's
     calibration refuses it, and the eigensolver retries once at the offset
     shift 1e-3 (1 + |target|), as the direct mode at sigma does."""
-    k = np.arange(1, 21, dtype=np.float64)
-    a, b = -k / 10, k  # 2x2 blocks [[a, -b], [b, a]]: eigenvalues a +- ib
-    sA = sp.block_diag([[[x, -y], [y, x]] for x, y in zip(a, b)], format="csr")
-    sA.sort_indices()
-    pat = interop.csr_from_numpy(sA.indptr, sA.indices, sA.data, sA.shape, device="cpu").pattern
-    A = tsparse.CSRMatrix(pat, torch.as_tensor(sA.data))
-    M = tsparse.CSRMatrix(pat, torch.as_tensor((sA.indices == pat.row_ids) * 1.0))
-    target = complex(a[2], b[2])
+    A, M, _ = _block_pair()
+    target = complex(-0.3, 3.0)  # the third block's eigenvalue a + ib
     _small_plans(monkeypatch)
     es = teigen.EigenSolver(A, M, teigen.EigensolverConfig(num_eig=1, atol=1e-10, ncv=10))
     es.set_st_type(teigen.STType.SINVERT)
@@ -453,3 +455,130 @@ def test_shift_on_an_exact_eigenvalue_retries_offset(monkeypatch):
     assert es.operator.sigma == target + 1e-3 * (1 + abs(target))
     assert abs(lam - target) <= 1e-10
     assert teigen.eigen_residuals(A, M, [(lam, x)])[0] <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# The bf16 -> f32 retry rung, and the TOML loaders
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("solve", ["newton", "stokes"])
+def test_bf16_retry_rung_matches_jax(cases, solve, monkeypatch):
+    """A banded solve that fails on a bf16 band (forced here: the first one
+    reports a stall) marks the pattern bf16-unstable and is solved again
+    on an f32 plan that the budget clips: the plan the JAX package makes
+    for the marked pattern under the same budget, and a result SuperLU's
+    f64 solve agrees with to 1e-9 (GCR's tolerance is 1e-10)."""
+    _, tc = cases
+    _small_plans(monkeypatch)
+    monkeypatch.setenv("LSAFW_BAND_NB", "32")  # B = 8: a clipped band still preconditions
+    A, b = tc["ns"].StokesAssembler(tc["ctx"], tc["mesh"], tc["bcs_base"], re=RE).get_matrix_forms()
+    if solve == "newton":
+        w = tdirect.direct_solve(A, b.numpy())
+        asm = tc["ns"].StationaryNavierStokesAssembler(tc["ctx"], tc["mesh"], tc["bcs_base"])
+        A = asm.jacobian(w, RE)
+        b = -asm.residual(w, RE)
+    full = tband.plan_for_csr(A, real=True)
+    monkeypatch.setenv("LSAFW_BAND_MEM_GB",  # bf16 at full width; f32 clipped to B - 1
+                       repr(0.95 * full.rows_total * full.R * full.nb * full.nb * 4 / 1e9))
+    monkeypatch.setenv("LSAFW_PIVOT_MEM_GB", "0")  # the pivot-free factors, which keep bf16
+    plans = []
+    banded_solve = tnewton.banded_solve
+
+    def first_fails(A_, b_, plan, **kw):
+        plans.append(plan)
+        res = banded_solve(A_, b_, plan, **kw)
+        return res if len(plans) > 1 else replace(res, residual=1.0, converged=False)
+
+    mod = tnewton if solve == "newton" else tbaseflow
+    monkeypatch.setattr(mod, "banded_solve", first_fails)
+    JA = jsparse.CSRMatrix.from_scipy(A.to_scipy())
+    try:
+        if solve == "newton":
+            x = tnewton.NewtonSolver(asm, linear_solver="banded")._banded_solve(A, b).numpy()
+        else:
+            x = tbaseflow.BaseFlowSolver(tc["ctx"], tc["mesh"], tc["bcs_base"],
+                                         re=RE)._solve_stokes_flow("banded")
+        marked = tband.bf16_unstable(A.pattern)
+        jband.mark_bf16_unstable(JA.pattern)
+        ref_plan = jband.plan_for_csr(JA, real=True, chunk=1)
+    finally:
+        tband._BF16_UNSTABLE.discard(A.pattern)
+        jband._BF16_UNSTABLE.discard(id(JA.pattern))
+    assert marked and [p.band_dtype for p in plans] == ["bf16", "f32"]
+    assert plans[0].B == full.B == plans[1].B + 1
+    assert (plans[1].B, plans[1].nblk_pad, plans[1].band_dtype) == (
+        ref_plan.B, ref_plan.nblk_pad, ref_plan.band_dtype)
+    ref = spla.spsolve(A.to_scipy().tocsc(), b.numpy())
+    assert np.linalg.norm(x - ref) / np.linalg.norm(ref) <= 1e-9
+
+
+def test_config_loaders_match_jax():
+    """The production configuration's four TOML files through both
+    packages' loaders: the same geometry, boundary conditions and facet
+    markers; and one coordinate expression compiled alike."""
+    from dataclasses import asdict
+    from pathlib import Path
+
+    from lsafw_tpu import config as jconfig
+    from lsafw_tpu_torch import config as tconfig
+
+    root = Path(__file__).resolve().parents[1] / "config_files" / "2D" / "cylinder"
+    geo = tconfig.load_cylinder_flow_config(root / "geometry.toml")
+    assert asdict(geo) == asdict(jconfig.load_cylinder_flow_config(root / "geometry.toml"))
+    assert (geo.x_range, geo.y_range, geo.resolution) == ((-40.0, 120.0), (-40.0, 40.0), 1.25)
+    for name in ("bcs.toml", "bcs_perturbation.toml"):
+        got, ref = tconfig.load_bc_config(root / name), jconfig.load_bc_config(root / name)
+        assert [(c.marker, c.type, c.value, c.robin_alpha) for c in got] == [
+            (c.marker, c.type, c.value, c.robin_alpha) for c in ref]
+    pts = np.array([[-40.0, 3.0], [120.0, -7.0], [10.0, -40.0], [5.0, 40.0], [0.5, 0.0],
+                    [0.0, -0.5], [-40.0, -40.0]])
+    got = tconfig.load_facet_config(root / "facets.toml")(pts)
+    assert np.array_equal(got, jconfig.load_facet_config(root / "facets.toml")(pts))
+    assert got.tolist() == [1, 2, 3, 4, 5, 5, 1]
+    xy = np.random.default_rng(3).standard_normal((20, 2))
+    expr = ["4*y*(1 - y)", "sin(pi*x)"]
+    assert np.array_equal(tconfig._compile_bc_expr(expr, scalar=False)(xy),
+                          jconfig._compile_bc_expr(expr, scalar=False)(xy))
+
+
+def _block_pair(k: int = 20):
+    """(A, M) of 2x2 blocks [[a, -b], [b, a]] (eigenvalues a +- ib) and M = I,
+    on one pattern."""
+    a, b = -np.arange(1, k + 1) / 10, np.arange(1, k + 1, dtype=np.float64)
+    sA = sp.block_diag([[[x, -y], [y, x]] for x, y in zip(a, b)], format="csr")
+    sA.sort_indices()
+    pat = interop.csr_from_numpy(sA.indptr, sA.indices, sA.data, sA.shape, device="cpu").pattern
+    A = tsparse.CSRMatrix(pat, torch.as_tensor(sA.data))
+    return A, tsparse.CSRMatrix(pat, torch.as_tensor((sA.indices == pat.row_ids) * 1.0)), sA
+
+
+@pytest.mark.parametrize("scale", [3.0, 0.0])
+def test_weak_factor_kept_only_if_gcr_converges(scale, monkeypatch):
+    """A pivot-free factor whose inverse diagonal blocks are scaled by 3
+    contracts by 2 in one step (the reference's bound refuses it), but a
+    trial GCR solve reaches the tolerance at once: it is kept, with a cap
+    of four times the trial's iterations, and its applies are exact to the
+    tolerance.  Scaled by 0 it carries nothing: the trial fails and the
+    factor is refused."""
+    A, M, sA = _block_pair()
+    monkeypatch.setenv("LSAFW_PIVOT_MEM_GB", "0")
+    _small_plans(monkeypatch)
+    factor_auto = teigen.factor_auto
+
+    def scaled(*args, **kw):
+        lu, pivoted = factor_auto(*args, **kw)
+        return replace(lu, dinv=scale * lu.dinv), pivoted
+
+    monkeypatch.setattr(teigen, "factor_auto", scaled)
+    if scale == 0.0:
+        with pytest.raises(teigen.FactorUnusable, match="trial GCR solve"):
+            teigen.ShiftInvertOperator(A, M, TARGET)
+        return
+    op = teigen.ShiftInvertOperator(A, M, TARGET)
+    assert op.rho == pytest.approx(2.0, rel=1e-6) and op.trial_its is not None
+    assert 1 <= op.trial_its <= op._TRIAL_CAP and op.refine_its == 4 * op.trial_its
+    v = np.random.default_rng(12).standard_normal(A.shape[0]) + 0j
+    y = op.apply(torch.as_tensor(v)).numpy()
+    ref = spla.spsolve((sA - TARGET * sp.identity(A.shape[0])).tocsc(), v)
+    assert np.linalg.norm(y - ref) / np.linalg.norm(ref) <= 1e-9
