@@ -26,10 +26,11 @@ non-zero):
      type pair (f64 / complex128 into complex64, float32 x1 and x2, and
      back) on a random padded permutation at nb = 128 and at nb = 256,
      exact; S in every mode (real,
-     complex, shifted, shifted with M x) and both orders against its
-     plain version, relative error <= 1e-12 (``SPMV_REL_TOL``), on a
-     random matrix with empty rows, tiles of the most rows a tile holds
-     and a row longer than a tile;
+     complex, shifted, shifted with M x, and shifted with and without M x
+     on an f64 x at a real shift) and both orders against its plain
+     version, relative error <= 1e-12 (``SPMV_REL_TOL``), on a random
+     matrix with empty rows, tiles of the most rows a tile holds and a row
+     longer than a tile;
   3. this slice's main path, the reference's device path
      (``bench.py`` ``_pipeline``): the reduced cylinder (43,671
      Taylor-Hood DOFs) at Re = 47, ramped Newton baseflow on the banded
@@ -61,15 +62,17 @@ non-zero):
      of phase 3's last Jacobian with ``LSAFW_BAND_MEM_GB=0.3`` (a bf16
      band, K1/K2 pivot-free bf16 float32 with one column), GCR to 1e-10;
   4. S against its plain version on phase 3's (A, M) at sigma = 0.74j
-     in each mode and order (relative error <= 1e-12); G against its
+     (the real-shift modes at CN_SHIFT = 16, phase 7's) in each mode and
+     order (relative error <= 1e-12); G against its
      plain versions on the main path's own inputs, exact: the f64 CSR
      value refill (nnz indices), the complex128 flat gather, and the
      permute forms on the eigen stage's complex plan and the baseflow's
      real plan; K1/K2 in each mode and type against their plain versions
      on the main path's own factors (the eigen stage's pivoted factor,
      phase 3b's pivot-free one, a real pivoted and pivot-free factor
-     on the baseflow's plan, phase 3c's bf16 factors, and after phase 6
-     the 175k factors of phases 6, 6b and 6c), and the times (medians of CUDA-event
+     on the baseflow's plan, phase 3c's bf16 factors, after phase 6
+     the 175k factors of phases 6, 6b and 6c, and after phase 7b the 175k
+     transient's real pivoted factor), and the times (medians of CUDA-event
      timings: K1/K2 one call at a time, each band being larger than L2;
      G and S with the L2 cache evicted before each call, as the main
      path's band solves leave it) of every kernel beside its plain
@@ -116,13 +119,47 @@ non-zero):
      sigma within 1e-8 of phase 6's, K1/K2 pivot-free bf16 complex64 once
      per band solve, and the stage's peak device memory above its start
      at most 0.6 of phase 6's eigen stage.  Phase 4's K1/K2 checks and
-     times then run on the factors of phases 6, 6b and 6c.
+     times then run on the factors of phases 6, 6b and 6c;
+  7. (after phase 5, on phase 3's mesh) the non-modal toolbox of
+     ``examples/resolvent_gains.py`` and ``examples/transient_growth.py``:
+     the Re = 40 baseflow (ramped banded Newton, 4 steps, tol 1e-9) and
+     its (A, M) with the perturbation BCs; ``ResolventSolver(method=
+     "banded")``: the gain curve at omega = 0.3 and 1.2 (k = 1) and 0.75
+     (k = 2, whose leading gain is the curve's), ``resolvent_norm(
+     -0.05+0.75j)``;
+     ``TransientGrowthSolver(method="banded").solve(4, 32)``; each a
+     stage (counts zeroed before, read after): K1/K2 once per band solve
+     (pivoted complex64 in the resolvent stages; pivoted float32 x1
+     alone in the transient stage, no complex64 and no two-column
+     launch), G's permute-in and permute-out once each per band solve,
+     one original-order S launch per original-order matvec (the Cayley
+     right-hand side and each adjoint step's (A^T + s M^T) y included),
+     no flat complex128 G, no plan built but the direct operator's where
+     none was cached, and host LU raising; forcing and response energies
+     1 within 1e-8, the response residual ||(i omega M - A)(g q) - M f||
+     / ||M f|| <= 1e-8, each raw response C^-1 M f of energy norm the gain
+     within 1e-6, q(T)^T M q(T) = G within 1e-6 max(G, 1), forcings and
+     initial states zero on pressure and Dirichlet DOFs; then, with
+     ``method="lu"`` (asked for; six host LU factors, counted), the same
+     k = 2 solve and norm (gains within 1e-6, the norm within 1e-5 of the
+     banded answers) and, in place of a full host-LU gain solve (2,752
+     sequential host solves), the host-LU propagators on the banded
+     optimum q0: its energy at T (the host-LU gain operator's Rayleigh
+     quotient) within 1e-6 of G, its state at T and its gain-operator
+     image within 1e-6 of the banded ones;
+  7b. (after 6c, on phase 6's mesh, 175,491 DOFs) phase 7 at full width
+     without the sweep, the norm and the host LU: the Re = 40 baseflow,
+     the resolvent at omega = 0.75 (k = 1; the default plan's pivot-free
+     complex64 band) and G(4) with 32 steps, with phase 7's gates; then
+     phase 4's K1/K2 checks and times on the transient's real pivoted
+     factor (B = 17, 1,408 block rows).
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, one entry per kernel, mode, storage and type and per
 main-path factor (``launches``: phases 3, 3b, 3c, 6, 6b and 6c;
 ``launches_phase5``: the stages of phase 5; ``launches_phase6``: phases
-6 to 6c; modes no main path runs carry phase 2's random factors), and
+6 to 6c; ``launches_phase7``: the stages of phases 7 and 7b; modes no
+main path runs carry phase 2's random factors), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -809,16 +846,43 @@ def cylinder_case(device) -> dict:
                 seconds=time.time() - t0)
 
 
+_HOST_LU: dict = {}  # the port's host LU class, kept while forbid_host_lu() stubs it out
+
+
 def forbid_host_lu() -> None:
     """Make every host LU of the port raise: the device path must not use it."""
-    from lsafw_tpu_torch.solver import baseflow, direct, newton
+    from lsafw_tpu_torch import sensitivity
+    from lsafw_tpu_torch.solver import baseflow, direct, eigen, newton
 
     def no_host_lu(*args, **kw):
         raise RuntimeError("host LU called on the device path")
 
+    _HOST_LU.setdefault("SparseLU", direct.SparseLU)
     for mod, name in ((direct, "SparseLU"), (direct, "direct_solve"), (newton, "SparseLU"),
-                      (baseflow, "direct_solve")):
+                      (baseflow, "direct_solve"), (eigen, "SparseLU"), (sensitivity, "SparseLU")):
         setattr(mod, name, no_host_lu)
+
+
+@contextmanager
+def host_lu_counted():
+    """The host LU of the shift-invert operator's ``"lu"`` method, asked
+    for explicitly, while the block runs, counting its factorizations; it
+    raises again after the block."""
+    from lsafw_tpu_torch.solver import eigen
+
+    seen = {"host_lu": 0}
+
+    class Counted(_HOST_LU["SparseLU"]):
+        def __init__(self, *args, **kw):
+            seen["host_lu"] += 1
+            super().__init__(*args, **kw)
+
+    saved = eigen.SparseLU
+    eigen.SparseLU = Counted
+    try:
+        yield seen
+    finally:
+        eigen.SparseLU = saved
 
 
 def nonzero(launches: dict) -> dict:
@@ -1060,15 +1124,19 @@ def bf16_path(case, mp: dict, pf: dict) -> dict:
 
 
 S_KEYS = {"real": "spmv_real", "shifted": "spmv_shifted", "shifted_mass": "spmv_shifted",
-          "mass": "spmv_complex"}
+          "mass": "spmv_complex", "shifted_real": "spmv_shifted_real",
+          "shifted_real_mass": "spmv_shifted_real"}
+CN_SHIFT = 16.0  # the Crank-Nicolson shift 2/dt of phase 7's horizon (T = 4, 32 steps)
 
 
-def spmv_cases(cop, device, csrs: dict | None = None) -> dict:
+def spmv_cases(cop, device, csrs: dict | None = None, s_real: float = CN_SHIFT) -> dict:
     """S's modes in both orders on a shifted operator's storage, as
     ``(mode, order)`` -> (kernel call, plain call), on vectors made from a
     seed: real (A x, f64 x), shifted ((A - sigma M) x), shifted_mass (the
-    same and M x), mass (M x, complex128 x).  ``csrs`` replaces the
-    plan's operands in either order."""
+    same and M x), mass (M x, complex128 x), shifted_real and
+    shifted_real_mass ((A - s M) x on an f64 x at the real shift
+    ``s_real``, and M x).  ``csrs`` replaces the plan's operands in either
+    order."""
     import torch
     from lsafw_tpu_torch.ops import spmv_cuda as sc
 
@@ -1090,10 +1158,15 @@ def spmv_cases(cop, device, csrs: dict | None = None) -> dict:
             lambda c=c: sc.csr_spmv_plain(c, cop.vA, xc, cop.vM, s, mass=True))
         out[("mass", order)] = (lambda c=c: sc.csr_spmv(c, cop.vM, xc),
                                 lambda c=c: sc.csr_spmv_plain(c, cop.vM, xc))
+        for mode, mass in (("shifted_real", False), ("shifted_real_mass", True)):
+            out[(mode, order)] = (
+                lambda c=c, mass=mass: sc.csr_shifted_spmv(c, cop.vA, cop.vM, xr, s_real,
+                                                           mass=mass),
+                lambda c=c, mass=mass: sc.csr_spmv_plain(c, cop.vA, xr, cop.vM, s_real, mass))
     return out
 
 
-def spmv_library(A, M, sigma, device) -> dict:
+def spmv_library(A, M, sigma, device, s_real: float = CN_SHIFT) -> dict:
     """The cuSPARSE yardstick of each mode (the CSR pair in the original
     order, which is each original-order apply's own function), on the
     vectors of :func:`spmv_cases`."""
@@ -1107,7 +1180,9 @@ def spmv_library(A, M, sigma, device) -> dict:
     return {"real": lambda: spmv(A, xr),
             "shifted": lambda: spmv(A, xc) - sigma * spmv(M, xc),
             "shifted_mass": lambda: (lambda m: (spmv(A, xc) - sigma * m, m))(spmv(M, xc)),
-            "mass": lambda: spmv(M, xc)}
+            "mass": lambda: spmv(M, xc),
+            "shifted_real": lambda: spmv(A, xr) - s_real * spmv(M, xr),
+            "shifted_real_mass": lambda: (lambda m: (spmv(A, xr) - s_real * m, m))(spmv(M, xr))}
 
 
 def spmv_work(mode: str, order: str, n: int, nnz: int, ntiles: int) -> tuple[float, float]:
@@ -1118,7 +1193,9 @@ def spmv_work(mode: str, order: str, n: int, nnz: int, ntiles: int) -> tuple[flo
     return {"real": (structure + nnz * 8 + 2 * n * 8, 2 * nnz),
             "shifted": (structure + 2 * nnz * 8 + 2 * n * 16, 8 * nnz + 8 * n),
             "shifted_mass": (structure + 2 * nnz * 8 + 3 * n * 16, 8 * nnz + 8 * n),
-            "mass": (structure + nnz * 8 + 2 * n * 16, 4 * nnz)}[mode]
+            "mass": (structure + nnz * 8 + 2 * n * 16, 4 * nnz),
+            "shifted_real": (structure + 2 * nnz * 8 + 2 * n * 8, 4 * nnz + 2 * n),
+            "shifted_real_mass": (structure + 2 * nnz * 8 + 3 * n * 8, 4 * nnz + 2 * n)}[mode]
 
 
 def check_spmv(cases: dict, what: str) -> dict:
@@ -1580,6 +1657,232 @@ def production_rerun(p6: dict, phase: str, key: str, **switches: str) -> dict:
     return dict(op=op, sigma=sigma, stage=st, launches=st["launches"])
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the non-modal toolbox (resolvent gains, transient growth)
+# ---------------------------------------------------------------------------
+
+NONMODAL_RE = 40.0  # examples/resolvent_gains.py, examples/transient_growth.py
+OMEGAS = (0.3, 1.2)  # with OMEGA_CHECK's solve, the gain curve at 0.3, 0.75, 1.2
+OMEGA_CHECK, Z_CHECK = 0.75, -0.05 + 0.75j
+HORIZON, CN_STEPS = 4.0, 32  # dt = 1/8: the real shift 2/dt = CN_SHIFT
+
+
+def gate_stage(what: str, st: dict, key: str, cls: str, types: str, builds: int = 0) -> None:
+    """One stage's band solves all of factor class ``cls``, K1/K2 in mode
+    ``key`` once per band solve and nothing else, G's permute forms in
+    ``types`` once each per band solve, one original-order S launch per
+    original-order matvec, no flat complex128 G, and at most ``builds``
+    plans built of each kind (the direct operator's, where the pattern had
+    none cached: the adjoint operator shares it)."""
+    n = st["solves"].get(cls, 0)
+    if set(st["solves"]) != {cls}:
+        raise RuntimeError(f"{what}: band solves {st['solves']}, expected {cls} alone")
+    gate_band_launches(what, st["launches"], key, n)
+    gate_permutes_and_spmv(what, st["launches"], types, n, st["matvecs"])
+    if any(v > builds for v in st["builds"].values()):
+        raise RuntimeError(f"{what} planned a pattern again: {st['builds']} (at most {builds} "
+                           f"each)")
+
+
+def log_operators(what: str, operators: dict) -> None:
+    for name, f in operators.items():
+        log(f"{what}: {name} factor {f['factor_s']:.3f} s, contraction "
+            f"{f['rho'] if f['rho'] is None else format(f['rho'], '.2e')}, trial GCR solve "
+            f"{f['trial_its']} iterations, refinement cap {f['refine_its']}, {f['applies']} "
+            f"applies, pivoted {f['pivoted']}, fused matvecs {f['fused']}")
+
+
+def recorded_responses(rs) -> list:
+    """Wrap the solver's raw response so that each raw response's energy
+    norm sqrt(q^H M q) is recorded (before ``solve`` normalises it)."""
+    raw: list = []
+    response = rs._response
+
+    def run(si1, f):
+        q = response(si1, f)
+        raw.append(float(np.sqrt(rs._energy(q))))
+        return q
+
+    rs._response = run
+    return raw
+
+
+def gate_resolvent_modes(what: str, modes, raw: list, A, M, mask, nu: int) -> None:
+    """Unit forcing and response energies (1e-8); the response solves
+    (i omega M - A)(g q) = M f (1e-8 relative); the raw response
+    C^-1 M f has the gain for its energy norm (1e-6 relative); the forcing
+    is zero on pressure and Dirichlet DOFs."""
+    import torch
+    from lsafw_tpu_torch.ops.sparse import spmv
+
+    dev = A.device
+    bad = torch.as_tensor(np.asarray(mask) | (np.arange(A.shape[0]) >= nu), device=dev)
+    for j, (f, q, g) in enumerate(zip(modes.forcings, modes.responses, modes.gains)):
+        f, q = (torch.as_tensor(v, device=dev) for v in (f, q))
+        Mf, Mq = spmv(M, f), spmv(M, q)
+        ef, eq = float(torch.vdot(f, Mf).real), float(torch.vdot(q, Mq).real)
+        res = float(torch.linalg.vector_norm(1j * modes.omega * g * Mq - g * spmv(A, q) - Mf)
+                    / torch.linalg.vector_norm(Mf))
+        graw = raw[j]
+        log(f"{what}: mode {j}: gain {g:.10f}, energies f {ef:.12f} q {eq:.12f}, response "
+            f"residual {res:.2e}, raw response energy norm {graw:.10f} (rel {abs(graw - g) / g:.1e})")
+        checks = [(abs(ef - 1) <= 1e-8 and abs(eq - 1) <= 1e-8, "energies not 1 within 1e-8"),
+                  (res <= 1e-8, f"response residual {res:.2e} > 1e-8"),
+                  (abs(graw - g) <= 1e-6 * g, f"raw response norm {graw} is not the gain {g}"),
+                  (not bool(f[bad].abs().max() > 0), "forcing on pressure or Dirichlet DOFs")]
+        for ok, msg in checks:
+            if not ok:
+                raise RuntimeError(f"{what}: mode {j}: {msg}")
+
+
+def gate_growth_modes(what: str, res, M, mask, nu: int) -> None:
+    """Unit initial energy (1e-8), q(T)^T M q(T) = G within 1e-6 max(G, 1),
+    the initial state zero on pressure and Dirichlet DOFs."""
+    import torch
+    from lsafw_tpu_torch.ops.sparse import spmv
+
+    dev = M.device
+    bad = np.asarray(mask) | (np.arange(M.shape[0]) >= nu)
+    for j, (q0, qT, g) in enumerate(zip(res.initials, res.finals, res.gains)):
+        q0t, qTt = (torch.as_tensor(v, device=dev) for v in (q0, qT))
+        e0, eT = float(q0t @ spmv(M, q0t)), float(qTt @ spmv(M, qTt))
+        log(f"{what}: mode {j}: G = {g:.10f}, initial energy {e0:.12f}, final energy {eT:.10f} "
+            f"(rel {abs(eT - g) / max(g, 1):.1e})")
+        if not (abs(e0 - 1) <= 1e-8 and abs(eT - g) <= 1e-6 * max(g, 1.0)
+                and not np.abs(q0[bad]).max() > 0):
+            raise RuntimeError(f"{what}: mode {j}: energies {e0}, {eT} against G = {g}, or an "
+                               f"initial state on pressure or Dirichlet DOFs")
+
+
+def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = False,
+                  cross_check: bool = False, time_factors: list | None = None) -> dict:
+    """Phase 7 / 7b: the Re = 40 baseflow (ramped banded Newton, 4 steps,
+    tol 1e-9) and (A, M) on ``case``; ``ResolventSolver(method="banded")``
+    over ``sweep`` (k = 1), at OMEGA_CHECK with ``k`` gains and, with
+    ``norm``, its ``resolvent_norm`` at Z_CHECK;
+    ``TransientGrowthSolver(method="banded").solve(HORIZON, CN_STEPS)``;
+    each a stage, gated; with ``cross_check`` the same (k = 2 and the norm)
+    on the host LU (asked for, counted), held to the banded answers.
+    ``time_factors`` receives the transient's forward factor."""
+    import torch
+    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.resolvent import ResolventSolver
+    from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
+    from lsafw_tpu_torch.transient import TransientGrowthSolver
+
+    what = f"phase {phase}"
+    t_phase = time.time()
+    stages: dict = {}
+    spaces = case["spaces"]
+    nu, mask = spaces.num_velocity_dofs, np.asarray(case["bcs_pert"].dirichlet_mask)
+    with plain_loops_forbidden():
+        with stage("baseflow", stages):
+            solver = BaseFlowSolver(case["ctx"], case["mesh"], case["bcs_base"], re=NONMODAL_RE)
+            w = solver.solve(ramp=True, steps=4, tol=1e-9, max_it=40, linear_solver="banded")
+        with stage("assemble", stages):
+            A, M = LinearizedNavierStokesAssembler(w, case["ctx"], NONMODAL_RE, case["bcs_pert"],
+                                                   case["mesh"]).assemble_eigensystem()
+        if not all(r.converged for r in solver.newton_results):
+            raise RuntimeError(f"{what}: a Newton solve of the Re = 40 ramp did not converge")
+        rs = ResolventSolver(A, M, nu, mask, method="banded", device=dev)
+        figures: dict = {}
+        curve = []
+        for om in sweep:
+            with stage(f"resolvent omega={om}", stages):
+                curve.append(rs.solve(om, k=1))
+            figures[f"resolvent omega={om}"] = (rs.operators, rs.applies)
+        raw = recorded_responses(rs)
+        with stage(f"resolvent omega={OMEGA_CHECK} k={k}", stages):
+            modes = rs.solve(OMEGA_CHECK, k=k)
+        figures[f"resolvent omega={OMEGA_CHECK} k={k}"] = (rs.operators, rs.applies)
+        rnorm = None
+        if norm:
+            with stage(f"resolvent norm z={Z_CHECK}", stages):
+                rnorm = rs.resolvent_norm(Z_CHECK, tol=1e-9)
+            figures[f"resolvent norm z={Z_CHECK}"] = (rs.operators, rs.applies)
+        ts = TransientGrowthSolver(A, M, nu, mask, method="banded", device=dev)
+        with stage(f"transient T={HORIZON:g}", stages):
+            growth = ts.solve(HORIZON, CN_STEPS)
+        figures[f"transient T={HORIZON:g}"] = (ts.operators, ts.applies)
+        fw, ad, s = ts._propagators(HORIZON / CN_STEPS)
+        if time_factors is not None:
+            time_factors.append(fw.device_op.blu)
+        if cross_check:  # one T apply of the optimal initial state, for the host LU's
+            q0 = torch.as_tensor(growth.initials[0], device=A.device)
+            z_bd = ts._march_adjoint(ad, s, ts._mass(ts._march(fw, q0, CN_STEPS)), CN_STEPS)
+    del ts, fw, ad  # the transient's two factors
+    for name, st in stages.items():
+        log_stage(f"{what}: {name}", st)
+        if name in figures:
+            ops, applies = figures[name]
+            log(f"{what}: {name}: {applies} T applies")
+            log_operators(f"{what}: {name}", ops)
+    curve = sorted(curve + [modes], key=lambda m: m.omega)
+    log(f"{what}: {spaces.num_dofs} DOFs, Re = {NONMODAL_RE:g}: Newton iterations "
+        f"{[r.iterations for r in solver.newton_results]}; gain curve " + ", ".join(
+            f"sigma_1({m.omega:g}) = {m.gains[0]:.10f}" for m in curve))
+    log(f"{what}: omega = {OMEGA_CHECK}: gains {modes.gains.tolist()}; ||R({Z_CHECK})||_E = "
+        f"{rnorm}; transient G({HORIZON:g}) = {growth.gains[0]:.10f} ({CN_STEPS} CN steps)")
+    gate_resolvent_modes(f"{what} resolvent", modes, raw, A, M, mask, nu)
+    gate_growth_modes(f"{what} transient", growth, M, mask, nu)
+    first = True
+    for name, st in stages.items():
+        if name.startswith("resolvent"):
+            ops = figures[name][0]
+            pivoted = ops["direct"]["pivoted"]
+            if ops["adjoint"]["pivoted"] != pivoted or not all(o["fused"] for o in ops.values()):
+                raise RuntimeError(f"{what} {name}: operators {ops}")
+            gate_stage(f"{what} {name}", st, "pivoted.c64" if pivoted else "pivot_free.c64",
+                       "PivotedBandedLU" if pivoted else "BandedLU", "c128.c64", int(first))
+            first = False
+        elif name.startswith("transient"):
+            ops = figures[name][0]
+            if not all(o["pivoted"] and o["fused"] for o in ops.values()):
+                raise RuntimeError(f"{what} {name}: the factors are not real pivoted with fused "
+                                   f"matvecs: {ops}")
+            gate_stage(f"{what} {name}", st, "pivoted.f32x1", "RealPivotedBandedLU", "f64.f32x1")
+            if not st["launches"]["spmv_shifted_real.original"]:
+                raise RuntimeError(f"{what} {name}: no real-shift S launch")
+    out = dict(curve=curve, modes=modes, rnorm=rnorm, growth=growth, stages=stages,
+               launches={k: sum(st["launches"][k] for st in stages.values()) for k in counts()})
+    if cross_check:  # needs k = 2 and the norm
+        # The resolvent's gains and norm are solved again on the host LU.  The
+        # transient's full gain solve on it would take 2,752 sequential host
+        # solves: instead the host-LU propagators march the banded optimum q0,
+        # whose energy at T is the Rayleigh quotient of the host-LU gain
+        # operator (equal to G to second order in q0's error), and apply the
+        # gain operator to q0, held vector by vector.
+        t0 = time.time()
+        with host_lu_counted() as hl:
+            rs_lu = ResolventSolver(A, M, nu, mask, method="lu", device=dev)
+            g_lu = rs_lu.solve(OMEGA_CHECK, k=2).gains
+            n_lu = rs_lu.resolvent_norm(Z_CHECK, tol=1e-9)
+            ts_lu = TransientGrowthSolver(A, M, nu, mask, method="lu", device=dev)
+            fw_lu, ad_lu, s = ts_lu._propagators(HORIZON / CN_STEPS)
+            qT = ts_lu._march(fw_lu, q0, CN_STEPS)
+            z_lu = ts_lu._march_adjoint(ad_lu, s, ts_lu._mass(qT), CN_STEPS)
+            G_lu = float(qT @ ts_lu._mass(qT))
+        rel_g = float(np.abs(modes.gains - g_lu).max() / np.abs(g_lu).max())
+        rel_n, rel_G = abs(rnorm - n_lu) / n_lu, abs(growth.gains[0] - G_lu) / G_lu
+        rel_z = float(torch.linalg.vector_norm(z_lu - z_bd) / torch.linalg.vector_norm(z_bd))
+        rel_q = float(np.abs(qT.cpu().numpy() - growth.finals[0]).max()
+                      / np.abs(growth.finals[0]).max())
+        log(f"{what}: the host LU, asked for ({hl['host_lu']} host LU factors, "
+            f"{time.time() - t0:.2f} s): gains {g_lu.tolist()} (rel {rel_g:.1e}), norm {n_lu:.10f} "
+            f"(rel {rel_n:.1e}); the banded optimum's energy at T under the host-LU propagator "
+            f"{G_lu:.10f} (rel {rel_G:.1e}), its state at T rel {rel_q:.1e}, the gain "
+            f"operator's image rel {rel_z:.1e}")
+        if hl["host_lu"] != 6 or not (rel_g <= 1e-6 and rel_n <= 1e-5 and rel_G <= 1e-6
+                                      and rel_q <= 1e-6 and rel_z <= 1e-6):
+            raise RuntimeError(f"{what}: banded against host LU: gains rel {rel_g:.1e} (1e-6), "
+                               f"norm rel {rel_n:.1e} (1e-5), G rel {rel_G:.1e}, q(T) rel "
+                               f"{rel_q:.1e}, T q0 rel {rel_z:.1e} (1e-6 each), {hl['host_lu']} host "
+                               f"LU factors (6)")
+    out["seconds"] = time.time() - t_phase
+    log(f"{what}: {out['seconds']:.1f} s in all")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1731,21 +2034,34 @@ def main() -> int:
             log(f"phase 4: G permute-{form} {types}: the op sequence it replaces: cold "
                 f"{cold_ms(seq):.4f} ms, with its host overhead {cuda_ms(seq, 20):.4f} ms")
     s_lines = {"real": "lsafw_tpu/ops/bcsr.py:388", "shifted": "lsafw_tpu/ops/bcsr.py:615",
-               "shifted_mass": "lsafw_tpu/ops/bcsr.py:587", "mass": "lsafw_tpu/ops/bcsr.py:622"}
+               "shifted_mass": "lsafw_tpu/ops/bcsr.py:587", "mass": "lsafw_tpu/ops/bcsr.py:622",
+               "shifted_real": "lsafw_tpu/ops/bcsr.py:615",
+               "shifted_real_mass": "lsafw_tpu/ops/bcsr.py:587"}
     o_lines = {"real": "lsafw_tpu/ops/bcsr.py:446", "shifted": "lsafw_tpu/ops/bcsr.py:638",
-               "shifted_mass": "lsafw_tpu/ops/bcsr.py:638", "mass": "lsafw_tpu/ops/bcsr.py:646"}
+               "shifted_mass": "lsafw_tpu/ops/bcsr.py:638", "mass": "lsafw_tpu/ops/bcsr.py:646",
+               "shifted_real": "lsafw_tpu/ops/bcsr.py:638",
+               "shifted_real_mass": "lsafw_tpu/ops/bcsr.py:638"}
+    s_names = {"real": "real", "shifted": "shifted", "shifted_mass": "shifted+mass",
+               "mass": "mass", "shifted_real": f"shifted, f64 x at the real shift {CN_SHIFT:g}",
+               "shifted_real_mass": f"shifted+mass, f64 x at the real shift {CN_SHIFT:g}"}
     libs = spmv_library(mp["A"], mp["M"], cop.sigma, dev)
     ntiles = cop.plan.tile_row.size - 1
     for (mode, order), (kern, plain) in cases.items():
         bound_ms, bound_by = bound(*spmv_work(mode, order, cop.plan.n, cop.plan.nnz, ntiles),
                                    FP64_FLOPS_PER_S)
         key = S_KEYS[mode] + ("" if order == "permuted" else ".original")
-        on_main = order == "original" and mode != "shifted_mass"  # never both outputs at once
-        e = dict(name=f"csr_tiled_spmv_kernel (S), {mode.replace('_', '+')}, {order} order"
-                      f"{'' if on_main else ' (not on the main path)'}", route="cuda", source=src,
+        # the complex shifted operator never asks for both outputs; the real one
+        # does (the Cayley right-hand side of phase 7), and a mode with M x counts
+        # its launches under the same mode without it (one kernel, one key)
+        on_main = order == "original" and mode != "shifted_mass"
+        paired = mode in ("shifted_mass", "shifted_real_mass")
+        note = (" (launches counted with the mode without M x)" if paired and on_main else
+                "" if on_main else " (not on the main path)")
+        e = dict(name=f"csr_tiled_spmv_kernel (S), {s_names[mode]}, {order} order{note}",
+                 route="cuda", source=src,
                  replaces=(s_lines if order == "permuted" else o_lines)[mode],
-                 launches=launches[key] if mode != "shifted_mass" else 0,
-                 _key=key if mode != "shifted_mass" else None,
+                 launches=0 if paired else launches[key],
+                 _key=None if paired else key,
                  max_abs_err=s_errs[(mode, order)], ms=cold_ms(kern), plain_ms=cold_ms(plain),
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=cold_ms(libs[mode]))
         kernels.append(e)
@@ -1776,7 +2092,10 @@ def main() -> int:
 
     p5 = sensitivity_path(case, mp)
     mp_launches, pf_launches, p3c_launches = mp["launches"], pf["launches"], p3c["launches"]
-    del case, mp, pf, p3c, cop, cases, mg, p5["stages"]
+    del mp, pf, p3c, cop, cases, mg, p5["stages"]
+    torch.cuda.empty_cache()
+    p7 = nonmodal_path(case, "7", dev, sweep=OMEGAS, k=2, norm=True, cross_check=True)
+    del case, p7["stages"]
     torch.cuda.empty_cache()
 
     p6 = production_path(dev)
@@ -1800,22 +2119,35 @@ def main() -> int:
     kernels += band_kernels([(", 175k phase 6", p6["op"].device_op.blu),
                              (", 175k phase 6b", p6b["op"].device_op.blu),
                              (", 175k phase 6c", p6c["op"].device_op.blu)], errs, dev)
-    timed = {e["_key"] for e in kernels}
-    kernels += [e for key, e in random_entries.items() if key not in timed]
     mains = {"3": mp_launches, "3b": pf_launches, "3c": p3c_launches, "6": p6["launches"],
              "6b": p6b["launches"], "6c": p6c["launches"]}
+    case6 = p6["case"]
+    del p6, p6b, p6c
+    torch.cuda.empty_cache()
+
+    transient_factors: list = []
+    p7b = nonmodal_path(case6, "7b", dev, time_factors=transient_factors)
+    del case6, p7b["stages"]
+    # phase 4, continued: K1/K2 pivoted f32 on the 175k transient's real factor
+    kernels += band_kernels([(", 175k phase 7b", transient_factors[0])], errs, dev)
+    del transient_factors
+    log(f"phase 7: phases 7 and 7b took {p7['seconds'] + p7b['seconds']:.1f} s (budget 150 s)")
+    timed = {e["_key"] for e in kernels}
+    kernels += [e for key, e in random_entries.items() if key not in timed]
     for e in kernels:
         key = e.pop("_key")
         if key:
             e["launches"] = sum(m[key] for m in mains.values())
         e["launches_phase5"] = p5["launches"][key] if key else 0
         e["launches_phase6"] = sum(mains[ph][key] for ph in ("6", "6b", "6c")) if key else 0
+        e["launches_phase7"] = p7["launches"][key] + p7b["launches"][key] if key else 0
     for e in kernels:
         log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
             f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
             f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
             f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound, {e['launches']} launches "
-            f"({e['launches_phase5']} in phase 5, {e['launches_phase6']} in phase 6)")
+            f"({e['launches_phase5']} in phase 5, {e['launches_phase6']} in phase 6, "
+            f"{e['launches_phase7']} in phase 7)")
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
 
     log(name_power)

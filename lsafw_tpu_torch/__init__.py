@@ -10,8 +10,13 @@ within ``LSAFW_PIVOT_MEM_GB``, else pivot-free) with f64 refinement.
 Hand-written CUDA kernels carry every band substitution, pivoted and
 pivot-free (``csrc/band_subst.cu``), and the refinement matvecs and the
 permutations into and out of the band's order (``csrc/spmv_gather.cu``).
-It imports nothing of the JAX package.  ``solver/direct.py`` keeps host
-SuperLU for ``linear_solver="lu"``.
+The same kernels carry the adjoint sensitivity (``sensitivity``) and
+the non-modal toolbox: resolvent gains and pseudospectra
+(``resolvent``) and transient growth by Crank-Nicolson (``transient``,
+the Cayley transform on a real factor).  It imports nothing of the JAX
+package.  ``solver/direct.py`` keeps host SuperLU for
+``linear_solver="lu"`` and the shift-invert ``method="lu"``, which run
+only when asked for.
 
 Entry points take ``device=`` and default to ``"cuda"``; they run on
 the CPU only when the caller passes ``device="cpu"``.

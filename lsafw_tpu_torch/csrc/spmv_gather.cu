@@ -48,7 +48,9 @@
 //   vm == nullptr:   y = A x                       (Newton J x; M x alone)
 //   vm != nullptr:   y = (A - sigma M) x, and ym = M x where ym != nullptr
 // x is f64 or interleaved complex128; sums are f64; sigma is a kernel
-// argument, so a sigma sweep refills nothing.  The original-order apply
+// argument, so a sigma sweep refills nothing.  An f64 x takes a real sigma
+// (the real-shift refinement and adjoint steps of the Crank-Nicolson
+// propagators, lsafw_tpu/transient.py :91-180).  The original-order apply
 // folds the permutation in: col holds the original column ids and
 // out_idx = perm, so it reads x and writes y[perm[r]] in the original
 // order in one launch; the permuted apply has col in permuted ids and

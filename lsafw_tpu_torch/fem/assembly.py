@@ -122,9 +122,10 @@ class AssemblyContext:
 @dataclass(eq=False)
 class SpaceContext:
     """Assembly context of a single scalar or blocked-vector space on
-    simplices (e.g. the P1 pressure space of an L2 projection): the
-    ``phi_u``/``M0`` names of :class:`AssemblyContext` hold this space's
-    basis, so the scalar element kernels take either context."""
+    simplices (e.g. the P1 pressure space of an L2 projection, the
+    membrane's P2 space): the ``phi_u``/``M0``/``K0``/``metric`` names of
+    :class:`AssemblyContext` hold this space's basis and geometry, so the
+    scalar element kernels take either context."""
 
     rule: QuadratureRule
     space: FunctionSpace
@@ -132,9 +133,13 @@ class SpaceContext:
     device: torch.device
     w: torch.Tensor  # (nq,)
     phi_u: torch.Tensor  # (nq, ndofs_el)
+    dphi_u: torch.Tensor  # (nq, ndofs_el, tdim)
     detJ: torch.Tensor  # (nc,)
+    Jinv: torch.Tensor  # (nc, tdim, gdim)
     cell_dofs: torch.Tensor  # (nc, ndofs_el * bs) int64
     M0: torch.Tensor  # (ndofs_el, ndofs_el)
+    K0: torch.Tensor  # (tdim, tdim, ndofs_el, ndofs_el)
+    metric: torch.Tensor  # (nc, tdim, tdim)
 
     @classmethod
     def build(cls, space: FunctionSpace, quad_degree: int | None = None, *,
@@ -143,18 +148,21 @@ class SpaceContext:
         mesh = space.mesh
         rule = quadrature_rule(mesh.cell_type, quad_degree or 2 * space.element.degree)
         tab = space.element.tabulate(rule.points)
-        detJ, _ = affine_geometry(mesh)
+        detJ, Jinv = affine_geometry(mesh)
         pattern = build_sparsity(space.cell_dofs, shape=(space.num_dofs, space.num_dofs))
 
         def f64(a):
             return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)
 
-        w, phi = f64(rule.weights), f64(tab.phi)
+        w, phi, dphi = f64(rule.weights), f64(tab.phi), f64(tab.grad)
+        detJ_t, Jinv_t = f64(detJ), f64(Jinv)
         return cls(
             rule=rule, space=space, pattern=pattern, device=device, w=w, phi_u=phi,
-            detJ=f64(detJ),
+            dphi_u=dphi, detJ=detJ_t, Jinv=Jinv_t,
             cell_dofs=torch.as_tensor(np.asarray(space.cell_dofs, dtype=np.int64), device=device),
             M0=torch.einsum("q,qi,qj->ij", w, phi, phi),
+            K0=torch.einsum("q,qit,qjs->tsij", w, dphi, dphi),
+            metric=detJ_t[:, None, None] * torch.einsum("ctd,csd->cts", Jinv_t, Jinv_t),
         )
 
     def scatter(self, element_mats: torch.Tensor) -> CSRMatrix:
@@ -178,7 +186,7 @@ def mass_scalar(ctx: AssemblyContext | SpaceContext) -> torch.Tensor:
     return ctx.detJ[:, None, None] * ctx.M0[None]
 
 
-def stiffness_scalar(ctx: AssemblyContext) -> torch.Tensor:
+def stiffness_scalar(ctx: AssemblyContext | SpaceContext) -> torch.Tensor:
     """(nc, nu_el, nu_el) element Laplacian: metric . K0."""
     return torch.einsum("cts,tsij->cij", ctx.metric, ctx.K0)
 

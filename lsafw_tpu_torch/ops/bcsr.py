@@ -180,8 +180,10 @@ class BCSRShiftedOp:
         return cls(_values(plan, A.data), _values(plan, M.data), complex(sigma), plan)
 
     def _apply(self, order: str, x: torch.Tensor, mass: bool):
+        if x.is_complex() or self.sigma.imag != 0.0:  # an f64 x stays f64 at a real sigma
+            x = x.to(torch.complex128)
         return spmv_cuda.csr_shifted_spmv(self.plan.on(self.vA.device, order), self.vA, self.vM,
-                                          x.to(torch.complex128), self.sigma, mass=mass)
+                                          x, self.sigma, mass=mass)
 
     def _mass(self, order: str, x: torch.Tensor) -> torch.Tensor:
         return spmv_cuda.csr_spmv(self.plan.on(self.vM.device, order), self.vM, x)
@@ -197,7 +199,7 @@ class BCSRShiftedOp:
 
     def matvec_pair(self, x: torch.Tensor, *, mass: bool = False):
         """(A - sigma M) x in the original order (and M x when ``mass``), in
-        one S launch."""
+        one S launch; an f64 x at a real sigma stays f64."""
         return self._apply("original", x, mass)
 
     def mass_pair(self, x: torch.Tensor) -> torch.Tensor:

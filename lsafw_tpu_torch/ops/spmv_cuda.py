@@ -18,12 +18,15 @@ kernel launches:
   vector's type (``f64``, ``c128``) and the band-order type (``c64``;
   ``f32x1``, ``f32x2``: one or two real columns, the kinds of
   :mod:`~lsafw_tpu_torch.solver.band_cuda`), as listed in ``PERMUTES``;
-* ``spmv_real``, ``spmv_complex``, ``spmv_shifted``: S on an f64 x (one
-  matrix, Newton's J x), on a complex128 x (one matrix: the shift-invert
-  right-hand side M x) and fused (A - sigma M) x (with M x in the same
-  pass where asked), in permuted coordinates; the same keys with
-  ``.original`` count the original-order applies, which take x and
-  return y in the original order in the same one launch.
+* ``spmv_real``, ``spmv_complex``, ``spmv_shifted``,
+  ``spmv_shifted_real``: S on an f64 x (one matrix, Newton's J x), on a
+  complex128 x (one matrix: the shift-invert right-hand side M x), fused
+  (A - sigma M) x on a complex128 x, and fused (A - sigma M) x on an f64
+  x with a real sigma (the real-shift solves of the Crank-Nicolson
+  propagators), each with M x in the same pass where asked, in permuted
+  coordinates; the same keys with ``.original`` count the original-order
+  applies, which take x and return y in the original order in the same
+  one launch.
 
 S's operands are a :class:`TiledCSR` (row pointers, columns, the tile
 plan of :func:`plan_tiles`, the output permutation, the value refill's
@@ -48,7 +51,7 @@ from lsafw_tpu_torch.utils.cuda_build import CSRC, compile_library, raise_on, st
 
 PERMUTES = {"in": ("c128.c64", "f64.c64", "f64.f32x1", "c128.f32x2"),
             "out": ("c64.c128", "c64.f64", "f32x1.f64", "f32x2.c128")}
-SPMV_KEYS = ("spmv_real", "spmv_complex", "spmv_shifted")
+SPMV_KEYS = ("spmv_real", "spmv_complex", "spmv_shifted", "spmv_shifted_real")
 LAUNCHES = {"gather_f32": 0, "gather_f64": 0, "gather_c128": 0, "gather_two_pass": 0,
             **{f"permute_{d}.{t}": 0 for d, types in PERMUTES.items() for t in types},
             **{m + o: 0 for m in SPMV_KEYS for o in ("", ".original")}}
@@ -424,16 +427,17 @@ def csr_spmv(csr: TiledCSR, vals, x):
 
 
 def csr_shifted_spmv(csr: TiledCSR, va, vm, x, sigma: complex, *, mass: bool = False):
-    """S, fused pair: (A - sigma M) x for a complex128 x, and M x from the
-    same pass when ``mass`` (then a tuple)."""
+    """S, fused pair: (A - sigma M) x for a complex128 x, or for an f64 x
+    with a real sigma (then f64 out), and M x from the same pass when
+    ``mass`` (then a tuple)."""
     sigma = complex(sigma)
+    if not x.is_complex() and sigma.imag != 0.0:
+        raise TypeError("the shifted apply on an f64 x takes a real sigma")
     if not x.is_cuda:
-        return csr_spmv_plain(csr, va, x, vm, sigma, mass)
-    if not x.is_complex():
-        raise TypeError("the shifted apply takes a complex128 x")
+        return csr_spmv_plain(csr, va, x, vm, sigma if x.is_complex() else sigma.real, mass)
     _check_spmv(csr, va, vm, x)
     y, ym = _launch(csr, va, vm, x, sigma, mass)
-    _count("spmv_shifted", csr)
+    _count("spmv_shifted" if x.is_complex() else "spmv_shifted_real", csr)
     return (y, ym) if mass else y
 
 

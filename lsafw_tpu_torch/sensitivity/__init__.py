@@ -18,17 +18,18 @@ an f64 einsum there, returned as a Python scalar.
 
 Two choices differ from the reference:
 
-* ``si_method``: the port runs ``"banded"``, the device shift-invert
+* ``si_method``: the default is ``"banded"``, the device shift-invert
   path (band factor and f64 refinement, through the CUDA kernels on the
-  card), and it is the default.  The reference's default ``"lu"`` (a
-  host complex SuperLU) is not ported and raises ``NotImplementedError``,
-  as the port's ``ShiftInvertOperator`` does.
-* The du/dRe solve ``J s = r`` runs on the device through the banded
-  route of the Newton steps (``solver/newton.py`` ``banded_solve``: J's
-  cached real band plan, the real pivoted factor and ``_banded_mr`` GCR),
-  to ``tol`` where given, else ``tol_baseflow``; the reference solves it
-  with a host ``SparseLU`` and ignores ``tol``.  A solve that misses its
-  tolerance raises.
+  card).  The reference's default ``"lu"`` (a host SuperLU of the
+  shifted operator, and a host ``SparseLU`` of J for du/dRe) runs when it
+  is asked for.
+* With ``"banded"`` the du/dRe solve ``J s = r`` runs on the device
+  through the banded route of the Newton steps (``solver/newton.py``
+  ``banded_solve``: J's cached real band plan, the real pivoted factor
+  and ``_banded_mr`` GCR), to ``tol`` where given, else
+  ``tol_baseflow``; the reference solves it with a host ``SparseLU`` and
+  ignores ``tol``, as ``"lu"`` does here.  A banded solve that misses
+  its tolerance raises.
 
 A target on an exact eigenvalue (the usual call, target = sigma) makes
 the band factor at the target singular to working precision; the
@@ -53,6 +54,7 @@ from lsafw_tpu_torch.models.navier_stokes import (
 )
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv, transpose_pair
 from lsafw_tpu_torch.solver.band import plan_for_csr
+from lsafw_tpu_torch.solver.direct import SparseLU
 from lsafw_tpu_torch.solver.eigen import EigenSolver, EigensolverConfig, STType
 from lsafw_tpu_torch.solver.linear import SolveResult, cg
 from lsafw_tpu_torch.solver.newton import banded_solve, new_stats
@@ -156,9 +158,9 @@ class EigenSensitivitySolver:
         device = resolve_device(device)
         if device.type != ctx.device.type:
             raise ValueError(f"device {device} is not the assembly context's {ctx.device}")
-        if si_method != "banded":
+        if si_method not in ("banded", "lu"):
             raise NotImplementedError(
-                f"si_method={si_method!r}: only the device path 'banded' is ported")
+                f"si_method={si_method!r}: the ported methods are 'banded' and 'lu'")
         self._ctx = ctx
         self._mesh = mesh
         self._bcs = bcs
@@ -198,8 +200,7 @@ class EigenSensitivitySolver:
         if not pairs:
             raise RuntimeError(f"No eigenpairs returned by the {stage} eigensolver.")
         op = es.operator
-        self.operators[stage] = dict(factor_s=op.factor_seconds, rho=op.rho, applies=op.applies,
-                                     pivoted=op.pivoted, fused=op.device_op.Cop is not None)
+        self.operators[stage] = op.figures()
         return pairs
 
     def _cvec(self, x) -> torch.Tensor:
@@ -261,6 +262,13 @@ class EigenSensitivitySolver:
 
     def compute_baseflow_sensitivity(self, tol: float | None = None) -> torch.Tensor:
         J, rhs = self.baseflow_sensitivity_system()
+        if self._si_method == "lu":
+            logger.info("Solving baseflow sensitivity linear system (steady Jacobian, host LU).")
+            x = torch.as_tensor(SparseLU(J).solve(rhs.cpu().numpy()), device=rhs.device)
+            r = float(torch.linalg.vector_norm(spmv(J, x) - rhs) / torch.linalg.vector_norm(rhs))
+            self.baseflow_solve = SolveResult(x, 1, r, True)
+            self._baseflow_sens = x
+            return x
         tol = tol if tol is not None else self._tol_baseflow
         logger.info("Solving baseflow sensitivity linear system (steady Jacobian, banded).")
         res = banded_solve(J, rhs, plan_for_csr(J, real=True), tol=tol, stats=self.stats)

@@ -23,6 +23,10 @@ class SparseLU:
         """Solve A x = b (host arrays; accepts (n,) or (n, k))."""
         return self._lu.solve(np.asarray(b, dtype=self.dtype))
 
+    def solve_t(self, b: np.ndarray) -> np.ndarray:
+        """Solve A^T x = b."""
+        return self._lu.solve(np.asarray(b, dtype=self.dtype), trans="T")
+
 
 def direct_solve(A: CSRMatrix | sp.spmatrix, b) -> np.ndarray:
     """One-shot direct LU solve."""

@@ -1,19 +1,24 @@
-"""Krylov-Schur eigensolver with a shift-invert spectral transform.
+"""Krylov-Schur eigensolver with the shift-invert and Cayley spectral
+transforms.
 
 The Krylov basis lives on the device as a complex128 (ncv+1, n)
 tensor; orthogonalization is CGS2 as dense basis products.  The
-shift-invert apply y = (A - sigma M)^-1 M v is the band factor of
+shift-invert apply y = (A - sigma M)^-1 M v (Cayley: (A - sigma M)^-1
+(A + nu M) v) is, with ``method="banded"``, the band factor of
 :mod:`lsafw_tpu_torch.solver.band` (``factor_auto``: pivoted complex64
 within ``LSAFW_PIVOT_MEM_GB``, else pivot-free with the K1/K2 kernels;
 a real shift takes the real factors) with f64 GCR refinement, whose
 C = A - sigma M and M applies run through the S kernel on the permuted
 CSR of (A, M) (``ops/bcsr.py`` ``BCSRShiftedOp``, sigma a kernel
-argument).  The (ncv x ncv) Hessenberg
-bookkeeping, sorted Schur restarts and Ritz extraction run on the host
-in numpy/scipy complex128.
+argument).  At a real shift a real f64 vector stays real throughout
+(the real factor's one-column substitution, S on an f64 x).  With
+``method="lu"`` (asked for only) one host SuperLU of C serves every
+solve, the vectors crossing to the host and back.  The (ncv x ncv)
+Hessenberg bookkeeping, sorted Schur restarts and Ritz extraction run
+on the host in numpy/scipy complex128.
 
 Eigenvalue back-transform: theta = 1/(lambda - sigma), so
-lambda = sigma + 1/theta.
+lambda = sigma + 1/theta; Cayley: lambda = (sigma theta + nu)/(theta - 1).
 """
 
 from __future__ import annotations
@@ -26,19 +31,21 @@ from typing import Callable
 
 import numpy as np
 import scipy.linalg as sla
+import scipy.sparse as sp
 import torch
 
 from lsafw_tpu_torch import resolve_device
 from lsafw_tpu_torch.ops.bcsr import BCSRShiftedOp, plan_for_pattern
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
 from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
+from lsafw_tpu_torch.solver.direct import SparseLU
 from lsafw_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
 
 class STType(Enum):
-    """Spectral transforms; the port runs SINVERT."""
+    """Spectral transforms; the port runs SINVERT and CAYLEY."""
 
     SHIFT = "shift"
     SINVERT = "sinvert"
@@ -74,21 +81,29 @@ class EigensolverConfig:
 class BandedSIOp:
     """Shift-invert operator state: the CSR pair, the band factor of
     C = A - sigma M (any factor of :mod:`~lsafw_tpu_torch.solver.band`),
-    the shift, and ``Cop``, the fused (A, M) operator of the refinement
-    matvecs (None: the CSR pair applies them)."""
+    the shift, ``Cop``, the fused (A, M) operator of the refinement
+    matvecs (None: the CSR pair applies them), and ``nu``, the Cayley
+    antishift (None: the shift-invert right-hand side M v)."""
 
     A: CSRMatrix
     M: CSRMatrix
     blu: object
     sigma: complex
     Cop: BCSRShiftedOp | None = None
+    nu: complex | None = None
+
+
+def _coef(z: complex, x: torch.Tensor):
+    """The scalar z for products with x: a float where x is real and z
+    has no imaginary part, so that a real vector stays real."""
+    return z.real if not x.is_complex() and z.imag == 0.0 else z
 
 
 def _si_apply_C(op: BandedSIOp, x: torch.Tensor) -> torch.Tensor:
     """(A - sigma M) x."""
     if op.Cop is not None:
         return op.Cop.matvec_pair(x)
-    return spmv(op.A, x) - op.sigma * spmv(op.M, x)
+    return spmv(op.A, x) - _coef(op.sigma, x) * spmv(op.M, x)
 
 
 def _si_apply_M(op: BandedSIOp, x: torch.Tensor) -> torch.Tensor:
@@ -98,11 +113,27 @@ def _si_apply_M(op: BandedSIOp, x: torch.Tensor) -> torch.Tensor:
     return spmv(op.M, x)
 
 
+def _si_rhs(op: BandedSIOp, v: torch.Tensor) -> torch.Tensor:
+    """The transformed apply's right-hand side: M v (shift-invert), or
+    A v + nu M v = C v + (sigma + nu) M v (Cayley), whose C v and M v
+    come from one pass of the fused operator."""
+    if op.nu is None:
+        return _si_apply_M(op, v)
+    if op.Cop is not None:
+        Cv, Mv = op.Cop.matvec_pair(v, mass=True)
+    else:
+        Mv = spmv(op.M, v)
+        Cv = spmv(op.A, v) - _coef(op.sigma, v) * Mv
+    return Cv + _coef(op.sigma + op.nu, Cv) * Mv
+
+
 def banded_solve_raw(op: BandedSIOp, b: torch.Tensor, *, tol: float = 1e-9,
                      max_its: int = 16, m: int = 8) -> torch.Tensor:
-    """x ~= (A - sigma M)^-1 b by truncated complex GCR(m) refinement,
-    preconditioned by the band factor: each correction's image is
-    orthogonalized against the last ``m`` kept images."""
+    """x ~= (A - sigma M)^-1 b for a raw right-hand side (no M
+    premultiply) by truncated GCR(m) refinement, preconditioned by the
+    band factor: each correction's image is orthogonalized against the
+    last ``m`` kept images.  Complex in complex128; an f64 b at a real
+    shift stays f64 (the real factor's one-column substitution)."""
     return _refine(op, b, tol=tol, max_its=max_its, m=m)[0]
 
 
@@ -140,18 +171,25 @@ def _refine(op: BandedSIOp, b: torch.Tensor, *, tol: float, max_its: int,
 
 def banded_si_apply(op: BandedSIOp, v: torch.Tensor, *, tol: float = 1e-9,
                     max_its: int = 16) -> torch.Tensor:
-    """y ~= (A - sigma M)^-1 (M v)."""
-    return banded_solve_raw(op, _si_apply_M(op, v), tol=tol, max_its=max_its)
+    """y ~= (A - sigma M)^-1 (M v), or (A - sigma M)^-1 (A + nu M) v with
+    a Cayley antishift."""
+    return banded_solve_raw(op, _si_rhs(op, v), tol=tol, max_its=max_its)
 
 
-def _device_memory_bytes(device: torch.device) -> float:
-    """Memory of the device the operators live on: env ``LSAFW_HBM_GB``
-    where set, else the card's total memory (the host's for the CPU)."""
+def _free_device_bytes(device: torch.device, held: int) -> float:
+    """Device memory the operators may still take, ``held`` bytes of a
+    just-made factor included in what is gone: env ``LSAFW_HBM_GB`` less
+    ``held`` where set; on a card, what it has free (``cudaMemGetInfo``'s
+    free memory and what PyTorch's allocator holds unused), so that every
+    factor alive, another operator's too, is counted; the host's memory
+    less ``held`` for the CPU."""
     if "LSAFW_HBM_GB" in os.environ:
-        return float(os.environ["LSAFW_HBM_GB"]) * 1e9
+        return float(os.environ["LSAFW_HBM_GB"]) * 1e9 - held
     if device.type == "cuda":
-        return float(torch.cuda.get_device_properties(device).total_memory)
-    return float(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+        free, _ = torch.cuda.mem_get_info(device)
+        return float(free + torch.cuda.memory_reserved(device)
+                     - torch.cuda.memory_allocated(device))
+    return float(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")) - held
 
 
 class FactorUnusable(RuntimeError):
@@ -161,53 +199,78 @@ class FactorUnusable(RuntimeError):
 
 
 class ShiftInvertOperator:
-    """y = (A - sigma M)^-1 (M v) with real A, M and complex sigma,
-    through the device band factor + f64 refinement (``method="banded"``,
-    the only method ported).
+    """y = (A - sigma M)^-1 (M v) with real A, M and complex sigma, or with
+    ``antishift`` nu the Cayley apply y = (A - sigma M)^-1 (A + nu M) v on
+    the same factor.
 
-    The refinement depth is calibrated from the factor's measured
-    contraction rho (one refinement step's residual on a unit vector from
-    a seed), as the reference does: the Richardson bound 2 log(tol) /
-    log(rho) iterations, within a cap of 300.  Where that bound refuses
-    (rho near or above 1, as a bf16 band of the 175k production operator
-    gives), the refinement itself is run on the same vector: GCR(8)
-    reaches the tolerance in a few iterations where a few directions
-    alone are amplified, and the factor is kept if it does so within
-    ``_TRIAL_CAP`` iterations, with a cap of four times as many (at most
-    300).  A factor that is non-finite or fails both raises
-    :class:`FactorUnusable` (the reference falls back to a host LU)."""
+    ``method="banded"`` (the device path): the band factor + f64
+    refinement.  The refinement depth is calibrated from the factor's
+    measured contraction rho (one refinement step's residual on a unit
+    vector from a seed, real at a real shift), as the reference does: the
+    Richardson bound 2 log(tol) / log(rho) iterations, within a cap of
+    300.  Where that bound refuses (rho near or above 1, as a bf16 band of
+    the 175k production operator gives), the refinement itself is run on
+    the same vector: GCR(8) reaches the tolerance in a few iterations
+    where a few directions alone are amplified, and the factor is kept if
+    it does so within ``_TRIAL_CAP`` iterations, with a cap of four times
+    as many (at most 300).  A factor that is non-finite or fails both
+    raises :class:`FactorUnusable` (the reference falls back to a host
+    LU; nothing here does).
+
+    ``method="lu"``: one host SuperLU of C = A - sigma M (A - sigma I
+    where M is None), real at a real shift, as the reference's host path
+    (``lsafw_tpu/solver/eigen.py:792-799``); right-hand sides are formed
+    on the vector's device, cross to the host for the solve and come
+    back.  It runs only when asked for.
+
+    ``elements`` (the reference's per-cell element matrices for
+    matrix-free refinement matvecs) is accepted and ignored: S carries the
+    refinement matvecs on the assembled CSR, and the element operator is
+    not ported."""
 
     _CAP = 300
     _TRIAL_CAP = 60
 
-    def __init__(self, A: CSRMatrix, M: CSRMatrix, sigma: complex, *,
-                 method: str = "banded", inner_tol: float = 1e-10) -> None:
-        if method != "banded":
+    def __init__(self, A: CSRMatrix, M: CSRMatrix | None, sigma: complex, *,
+                 method: str = "banded", inner_tol: float = 1e-10, elements=None,
+                 antishift: complex | None = None) -> None:
+        if method not in ("banded", "lu"):
             raise NotImplementedError(f"shift-invert method {method!r} is not ported")
         self.A, self.M = A, M
         self.sigma = complex(sigma)
+        self.antishift = None if antishift is None else complex(antishift)
         self.method = method
         self._n = A.shape[0]
+        self._inner_tol = inner_tol
         self.applies = 0
+        self.pivoted = False
+        self.device_op = None
+        self.rho = self.refine_its = None
+        self.trial_its = None  # GCR iterations of the trial solve, where one ran
         t0 = time.time()
+        if method == "lu":
+            self._lu = SparseLU(self._host_C())
+            self.factor_seconds = time.time() - t0
+            return
         blu = self._factor_banded()
         self.factor_seconds = time.time() - t0
         band_bytes = sum(t.numel() * t.element_size() for t in vars(blu).values()
                          if isinstance(t, torch.Tensor))
-        self.device_op = BandedSIOp(A, M, blu, self.sigma, self._build_bcsr_ops(band_bytes))
+        self.device_op = BandedSIOp(A, M, blu, self.sigma, self._build_bcsr_ops(band_bytes),
+                                    self.antishift)
         rng = np.random.default_rng(11)
         b0 = rng.standard_normal(self._n)
         b0 /= np.linalg.norm(b0)
-        b0 = torch.as_tensor(b0, dtype=torch.complex128, device=A.device)
+        real = self.sigma.imag == 0.0
+        b0 = torch.as_tensor(b0, dtype=torch.float64 if real else torch.complex128,
+                             device=A.device)
         x0 = blu.solve(b0)
         rho = float(torch.linalg.vector_norm(b0 - _si_apply_C(self.device_op, x0)))
         self.rho = rho
-        self.trial_its = None  # GCR iterations of the trial solve, where one ran
         if not np.isfinite(rho):
             raise FactorUnusable(f"band factor is not usable: calibration contraction {rho}")
         rho_c = min(max(rho, 1e-14), 0.999)
         needed = int(2 * np.ceil(np.log(inner_tol) / np.log(rho_c)))
-        self._inner_tol = inner_tol
         if needed <= self._CAP:
             self.refine_its = int(np.clip(needed, 4, self._CAP))
         else:
@@ -222,6 +285,34 @@ class ShiftInvertOperator:
         logger.info("Banded shift-invert: contraction %.2e%s -> refinement cap %d for tol %.0e",
                     rho, "" if self.trial_its is None else
                     f" (trial GCR solve: {self.trial_its} iterations)", self.refine_its, inner_tol)
+
+    def _host_C(self) -> sp.csc_matrix:
+        """C = A - sigma M (A - sigma I without M) on the host: real at a
+        real shift, else complex."""
+        As = self.A.to_scipy()
+        Ms = self.M.to_scipy() if self.M is not None else sp.identity(self._n, format="csr")
+        if self.sigma.imag == 0.0:
+            return (As - self.sigma.real * Ms).tocsc()
+        return (As.astype(np.complex128) - self.sigma * Ms).tocsc()
+
+    def _host_solve(self, b: torch.Tensor) -> torch.Tensor:
+        """C^-1 b by the host LU, back on b's device in b's dtype (a complex
+        b on a real factor as two real columns)."""
+        bh = b.detach().cpu().numpy()
+        if np.iscomplexobj(bh) and not np.issubdtype(self._lu.dtype, np.complexfloating):
+            xs = self._lu.solve(np.stack([bh.real, bh.imag], axis=1))
+            x = xs[:, 0] + 1j * xs[:, 1]
+        else:
+            x = self._lu.solve(bh)
+        return torch.as_tensor(x, device=b.device)
+
+    def _csr_rhs(self, v: torch.Tensor) -> torch.Tensor:
+        """The right-hand side of the host method, on v's device: M v (v
+        without M), or A v + nu M v."""
+        Mv = spmv(self.M, v) if self.M is not None else v
+        if self.antishift is None:
+            return Mv
+        return spmv(self.A, v) + _coef(self.antishift, v) * Mv
 
     def _factor_banded(self):
         """Factor C = A - sigma M on the shared pattern of A and M through
@@ -242,13 +333,15 @@ class ShiftInvertOperator:
 
     def _build_bcsr_ops(self, band_bytes: int = 0) -> BCSRShiftedOp | None:
         """The fused (A, M) operator of the refinement matvecs, or None (the
-        CSR pair applies them) when its values do not fit beside the factor:
-        the budget is min(``LSAFW_BCSR_MEM_GB``, default 6, the device's
-        memory less the factor and a 3.5 GB margin)."""
+        CSR pair applies them) when its values do not fit beside the
+        factors: the budget is min(``LSAFW_BCSR_MEM_GB``, default 6, the
+        device's free memory less a 3.5 GB margin), where the free memory
+        already excludes this factor and any other alive (two at once in a
+        resolvent frequency or a transient horizon)."""
         A, M = self.A, self.M
         plan = plan_for_pattern(A)
         budget = min(float(os.environ.get("LSAFW_BCSR_MEM_GB", "6")) * 1e9,
-                     _device_memory_bytes(A.device) - float(band_bytes) - 3.5e9)
+                     _free_device_bytes(A.device, band_bytes) - 3.5e9)
         need = 2 * plan.bytes_per_matrix + plan.index_bytes
         if need > budget:
             logger.info("CSR (A, M) operator (%.2f GB) over budget %.1f GB; applying the CSR pair.",
@@ -257,11 +350,35 @@ class ShiftInvertOperator:
         logger.info("Refinement matvecs on the permuted CSR of (A, M): %.3f GB", need / 1e9)
         return BCSRShiftedOp.from_csr(A, M, self.sigma, plan)
 
+    def figures(self) -> dict:
+        """The operator's figures: factor seconds, contraction, trial GCR
+        iterations, refinement cap, applies, pivoted, fused matvecs."""
+        return dict(factor_s=self.factor_seconds, rho=self.rho, trial_its=self.trial_its,
+                    refine_its=self.refine_its, applies=self.applies, pivoted=self.pivoted,
+                    fused=self.device_op is not None and self.device_op.Cop is not None)
+
     def apply(self, v: torch.Tensor) -> torch.Tensor:
+        """One transformed apply: (A - sigma M)^-1 M v, or the Cayley apply."""
         self.applies += 1
+        if self.method == "lu":
+            return self._host_solve(self._csr_rhs(v))
         return banded_si_apply(self.device_op, v, tol=self._inner_tol, max_its=self.refine_its)
 
+    def solve_raw(self, b: torch.Tensor) -> torch.Tensor:
+        """x = (A - sigma M)^-1 b for a raw right-hand side (no M
+        premultiply, no Cayley right-hand side): the building block of
+        the non-modal analyses (:mod:`lsafw_tpu_torch.transient`)."""
+        if self.method == "lu":
+            return self._host_solve(b)
+        return banded_solve_raw(self.device_op, b, tol=self._inner_tol, max_its=self.refine_its)
+
     def back_transform(self, theta: np.ndarray) -> np.ndarray:
+        """theta -> lambda = sigma + 1/theta; Cayley: lambda = (sigma theta
+        + nu) / (theta - 1)."""
+        if self.antishift is not None:
+            den = theta - 1.0
+            den = np.where(np.abs(den) < 1e-300, 1e-300, den)
+            return (self.sigma * theta + self.antishift) / den
         return self.sigma + 1.0 / theta
 
 
@@ -407,7 +524,10 @@ def krylov_schur(
 
 class EigenSolver:
     """Generalized eigensolver front-end over (A, M); the port runs the
-    shift-invert transform with the device band factor (st_pc "banded")."""
+    shift-invert and Cayley transforms.  The st_pc defaults to
+    ``"banded"``, the device band factor (the reference defaults to its
+    host ``"lu"``, which runs here only when ``set_st_pc_type("lu")`` asks
+    for it)."""
 
     def __init__(self, A: CSRMatrix, M: CSRMatrix | None,
                  config: EigensolverConfig | None = None) -> None:
@@ -419,7 +539,8 @@ class EigenSolver:
         self.config = config or EigensolverConfig()
         self._st_type = STType.SHIFT
         self._target: complex | None = None
-        self._si_method = "lu"
+        self._antishift: complex | None = None
+        self._si_method = "banded"
         self._v0: np.ndarray | None = None
 
     def set_st_type(self, st: STType | str) -> None:
@@ -427,6 +548,11 @@ class EigenSolver:
 
     def set_target(self, target: complex) -> None:
         self._target = complex(target)
+
+    def set_cayley_antishift(self, nu: complex) -> None:
+        """Antishift of the CAYLEY transform (SLEPc's
+        ``ST.setCayleyAntishift``); it defaults to the target."""
+        self._antishift = complex(nu)
 
     def set_st_pc_type(self, pc) -> None:
         name = getattr(pc, "value", str(pc)).lower()
@@ -438,8 +564,11 @@ class EigenSolver:
     def _run(self, target: complex):
         cfg = self.config
         n = self.A.shape[0]
+        nu = None
+        if self._st_type is STType.CAYLEY:  # SLEPc: the antishift defaults to the shift
+            nu = self._antishift if self._antishift is not None else target
         op = ShiftInvertOperator(self.A, self.M, target, method=self._si_method,
-                                 inner_tol=min(cfg.atol * 1e-2, 1e-10))
+                                 inner_tol=min(cfg.atol * 1e-2, 1e-10), antishift=nu)
         result = krylov_schur(
             op.apply, n, nev=cfg.num_eig, ncv=min(cfg.ncv, n),
             which=EpsWhich.LARGEST_MAGNITUDE,  # largest theta = closest to the shift
@@ -450,10 +579,10 @@ class EigenSolver:
 
     def solve(self) -> list[tuple[complex, np.ndarray]]:
         """Eigenpairs nearest the target, nearest first."""
-        if self._st_type is not STType.SINVERT:
+        if self._st_type not in (STType.SINVERT, STType.CAYLEY):
             raise NotImplementedError(f"spectral transform {self._st_type.name} is not ported")
         if self._target is None:
-            raise ValueError("SINVERT requires a target (set_target).")
+            raise ValueError(f"{self._st_type.name} requires a target (set_target).")
         cfg = self.config
         t0 = time.time()
         # a shift on an exact eigenvalue makes the factor numerically

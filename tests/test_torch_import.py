@@ -16,8 +16,11 @@ from lsafw_tpu_torch.fem.assembly import AssemblyContext
 from lsafw_tpu_torch.fem.bcs import BoundaryConditions
 from lsafw_tpu_torch.fem.spaces import define_spaces
 from lsafw_tpu_torch.meshing.mesh import unit_square
+from lsafw_tpu_torch.ops.sparse import CSRMatrix
+from lsafw_tpu_torch.resolvent import ResolventSolver
 from lsafw_tpu_torch.sensitivity import EigenSensitivitySolver
 from lsafw_tpu_torch.solver.eigen import krylov_schur
+from lsafw_tpu_torch.transient import TransientGrowthSolver
 
 torch.set_num_threads(1)
 
@@ -40,7 +43,8 @@ def test_import_loads_no_jax_and_no_jax_package():
     """In a fresh interpreter (this process already holds jax)."""
     code = (
         "import sys, lsafw_tpu_torch, lsafw_tpu_torch.interop, lsafw_tpu_torch.solver.eigen, "
-        "lsafw_tpu_torch.solver.baseflow, lsafw_tpu_torch.sensitivity\n"
+        "lsafw_tpu_torch.solver.baseflow, lsafw_tpu_torch.sensitivity, lsafw_tpu_torch.resolvent, "
+        "lsafw_tpu_torch.transient, lsafw_tpu_torch.solver.eigen2, lsafw_tpu_torch.models.membrane\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -82,8 +86,8 @@ def test_default_device_entry_points_refuse_the_cpu(monkeypatch):
 
 def test_sensitivity_refuses_the_cpu_by_default(monkeypatch):
     """``EigenSensitivitySolver`` defaults to the card: without one it
-    raises unless ``device="cpu"`` is passed, and the reference's host-LU
-    ``si_method`` is not ported."""
+    raises unless ``device="cpu"`` is passed; the reference's host-LU
+    ``si_method`` runs when asked for, and other methods raise."""
     spaces = define_spaces(unit_square(2))
     ctx = AssemblyContext.build(spaces, device="cpu")
     n = spaces.num_dofs
@@ -94,7 +98,25 @@ def test_sensitivity_refuses_the_cpu_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EigenSensitivitySolver(*args)
     with pytest.raises(NotImplementedError, match="banded"):
-        EigenSensitivitySolver(*args, si_method="lu", device="cpu")
+        EigenSensitivitySolver(*args, si_method="gmres", device="cpu")
+    assert EigenSensitivitySolver(*args, si_method="lu", device="cpu")._si_method == "lu"
     solver = EigenSensitivitySolver(*args, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         solver.solve_direct_mode()
+
+
+def test_nonmodal_solvers_refuse_the_cpu_by_default(monkeypatch):
+    """``ResolventSolver`` and ``TransientGrowthSolver`` default to the card
+    and to the banded method: without a card they raise unless
+    ``device="cpu"`` is passed."""
+    spaces = define_spaces(unit_square(2))
+    ctx = AssemblyContext.build(spaces, device="cpu")
+    n = spaces.num_dofs
+    A = ctx.pattern
+    M = CSRMatrix(A, torch.ones(A.nnz, dtype=torch.float64))
+    args = (M, M, spaces.num_velocity_dofs, np.zeros(n, bool))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (ResolventSolver, TransientGrowthSolver):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(*args)
+        assert cls(*args, device="cpu").method == "banded"

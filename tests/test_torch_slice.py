@@ -582,3 +582,25 @@ def test_weak_factor_kept_only_if_gcr_converges(scale, monkeypatch):
     y = op.apply(torch.as_tensor(v)).numpy()
     ref = spla.spsolve((sA - TARGET * sp.identity(A.shape[0])).tocsc(), v)
     assert np.linalg.norm(y - ref) / np.linalg.norm(ref) <= 1e-9
+
+
+def test_sensitivity_lu_matches_jax_and_banded(cases, baseflows, port_system, port_evaluated,
+                                               jax_sensitivity):
+    """``si_method="lu"``, asked for: the host SuperLU shift-invert (the
+    eigensolves run ``EigenSolver`` with ``set_st_pc_type("lu")``) and a
+    host LU of J for du/dRe, against the JAX package's host-LU pipeline and
+    the port's banded one."""
+    _, tc = cases
+    jw, _ = baseflows
+    A, M = port_system
+    solver = tsens.EigenSensitivitySolver(tc["ctx"], tc["mesh"], tc["bcs_base"], jw, RE, A=A,
+                                          M=M, perturbation_bcs=tc["bcs_pert"], target=TARGET,
+                                          si_method="lu", device="cpu")
+    d = solver.evaluate(TARGET)
+    ref = jax_sensitivity
+    assert abs(solver._sigma - ref["sigma"]) <= 1e-8
+    assert abs(solver.sigma_adjoint - ref["sigma_adj"]) <= 1e-8
+    assert _rel(solver._baseflow_sens, ref["s"]) <= 1e-9
+    assert abs(d - ref["d"]) <= 1e-6 * abs(ref["d"])
+    assert abs(d - port_evaluated[1]) <= 1e-6 * abs(ref["d"])
+    assert not any(op["pivoted"] or op["fused"] for op in solver.operators.values())
