@@ -152,14 +152,44 @@ non-zero):
      the resolvent at omega = 0.75 (k = 1; the default plan's pivot-free
      complex64 band) and G(4) with 32 steps, with phase 7's gates; then
      phase 4's K1/K2 checks and times on the transient's real pivoted
-     factor (B = 17, 1,408 block rows).
+     factor (B = 17, 1,408 block rows);
+  8. (after phase 7, on phase 3's mesh, baseflow and (A, M), Re = 47)
+     quasi-3D spanwise stability (``span.SpanwiseStability``: its
+     pattern and outlet slots once, a stage, the band reckoned from the
+     pattern's RCM ordering) at beta = 0 (nearest 0.74j) and 1.5 (nearest
+     phase 3's sigma), each a stage on the band factor: sigma(0) within
+     1e-8 of phase 3's sigma, the (u, v, p) block of A(0) and M(0) equal
+     to phase 3's (A, M) within 1e-13 relative (the card's f64
+     ``index_add_`` sums a slot's contributions in atomic order) and the
+     couplings exactly zero, sigma_r(1.5) < sigma_r(0) - 1e-3, residuals
+     <= 1e-8, the launch gates of ``gate_stage`` in the factor's mode, one
+     band plan over the two beta, and beta = 1.5 on the host LU (asked
+     for, one factor counted) within 1e-8; then the weakly nonlinear
+     expansion: ``wnl.find_critical_re(..., 40, 55, tol=1e-3)`` (each
+     baseflow, warm Newton and eigensolve a stage) and
+     ``wnl.weakly_nonlinear`` at the Re_c it returns (direct, adjoint,
+     du/dRe and the two forced solves each a stage) with
+     ``tests/benchmark/test_wnl.py``'s gates (42 < Re_c < 52, |sigma_r| <
+     1e-3, 0.6 < omega_c < 0.9, Re mu > 0, Re lambda' > 0, 0 < A(Re_c + 2)
+     < A(Re_c + 6), the frequency growing, q20 and q22 nonzero), the
+     forced solves' residuals on the card's CSR <= 1e-8, a^H M q1 = 1
+     within 1e-10, the sigma = 0 solve real (K1/K2 pivoted float32 x1
+     alone) and the 2 i omega solve complex, and both forced solves again
+     on the host LU (asked for, two factors counted) within 1e-8;
+  8b. (after 7b, on phase 6's mesh, baseflow and (A, M)) phase 8 at full
+     width without the host LU: the quasi-3D band's complex64 storage is
+     over the default ``LSAFW_BAND_MEM_GB`` of 12, so the beta stages set
+     it to that storage plus 1 GB (printed with the reckoning), and
+     ``find_critical_re`` brackets (46, 48) with 46 < Re_c < 48; phase
+     4's K1/K2 checks and times run on the beta = 1.5 factor.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, one entry per kernel, mode, storage and type and per
 main-path factor (``launches``: phases 3, 3b, 3c, 6, 6b and 6c;
 ``launches_phase5``: the stages of phase 5; ``launches_phase6``: phases
-6 to 6c; ``launches_phase7``: the stages of phases 7 and 7b; modes no
-main path runs carry phase 2's random factors), and
+6 to 6c; ``launches_phase7``: the stages of phases 7 and 7b;
+``launches_phase8``: the stages of phases 8 and 8b; modes no main path
+runs carry phase 2's random factors), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -904,7 +934,7 @@ def reset_counts() -> None:
     spmv_cuda.reset_launches()
 
 
-def leading_pair(A, M):
+def leading_pair(A, M, target: complex = TARGET, method: str = "banded"):
     import torch
     from lsafw_tpu_torch.solver.eigen import (
         EigenSolver, EigensolverConfig, STType, eigen_residuals)
@@ -912,8 +942,8 @@ def leading_pair(A, M):
     t0 = time.time()
     es = EigenSolver(A, M, EigensolverConfig(num_eig=1, atol=1e-8, ncv=16))
     es.set_st_type(STType.SINVERT)
-    es.set_target(TARGET)
-    es.set_st_pc_type("banded")
+    es.set_target(target)
+    es.set_st_pc_type(method)
     pairs = es.solve()
     torch.cuda.synchronize()
     seconds = time.time() - t0
@@ -1623,7 +1653,7 @@ def production_path(dev) -> dict:
         gate_permutes_and_spmv(what, s_["launches"], types, n, s_["matvecs"])
     if base["solves"]["RealPivotedBandedLU"] != st["solves"]:
         raise RuntimeError(f"phase 6: baseflow band solves {base['solves']} against {st['solves']}")
-    return dict(case=case, A=A, M=M, op=op, sigma=sigma, stages=stages,
+    return dict(case=case, w=w, A=A, M=M, op=op, sigma=sigma, stages=stages,
                 launches={k: sum(s_["launches"][k] for s_ in stages.values()) for k in counts()})
 
 
@@ -1883,6 +1913,333 @@ def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = F
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: quasi-3D spanwise stability and the weakly nonlinear expansion
+# ---------------------------------------------------------------------------
+
+SPAN_BETA = 1.5  # tests/benchmark/test_span_cylinder.py's wavenumber
+# find_critical_re's brackets: tests/benchmark/test_wnl.py's at 43k; at 175k
+# around phase 6's sigma_r(47) = +0.00039 with d sigma_r/dRe about 4.2e-3
+WNL_BRACKETS = {"8": (40.0, 55.0), "8b": (46.0, 48.0)}
+WNL_RE_C = {"8": (42.0, 52.0), "8b": (46.0, 48.0)}  # test_wnl.py's window; the bracket
+RE_C_175K = 46.9  # the production mesh's Re_c as VALIDATION.md records it
+# the K1/K2 mode and G's types of each band factor class
+CLASS_KEYS = {"PivotedBandedLU": ("pivoted.c64", "c128.c64"),
+              "BandedLU": ("pivot_free.c64", "c128.c64"),
+              "RealPivotedBandedLU": ("pivoted.f32x1", "f64.f32x1"),
+              "RealBandedLU": ("pivot_free.f32x1", "f64.f32x1")}
+COMPLEX_CLASSES = ("PivotedBandedLU", "BandedLU")
+
+
+def gate_class(what: str, st: dict, classes: tuple, builds: int = 0) -> str:
+    """:func:`gate_stage` in the mode of the stage's one band factor class,
+    which must be one of ``classes``; returns the class."""
+    if len(st["solves"]) != 1 or next(iter(st["solves"])) not in classes:
+        raise RuntimeError(f"{what}: band solves {st['solves']}, expected one class of {classes}")
+    cls = next(iter(st["solves"]))
+    key, types = CLASS_KEYS[cls]
+    gate_stage(what, st, key, cls, types, builds)
+    return cls
+
+
+def stage_line(what: str, st: dict, figures: dict | None = None) -> None:
+    """One line per stage: seconds, band solves, peak memory above its
+    start, plan builds, and the factor's seconds and contraction."""
+    f = figures or {}
+    extra = "" if not f else (f", factor {f['factor_s']:.3f} s, contraction {f['rho']:.2e}, "
+                              f"pivoted {f['pivoted']}, {f['applies']} applies")
+    log(f"{what}: {st['seconds']:.2f} s, band solves {st['solves']}, peak "
+        f"{st['peak_gb'] - st['resident_gb']:.3f} GB above its start, plans built "
+        f"{st['builds']}{extra}")
+
+
+def q3_block_check(A, A2, n2: int) -> tuple[float, int, float]:
+    """The (u, v, p) block of the quasi-3D ``A`` against the 2D ``A2`` (the
+    same structure; the values on the card): (max |difference| over max
+    |A2|, entries not bitwise equal, max |coupling|)."""
+    import torch
+
+    pat, pat2 = A.pattern, A2.pattern
+    inner_h = (pat.row_ids < n2) & (pat.indices < n2)
+    if not (np.array_equal(pat.indices[inner_h], pat2.indices)
+            and np.array_equal(np.bincount(pat.row_ids[inner_h], minlength=n2),
+                               np.diff(pat2.indptr))):
+        raise RuntimeError("the quasi-3D pattern's (u, v, p) block is not the 2D pattern")
+    ix = pat.on(A.device)
+    inner = (ix["row_ids"] < n2) & (ix["col"] < n2)
+    cross = (ix["row_ids"] < n2) ^ (ix["col"] < n2)
+    d = A.data[inner] - A2.data
+    rel = float(d.abs().max() / A2.data.abs().max())
+    return rel, int((d != 0).sum()), float(A.data[cross].abs().max())
+
+
+def span_path(case, p2d: dict, phase: str, dev, *, cross_check: bool = False,
+              fit_band: bool = False, keep: list | None = None) -> dict:
+    """Phase 8 / 8b, span stage: ``SpanwiseStability`` on ``p2d``'s baseflow
+    at Re = 47 (its pattern and outlet slots once, a stage), then at beta =
+    0 and SPAN_BETA (each a stage) the eigensystem and the eigenpair
+    nearest 0.74j (beta = 0) or the 2D sigma (beta = SPAN_BETA) on the
+    band factor (``leading_pair``).  The band is reckoned from the
+    pattern's RCM ordering before the beta stages; with ``fit_band``,
+    where its complex64 storage is over the default ``LSAFW_BAND_MEM_GB``
+    (12 GB: the plan would take a bf16 band), the beta stages set the
+    budget to that storage rounded up, plus 1 GB.  With ``cross_check``
+    the beta = SPAN_BETA eigenvalue again on the host LU (asked for,
+    counted), by the same Krylov-Schur from the same start: the mode's
+    eigenvalue is ill-conditioned (on an H100, runs converged to atol 1e-8
+    from another start or with another ncv differed by 2e-7 at 43k), so the
+    two solvers are held to 1e-8 on one Krylov path.  ``keep`` receives
+    the SPAN_BETA factor."""
+    import torch
+    from lsafw_tpu_torch.solver import band as tband
+    from lsafw_tpu_torch.span import SpanwiseStability
+
+    what = f"phase {phase} span"
+    t_phase = time.time()
+    stages: dict = {}
+    with plain_loops_forbidden():
+        with stage("setup", stages):
+            span = SpanwiseStability(case["ctx"], p2d["w"], 47.0, case["bcs_pert"], case["mesh"],
+                                     device=dev)
+            perm = tband.pattern_permutation(span.pattern)  # the RCM ordering, reckoned here
+        pat = span.pattern
+        iperm = np.empty_like(perm)
+        iperm[perm] = np.arange(perm.size)
+        bw = int(np.abs(iperm[pat.row_ids] - iperm[pat.indices]).max())
+        nb = 128
+        B, nblk = -(-bw // nb), -(-span.num_dofs // nb)
+        c64_gb = (-(-nblk // 128) * 128 + B) * (2 * B + 1) * nb * nb * 8 / 1e9
+        band_gb = float(np.ceil(c64_gb) + 1) if fit_band and c64_gb > 12 else None
+        log(f"{what}: {span.n2} mixed + {span.ns} spanwise = {span.num_dofs} DOFs, {pat.nnz} nnz; "
+            f"RCM bandwidth {bw}: B = {B} at nb = {nb}, a complex64 band of {c64_gb:.2f} GB "
+            f"(bf16 {c64_gb / 2:.2f} GB) against the default LSAFW_BAND_MEM_GB of 12"
+            + ("" if band_gb is None else f", which would take the bf16 band: the beta stages set "
+                                          f"it to {band_gb:g}"))
+        switches = {} if band_gb is None else {"LSAFW_BAND_MEM_GB": f"{band_gb:g}"}
+        res: dict = {}
+        with env(**switches):
+            for beta in (0.0, SPAN_BETA):
+                with stage(f"beta={beta:g}", stages):
+                    A, M = span.assemble_eigensystem(beta)
+                    sigma, resid, op, _ = leading_pair(A, M, TARGET if beta == 0 else p2d["sigma"])
+                plan = tband.plan_for_csr(A)
+                res[beta] = dict(sigma=sigma, resid=resid, figures=op.figures(), cls=type(
+                    op.device_op.blu).__name__, plan=plan)
+                if beta == 0:
+                    blk = q3_block_check(A, p2d["A"], span.n2)
+                    mblk = q3_block_check(M, p2d["M"], span.n2)
+                elif keep is not None:
+                    keep.append(op.device_op.blu)
+                del A, M, op
+                torch.cuda.empty_cache()
+        if cross_check:
+            A, M = span.assemble_eigensystem(SPAN_BETA)
+            t0 = time.time()
+            with host_lu_counted() as hl:
+                sigma_lu = leading_pair(A, M, p2d["sigma"], method="lu")[0]
+            log(f"{what}: beta = {SPAN_BETA:g} on the host LU, asked for ({hl['host_lu']} host LU "
+                f"factor, {time.time() - t0:.2f} s): sigma = {sigma_lu.real:+.12f}"
+                f"{sigma_lu.imag:+.12f}j, {abs(sigma_lu - res[SPAN_BETA]['sigma']):.1e} from the "
+                f"banded one")
+            if hl["host_lu"] != 1 or not abs(sigma_lu - res[SPAN_BETA]["sigma"]) <= 1e-8:
+                raise RuntimeError(f"{what}: the host LU's sigma {sigma_lu} against the banded "
+                                   f"{res[SPAN_BETA]['sigma']} (1e-8), {hl['host_lu']} factors (1)")
+            del A, M
+    s0, s1 = res[0.0]["sigma"], res[SPAN_BETA]["sigma"]
+    for beta, r in res.items():
+        p, f = r["plan"], r["figures"]
+        storage = "pivoted" if f["pivoted"] else f"pivot-free {p.band_dtype}"
+        log(f"{what}: beta = {beta:g}: sigma = {r['sigma'].real:+.12f}{r['sigma'].imag:+.12f}j, "
+            f"residual {r['resid']:.2e}; plan B = {p.B}, nblk_pad = {p.nblk_pad}, {storage} "
+            f"({r['cls']}), contraction {f['rho']:.2e}, factor {f['factor_s']:.2f} s, "
+            f"{f['applies']} applies")
+    for name, st in stages.items():
+        stage_line(f"{what}: {name}", st)
+    log(f"{what}: beta = 0 against phase {'3' if phase == '8' else '6'}'s 2D sigma "
+        f"{p2d['sigma'].real:+.12f}{p2d['sigma'].imag:+.12f}j: {abs(s0 - p2d['sigma']):.1e}; the "
+        f"(u, v, p) block of A(0) rel {blk[0]:.1e} ({blk[1]} entries not bitwise equal), of M "
+        f"rel {mblk[0]:.1e} ({mblk[1]}), couplings max {max(blk[2], mblk[2])}; sigma_r "
+        f"{s1.real:+.6f} at beta = {SPAN_BETA:g} against {s0.real:+.6f} at 0")
+    checks = [
+        (abs(s0 - p2d["sigma"]) <= 1e-8, f"sigma(0) {s0} is not within 1e-8 of {p2d['sigma']}"),
+        # the card's f64 index_add_ sums each slot's contributions in atomic
+        # order, so two assemblies agree to rounding, not bit for bit
+        (blk[0] <= 1e-13 and mblk[0] <= 1e-13, f"the (u, v, p) block rel {blk[0]:.1e} / "
+                                                 f"{mblk[0]:.1e} (1e-13)"),
+        (blk[2] == 0.0 and mblk[2] == 0.0, "the couplings at beta = 0 are not exactly zero"),
+        (s1.real < s0.real - 1e-3, f"sigma_r({SPAN_BETA:g}) {s1.real} is not below sigma_r(0) "
+                                   f"{s0.real} - 1e-3"),
+        (all(r["resid"] <= 1e-8 for r in res.values()), "an eigen residual over 1e-8"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise RuntimeError(f"{what}: {msg}")
+    for i, beta in enumerate((0.0, SPAN_BETA)):
+        gate_class(f"{what} beta={beta:g}", stages[f"beta={beta:g}"], COMPLEX_CLASSES,
+                   builds=1 - i)
+    plans = {k: stages["beta=0"]["builds"].get(k, 0) + stages[f"beta={SPAN_BETA:g}"][
+        "builds"].get(k, 0) for k in ("band", "csr", "rcm")}
+    if plans["band"] != 1:
+        raise RuntimeError(f"{what}: {plans['band']} band plans built over the two beta")
+    out = dict(sigma=res, stages=stages, seconds=time.time() - t_phase,
+               launches={k: sum(st["launches"][k] for st in stages.values()) for k in counts()})
+    log(f"{what}: {out['seconds']:.1f} s in all")
+    return out
+
+
+def wnl_path(case, phase: str, dev, *, cross_check: bool = False) -> dict:
+    """Phase 8 / 8b, WNL stage: ``find_critical_re`` over the phase's
+    bracket (tol 1e-3; each baseflow, Newton and eigensolve a stage), then
+    ``weakly_nonlinear`` at the Re_c it returns (the sensitivity solver's
+    direct, adjoint and du/dRe solves and the two forced solves, each a
+    stage), with test_wnl.py's gates, the forced solves' residuals on the
+    card's CSR and a^H M q1 = 1; with ``cross_check`` the two forced solves
+    again on the host LU (asked for, counted)."""
+    import torch
+    from lsafw_tpu_torch import wnl
+    from lsafw_tpu_torch.ops.sparse import spmv
+
+    what = f"phase {phase} WNL"
+    t_phase = time.time()
+    stages: dict = {}
+    figures: dict = {}
+    state = {"re": None, "n": 0}
+    saved = {k: getattr(wnl, k) for k in ("BaseFlowSolver", "NewtonSolver", "EigenSolver",
+                                          "EigenSensitivitySolver", "_forced_solve",
+                                          "ShiftInvertOperator")}
+    sens_made: list = []
+    forced: dict = {}
+
+    class Baseflow(saved["BaseFlowSolver"]):
+        def solve(self, **kw):
+            state["re"] = self._re
+            with stage(f"baseflow Re={self._re:.4f}", stages):
+                return super().solve(**kw)
+
+    class Newton(saved["NewtonSolver"]):
+        def solve(self, w0, re, **kw):
+            state["re"] = re
+            with stage(f"Newton Re={re:.4f}", stages):
+                return super().solve(w0, re, **kw)
+
+    class Eigen(saved["EigenSolver"]):
+        def solve(self):
+            name = f"eigen Re={state['re']:.4f}"
+            with stage(name, stages):
+                out = super().solve()
+            figures[name] = self.operator.figures()
+            return out
+
+    class Sensitivity(saved["EigenSensitivitySolver"]):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            sens_made.append(self)
+            for attr, name in (("solve_direct_mode", "direct"), ("solve_adjoint_mode", "adjoint"),
+                               ("compute_baseflow_sensitivity", "du/dRe")):
+                staged(self, attr, name, stages)
+
+    made: list = []  # the figures of each forced solve's operator (not the operator)
+
+    class Operator(saved["ShiftInvertOperator"]):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self.figures())
+
+    def forced_solve(A, M, shift, b, **kw):
+        name = "forced sigma=0" if shift == 0 else "forced 2i omega"
+        with stage(name, stages):
+            x = saved["_forced_solve"](A, M, shift, b, **kw)
+        forced[name] = (shift, b, x)
+        figures[name] = made[-1]
+        return x
+
+    for k, v in (("BaseFlowSolver", Baseflow), ("NewtonSolver", Newton), ("EigenSolver", Eigen),
+                 ("EigenSensitivitySolver", Sensitivity), ("_forced_solve", forced_solve),
+                 ("ShiftInvertOperator", Operator)):
+        setattr(wnl, k, v)
+    try:
+        with plain_loops_forbidden():
+            lo, hi = WNL_BRACKETS[phase]
+            re_c, w_c, sigma_c = wnl.find_critical_re(case["ctx"], case["mesh"], case["bcs_base"],
+                                                      case["bcs_pert"], lo, hi, tol=1e-3,
+                                                      device=dev)
+            t_crit = time.time() - t_phase
+            res = wnl.weakly_nonlinear(case["ctx"], case["mesh"], case["bcs_base"],
+                                       case["bcs_pert"], re_c, w_c, device=dev)
+    finally:
+        for k, v in saved.items():
+            setattr(wnl, k, v)
+    sens = sens_made[-1]
+    A, M, a = sens._A, sens._M, sens._a
+    aMq = complex(torch.vdot(a, spmv(M, res.q1)))
+    resid = {}
+    for name, (shift, b, x) in forced.items():
+        r = spmv(A, x) - (shift if x.is_complex() else float(shift.real)) * spmv(M, x) - b
+        resid[name] = float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b))
+    for name, st in stages.items():
+        f = figures.get(name) or sens.operators.get(name)
+        stage_line(f"{what}: {name}", st, f)
+    st = sens.stats
+    log(f"{what}: du/dRe: factor {st['factor_s']:.3f} s, {st['gcr_its']} GCR iterations")
+    A1, A2 = res.amplitude(re_c + 2.0), res.amplitude(re_c + 6.0)
+    log(f"{what}: {case['spaces'].num_dofs} DOFs; find_critical_re({lo:g}, {hi:g}) {t_crit:.1f} s, "
+        f"Re iterates {[float(k.split('=')[1]) for k in stages if k.startswith('eigen')]}: Re_c = "
+        f"{re_c:.6f}" + (f" (VALIDATION.md records {RE_C_175K} for the production mesh)"
+                         if phase == "8b" else "")
+        + f", sigma_c = {sigma_c.real:+.3e}{sigma_c.imag:+.10f}j")
+    log(f"{what}: omega_c = {res.omega_c:.10f}, lambda' = {res.lambda_p.real:+.6e}"
+        f"{res.lambda_p.imag:+.6e}j, mu = {res.mu.real:+.6e}{res.mu.imag:+.6e}j; A(Re_c + 2) = "
+        f"{A1:.6f}, A(Re_c + 6) = {A2:.6f}, frequency(Re_c + 6) = {res.frequency(re_c + 6.0):.6f}; "
+        f"|q20| = {float(torch.linalg.vector_norm(res.q20)):.4e}, |q22| = "
+        f"{float(torch.linalg.vector_norm(res.q22)):.4e}; forced residuals "
+        + ", ".join(f"{k} {v:.2e}" for k, v in resid.items())
+        + f"; a^H M q1 = {aMq.real:+.12f}{aMq.imag:+.1e}j")
+    lo_c, hi_c = WNL_RE_C[phase]
+    checks = [
+        (lo_c < re_c < hi_c, f"Re_c {re_c} outside ({lo_c}, {hi_c})"),
+        (abs(sigma_c.real) < 1e-3, f"|sigma_r(Re_c)| = {abs(sigma_c.real):.1e} >= 1e-3"),
+        (0.6 < res.omega_c < 0.9, f"omega_c {res.omega_c} outside (0.6, 0.9)"),
+        (res.mu.real > 0 and res.lambda_p.real > 0, f"mu {res.mu}, lambda' {res.lambda_p}"),
+        (0 < A1 < A2, f"amplitudes {A1}, {A2}"),
+        (res.frequency(re_c + 6.0) > res.omega_c, "the frequency does not grow"),
+        (float(torch.linalg.vector_norm(res.q20)) > 0 and float(torch.linalg.vector_norm(res.q22))
+         > 0, "q20 or q22 is zero"),
+        (len(resid) == 2 and all(v <= 1e-8 for v in resid.values()), f"forced residuals {resid}"),
+        (abs(aMq - 1) <= 1e-10, f"a^H M q1 = {aMq}"),
+        (not res.q20.is_complex() and res.q22.is_complex(), "q20 complex or q22 real"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise RuntimeError(f"{what}: {msg}")
+    planned: set = set()  # the first baseflow and eigen stages may plan (a real, a complex band)
+    for name, st in stages.items():
+        kind = name.split(" ")[0]
+        real = kind in ("baseflow", "Newton", "du/dRe") or name == "forced sigma=0"
+        builds = int(kind in ("baseflow", "eigen") and kind not in planned)
+        planned.add(kind)
+        gate_class(f"{what} {name}", st, ("RealPivotedBandedLU",) if real else COMPLEX_CLASSES,
+                   builds)
+    out = dict(re_c=re_c, res=res, stages=stages,
+               launches={k: sum(st["launches"][k] for st in stages.values()) for k in counts()})
+    if cross_check:
+        t0 = time.time()
+        with host_lu_counted() as hl:
+            rel = {}
+            for name, (shift, b, x) in forced.items():
+                x_lu = saved["_forced_solve"](A, M, shift, b, method="lu")
+                rel[name] = float(torch.linalg.vector_norm(x_lu - x)
+                                  / torch.linalg.vector_norm(x_lu))
+        log(f"{what}: the forced solves on the host LU, asked for ({hl['host_lu']} host LU "
+            f"factors, {time.time() - t0:.2f} s): " + ", ".join(f"{k} rel {v:.1e}"
+                                                                for k, v in rel.items()))
+        if hl["host_lu"] != 2 or not all(v <= 1e-8 for v in rel.values()):
+            raise RuntimeError(f"{what}: banded against host LU: {rel} (1e-8), {hl['host_lu']} "
+                               f"host LU factors (2)")
+    out["seconds"] = time.time() - t_phase
+    log(f"{what}: {out['seconds']:.1f} s in all")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2092,10 +2449,16 @@ def main() -> int:
 
     p5 = sensitivity_path(case, mp)
     mp_launches, pf_launches, p3c_launches = mp["launches"], pf["launches"], p3c["launches"]
+    p3 = {k: mp[k] for k in ("w", "A", "M", "sigma")}  # phase 8's 2D base and answer
     del mp, pf, p3c, cop, cases, mg, p5["stages"]
     torch.cuda.empty_cache()
     p7 = nonmodal_path(case, "7", dev, sweep=OMEGAS, k=2, norm=True, cross_check=True)
-    del case, p7["stages"]
+    del p7["stages"]
+    torch.cuda.empty_cache()
+    p8 = {"span": span_path(case, p3, "8", dev, cross_check=True)}
+    torch.cuda.empty_cache()
+    p8["wnl"] = wnl_path(case, "8", dev, cross_check=True)
+    del case, p3
     torch.cuda.empty_cache()
 
     p6 = production_path(dev)
@@ -2122,16 +2485,30 @@ def main() -> int:
     mains = {"3": mp_launches, "3b": pf_launches, "3c": p3c_launches, "6": p6["launches"],
              "6b": p6b["launches"], "6c": p6c["launches"]}
     case6 = p6["case"]
+    p6d = {k: p6[k] for k in ("w", "A", "M", "sigma")}  # phase 8b's 2D base and answer
     del p6, p6b, p6c
     torch.cuda.empty_cache()
 
     transient_factors: list = []
     p7b = nonmodal_path(case6, "7b", dev, time_factors=transient_factors)
-    del case6, p7b["stages"]
+    del p7b["stages"]
     # phase 4, continued: K1/K2 pivoted f32 on the 175k transient's real factor
     kernels += band_kernels([(", 175k phase 7b", transient_factors[0])], errs, dev)
     del transient_factors
+    torch.cuda.empty_cache()
     log(f"phase 7: phases 7 and 7b took {p7['seconds'] + p7b['seconds']:.1f} s (budget 150 s)")
+
+    q3_factors: list = []
+    p8b = {"span": span_path(case6, p6d, "8b", dev, fit_band=True, keep=q3_factors)}
+    # phase 4, continued: K1/K2 on the 175k quasi-3D factor of beta = SPAN_BETA
+    kernels += band_kernels([(", 175k phase 8b quasi-3D", q3_factors[0])], errs, dev)
+    del q3_factors, p6d
+    torch.cuda.empty_cache()
+    p8b["wnl"] = wnl_path(case6, "8b", dev)
+    del case6
+    p8s = {ph: sum(p[k]["seconds"] for k in ("span", "wnl")) for ph, p in (("8", p8), ("8b", p8b))}
+    log(f"phase 8: phases 8 and 8b took {p8s['8'] + p8s['8b']:.1f} s ({p8s['8']:.1f} + "
+        f"{p8s['8b']:.1f} s; budget 150 s)")
     timed = {e["_key"] for e in kernels}
     kernels += [e for key, e in random_entries.items() if key not in timed]
     for e in kernels:
@@ -2141,13 +2518,15 @@ def main() -> int:
         e["launches_phase5"] = p5["launches"][key] if key else 0
         e["launches_phase6"] = sum(mains[ph][key] for ph in ("6", "6b", "6c")) if key else 0
         e["launches_phase7"] = p7["launches"][key] + p7b["launches"][key] if key else 0
+        e["launches_phase8"] = sum(p[k]["launches"][key] for p in (p8, p8b)
+                                   for k in ("span", "wnl")) if key else 0
     for e in kernels:
         log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
             f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
             f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
             f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound, {e['launches']} launches "
             f"({e['launches_phase5']} in phase 5, {e['launches_phase6']} in phase 6, "
-            f"{e['launches_phase7']} in phase 7)")
+            f"{e['launches_phase7']} in phase 7, {e['launches_phase8']} in phase 8)")
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
 
     log(name_power)

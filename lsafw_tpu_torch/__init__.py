@@ -13,8 +13,11 @@ permutations into and out of the band's order (``csrc/spmv_gather.cu``).
 The same kernels carry the adjoint sensitivity (``sensitivity``) and
 the non-modal toolbox: resolvent gains and pseudospectra
 (``resolvent``) and transient growth by Crank-Nicolson (``transient``,
-the Cayley transform on a real factor).  It imports nothing of the JAX
-package.  ``solver/direct.py`` keeps host SuperLU for
+the Cayley transform on a real factor), the quasi-3D spanwise
+stability of a steady 2D base (``span``) and the weakly nonlinear
+Stuart-Landau expansion at the Hopf point with its forced solves on
+the band factors (``wnl``).  It imports nothing of the JAX package.
+``solver/direct.py`` keeps host SuperLU for
 ``linear_solver="lu"`` and the shift-invert ``method="lu"``, which run
 only when asked for.
 

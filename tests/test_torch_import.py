@@ -20,7 +20,9 @@ from lsafw_tpu_torch.ops.sparse import CSRMatrix
 from lsafw_tpu_torch.resolvent import ResolventSolver
 from lsafw_tpu_torch.sensitivity import EigenSensitivitySolver
 from lsafw_tpu_torch.solver.eigen import krylov_schur
+from lsafw_tpu_torch.span import SpanwiseStability, spanwise_floquet
 from lsafw_tpu_torch.transient import TransientGrowthSolver
+from lsafw_tpu_torch.wnl import find_critical_re, weakly_nonlinear
 
 torch.set_num_threads(1)
 
@@ -44,7 +46,8 @@ def test_import_loads_no_jax_and_no_jax_package():
     code = (
         "import sys, lsafw_tpu_torch, lsafw_tpu_torch.interop, lsafw_tpu_torch.solver.eigen, "
         "lsafw_tpu_torch.solver.baseflow, lsafw_tpu_torch.sensitivity, lsafw_tpu_torch.resolvent, "
-        "lsafw_tpu_torch.transient, lsafw_tpu_torch.solver.eigen2, lsafw_tpu_torch.models.membrane\n"
+        "lsafw_tpu_torch.transient, lsafw_tpu_torch.solver.eigen2, "
+        "lsafw_tpu_torch.models.membrane, lsafw_tpu_torch.span, lsafw_tpu_torch.wnl\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -120,3 +123,27 @@ def test_nonmodal_solvers_refuse_the_cpu_by_default(monkeypatch):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cls(*args)
         assert cls(*args, device="cpu").method == "banded"
+
+
+def test_span_and_wnl_refuse_the_cpu_by_default(monkeypatch):
+    """``SpanwiseStability``, ``weakly_nonlinear`` and ``find_critical_re``
+    default to the card: without one they raise unless ``device="cpu"``
+    is passed; ``spanwise_floquet`` (the periodic base) is not ported and
+    says so."""
+    spaces = define_spaces(unit_square(2))
+    ctx = AssemblyContext.build(spaces, device="cpu")
+    mesh = spaces.velocity.mesh
+    n = spaces.num_dofs
+    bcs = BoundaryConditions(num_dofs=n, dirichlet_mask=np.zeros(n, bool),
+                             dirichlet_values=np.zeros(n))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpanwiseStability(ctx, np.zeros(n), 10.0, bcs, mesh)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        weakly_nonlinear(ctx, mesh, bcs, bcs, 10.0, np.zeros(n))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        find_critical_re(ctx, mesh, bcs, bcs, 40.0, 50.0)
+    span = SpanwiseStability(ctx, np.zeros(n), 10.0, bcs, mesh, device="cpu")
+    assert span.num_dofs == n + spaces.num_velocity_dofs // 2
+    with pytest.raises(NotImplementedError, match="floquet.py"):
+        spanwise_floquet(span, np.zeros((2, n)), 0.1, 1.0)

@@ -22,6 +22,19 @@ The bf16 retry rung (Newton and Stokes) is held to the JAX package's
 plan of the marked pattern (exact) and its result to SuperLU (1e-9, GCR
 at 1e-10); the TOML loaders to the JAX package's (exact).
 
+Quasi-3D spanwise stability: both packages' ``SpanwiseStability``
+around the JAX baseflow give (A(beta), M) on one pattern (rel 1e-12);
+at beta = 0 the port's (u, v, p) block is its 2D eigensystem bit for
+bit and the couplings vanish; its banded eigenpairs (host LU forbidden,
+one plan over the two beta) are held to the JAX package's 2D sigma at
+beta = 0 and to scipy's shift-invert ARPACK at beta = 1.5 (1e-8).
+Weakly nonlinear expansion: both packages' ``weakly_nonlinear`` at
+re_c = RE on the JAX baseflow, their sensitivity solvers served the
+JAX package's pair, adjoint and du/dRe, so that the forced solves,
+loads and coefficients are compared on identical inputs (omega_c,
+lambda' and mu rel 1e-6; q1, q20, q22 rel 1e-8); ``find_critical_re``
+on a stubbed sigma(Re), the same secant iterates in both.
+
 Tolerances: the transposes exact; the scalar forms rel 1e-12 (f64
 einsums in another order); sigma_adj 1e-8 and the adjoint vector rel
 1e-6 (the adjoint eigensolve's ``atol`` is 1e-8); du/dRe rel 1e-7 (GCR
@@ -36,6 +49,7 @@ rows: the same factors at a fraction of the CPU time.
 """
 
 from dataclasses import replace
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,16 +59,22 @@ import scipy.sparse.linalg as spla
 import torch
 
 from lsafw_tpu import sensitivity as jsens
+from lsafw_tpu import span as jspan
+from lsafw_tpu import wnl as jwnl
 from lsafw_tpu.fem import assembly as jassembly
+from lsafw_tpu.models import navier_stokes as jns
 from lsafw_tpu.models.navier_stokes import LinearizedNavierStokesAssembler as JLinearized
 from lsafw_tpu.ops import sparse as jsparse
 from lsafw_tpu.solver import band as jband
 from lsafw_tpu.solver import baseflow as jbaseflow
 from lsafw_tpu.solver import eigen as jeigen
 from lsafw_tpu.solver import linear as jlinear
+from lsafw_tpu.solver import newton as jnewton
 from lsafw_tpu.solver import precond as jprecond
 from lsafw_tpu_torch import interop
 from lsafw_tpu_torch import sensitivity as tsens
+from lsafw_tpu_torch import span as tspan
+from lsafw_tpu_torch import wnl as twnl
 from lsafw_tpu_torch.fem import assembly as tassembly
 from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
 from lsafw_tpu_torch.ops import sparse as tsparse
@@ -89,10 +109,10 @@ def baseflows(cases):
     return np.asarray(jw), np.asarray(tw)
 
 
-def _leading(es_mod, A, M):
+def _leading(es_mod, A, M, target=TARGET):
     es = es_mod.EigenSolver(A, M, es_mod.EigensolverConfig(num_eig=1, atol=1e-8, ncv=16))
     es.set_st_type(es_mod.STType.SINVERT)
-    es.set_target(TARGET)
+    es.set_target(target)
     es.set_st_pc_type("banded")
     pairs = es.solve()
     return pairs, es
@@ -137,7 +157,7 @@ def jax_leading(jax_system):
 def _forbid_host_lu(mp: pytest.MonkeyPatch) -> None:
     """Every host LU of the port raises."""
     for mod, name in ((tdirect, "SparseLU"), (tdirect, "direct_solve"), (tnewton, "SparseLU"),
-                      (tbaseflow, "direct_solve")):
+                      (tbaseflow, "direct_solve"), (teigen, "SparseLU")):
         mp.setattr(mod, name, _no_host_lu)
 
 
@@ -604,3 +624,270 @@ def test_sensitivity_lu_matches_jax_and_banded(cases, baseflows, port_system, po
     assert abs(d - ref["d"]) <= 1e-6 * abs(ref["d"])
     assert abs(d - port_evaluated[1]) <= 1e-6 * abs(ref["d"])
     assert not any(op["pivoted"] or op["fused"] for op in solver.operators.values())
+
+
+# ---------------------------------------------------------------------------
+# Quasi-3D spanwise stability (steady base)
+# ---------------------------------------------------------------------------
+
+BETAS = (0.0, 1.5)
+
+
+@pytest.fixture(scope="module")
+def span_systems(cases, baseflows):
+    """Both packages' quasi-3D (A(beta), M) around the JAX baseflow, per
+    beta: ``{beta: ((JA, JM), (A, M))}``, and the port's builder."""
+    jc, tc = cases
+    jw, _ = baseflows
+    js = jspan.SpanwiseStability(jc["ctx"], jw, RE, jc["bcs_pert"], jc["mesh"])
+    ts = tspan.SpanwiseStability(tc["ctx"], jw, RE, tc["bcs_pert"], tc["mesh"], device="cpu")
+    return ts, {b: (js.assemble_eigensystem(b), ts.assemble_eigensystem(b)) for b in BETAS}
+
+
+@pytest.fixture(scope="module")
+def span_leading(span_systems, jax_leading):
+    """The port's banded eigenpair of A(beta) at each beta, host LU
+    forbidden: at beta = 0 nearest 0.74j, at 1.5 nearest the 2D sigma;
+    with the plans built over the sweep."""
+    ts, systems = span_systems
+    sigma_2d = jax_leading[0][0][0]
+    mp = pytest.MonkeyPatch()
+    _forbid_host_lu(mp)
+    _small_plans(mp)
+    before = dict(tsparse.PLAN_BUILDS)
+    out = {}
+    try:
+        for beta in BETAS:
+            pairs, es = _leading(teigen, *systems[beta][1], TARGET if beta == 0 else sigma_2d)
+            out[beta] = (pairs, es.operator)
+    finally:
+        mp.undo()
+    builds = {k: v - before.get(k, 0) for k, v in tsparse.PLAN_BUILDS.items()
+              if v != before.get(k, 0)}
+    return out, builds
+
+
+@pytest.mark.parametrize("beta", BETAS)
+def test_span_eigensystem_matches_jax(span_systems, beta):
+    """(A(beta), M) on the JAX package's quasi-3D pattern (its pressure
+    outlet's facet blocks included), rel 1e-12."""
+    ts, systems = span_systems
+    (JA, JM), (A, M) = systems[beta]
+    assert A.pattern is M.pattern is ts.pattern
+    assert np.array_equal(ts.pattern.indptr, np.asarray(JA.pattern.indptr))
+    assert np.array_equal(ts.pattern.indices, np.asarray(JA.pattern.indices))
+    assert ts.num_dofs == ts.n2 + ts.ns and ts._outlets
+    for X, JX in ((A, JA), (M, JM)):
+        assert _rel(X.data, JX.data) <= 1e-12
+
+
+def test_span_beta0_reduces_to_2d(span_systems, port_system):
+    """At beta = 0 the (u, v, p) block of (A, M) is the 2D eigensystem (the
+    same element data in the same order: exact on the CPU), the spanwise
+    couplings vanish exactly, and the spanwise block is a nonzero
+    advection-diffusion operator with its own mass."""
+    ts, systems = span_systems
+    A, M = systems[0.0][1]
+    A2, M2 = port_system
+    n2 = ts.n2
+    As, Ms = A.to_scipy(), M.to_scipy()
+    assert (As[:n2, :n2] != A2.to_scipy()).nnz == 0
+    assert (Ms[:n2, :n2] != M2.to_scipy()).nnz == 0
+    assert abs(As[:n2, n2:]).max() == 0.0 and abs(As[n2:, :n2]).max() == 0.0
+    assert abs(Ms[:n2, n2:]).max() == 0.0 and abs(Ms[n2:, :n2]).max() == 0.0
+    assert abs(As[n2:, n2:]).max() > 0 and abs(Ms[n2:, n2:]).max() > 0
+    free_w = ~ts.bc_mask[n2:].numpy()
+    assert free_w.any() and not free_w.all()  # the cylinder and inlet pin w, the outlet not
+
+
+def test_span_beta0_sigma_matches_2d(span_leading, jax_leading, span_systems):
+    """beta = 0 decouples: the 2D mode is a quasi-3D mode (1e-8 from the
+    JAX package's 2D sigma), through the pivoted banded factor."""
+    out, _ = span_leading
+    pairs, op = out[0.0]
+    A, M = span_systems[1][0.0][1]
+    assert abs(pairs[0][0] - jax_leading[0][0][0]) <= 1e-8
+    assert teigen.eigen_residuals(A, M, pairs)[0] <= 1e-8
+    assert op.pivoted and isinstance(op.device_op.Cop, BCSRShiftedOp)
+
+
+def test_span_beta_sigma_matches_scipy(span_leading, span_systems):
+    """beta = 1.5: the banded eigenvalue nearest the 2D sigma against
+    scipy's shift-invert ARPACK on the same matrices (1e-8), spanwise
+    modulation damping the mode (the physics gate of the JAX package's
+    cylinder benchmark), and one plan of each kind over the sweep."""
+    out, builds = span_leading
+    (pairs, _), sigma0 = out[1.5], out[0.0][0][0][0]
+    sigma = pairs[0][0]
+    A, M = span_systems[1][1.5][1]
+    assert teigen.eigen_residuals(A, M, pairs)[0] <= 1e-8
+    As, Ms = A.to_scipy().astype(complex), M.to_scipy().astype(complex)
+    lu = spla.splu((As - sigma0 * Ms).tocsc())
+    op = spla.LinearOperator(As.shape, matvec=lambda x: lu.solve(Ms @ x), dtype=complex)
+    theta = spla.eigs(op, k=1, which="LM", tol=1e-12, return_eigenvectors=False)
+    lam = sigma0 + 1.0 / theta
+    assert np.abs(lam - sigma).min() <= 1e-8
+    assert sigma.real < sigma0.real - 1e-3
+    assert builds == {"rcm": 1, "band": 1, "csr": 1}
+
+
+# ---------------------------------------------------------------------------
+# Weakly nonlinear expansion
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kind", ["real", "complex", "mixed"])
+def test_convective_bilinear_load_matches_jax(cases, kind):
+    jc, tc = cases
+    rng = np.random.default_rng(("real", "complex", "mixed").index(kind) + 20)
+    n = tc["spaces"].num_dofs
+    a, b = rng.standard_normal(n), rng.standard_normal(n)
+    if kind != "real":
+        a = a + 1j * rng.standard_normal(n)
+    if kind == "complex":
+        b = b + 1j * rng.standard_normal(n)
+    got = twnl.convective_bilinear_load(tc["ctx"], a, b)
+    ref = jwnl.convective_bilinear_load(jc["ctx"], a, b)
+    assert got.is_complex() == (kind != "real")
+    assert _rel(got, ref) <= 1e-12
+    assert not got[tc["spaces"].num_velocity_dofs:].any()  # no pressure rows
+
+
+def _served(base, ref, vec):
+    """``base``'s sensitivity solver serving the JAX package's fixture
+    pair, adjoint and du/dRe instead of solving them (the adjoint rescaled
+    to a^H M v = 1 for the v it is given); ``vec`` makes a package vector."""
+
+    class Served(base):
+        def solve_direct_mode(self, target=None):
+            return ref["sigma"], vec(ref["v"])
+
+        def solve_adjoint_mode(self, sigma=None, v=None):
+            v = v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            return vec(ref["a"] / np.conj(np.vdot(ref["a"], self._M.to_scipy() @ v)))
+
+        def compute_baseflow_sensitivity(self, tol=None):
+            return vec(ref["s"])
+
+    return Served
+
+
+@pytest.fixture(scope="module")
+def jax_wnl(cases, baseflows, jax_sensitivity):
+    """The JAX package's ``weakly_nonlinear`` at re_c = RE on the JAX
+    baseflow, its sensitivity solver served from ``jax_sensitivity``: two
+    host solves and the loads."""
+    jc, _ = cases
+    jw, _ = baseflows
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jwnl, "EigenSensitivitySolver",
+               _served(jsens.EigenSensitivitySolver, jax_sensitivity, np.asarray))
+    try:
+        return jwnl.weakly_nonlinear(jc["ctx"], jc["mesh"], jc["bcs_base"], jc["bcs_pert"], RE,
+                                     jw, target=TARGET)
+    finally:
+        mp.undo()
+
+
+@pytest.mark.parametrize("method", ["banded", "lu"])
+def test_weakly_nonlinear_matches_jax(cases, baseflows, jax_sensitivity, jax_wnl, method,
+                                      monkeypatch):
+    """The port's ``weakly_nonlinear`` on the same inputs (the JAX
+    package's pair, adjoint and du/dRe served to both): omega_c, lambda'
+    and mu rel 1e-6, q1, q20 and q22 rel 1e-8; the forced solves on the
+    band factors with host LU forbidden, or on the host LU when asked."""
+    _, tc = cases
+    jw, _ = baseflows
+    monkeypatch.setattr(twnl, "EigenSensitivitySolver",
+                        _served(tsens.EigenSensitivitySolver, jax_sensitivity, torch.as_tensor))
+    if method == "banded":
+        _forbid_host_lu(monkeypatch)
+        _small_plans(monkeypatch)
+    res = twnl.weakly_nonlinear(tc["ctx"], tc["mesh"], tc["bcs_base"], tc["bcs_pert"], RE, jw,
+                                target=TARGET, si_method=method, device="cpu")
+    ref = jax_wnl
+    print(f"WNL ({method}): mu port {res.mu:.10e}, JAX package {ref.mu:.10e}")
+    assert abs(res.omega_c - ref.omega_c) <= 1e-6 * abs(ref.omega_c)
+    assert abs(res.lambda_p - ref.lambda_p) <= 1e-6 * abs(ref.lambda_p)
+    assert abs(res.mu - ref.mu) <= 1e-6 * abs(ref.mu)
+    for got, want in ((res.q1, ref.q1), (res.q20, ref.q20), (res.q22, ref.q22)):
+        assert _rel(got, want) <= 1e-8
+    assert not res.q20.is_complex() and res.q22.is_complex()
+    for re in (RE - 1.0, RE + 2.0):
+        assert res.amplitude(re) == pytest.approx(ref.amplitude(re), rel=1e-6, abs=1e-12)
+        assert res.frequency(re) == pytest.approx(ref.frequency(re), rel=1e-6)
+    assert _rel(res.mean_flow(RE + 2.0), ref.mean_flow(RE + 2.0)) <= 1e-8
+
+
+def _sigma_of(re: float) -> complex:
+    """A cheap sigma(Re) with a curved growth rate: onset at 46.3."""
+    x = re - 46.3
+    return complex(4e-3 * x - 6e-5 * x * x, 0.75 + 2e-3 * x)
+
+
+def _stub_branch(mp: pytest.MonkeyPatch, baseflow_mod, newton_mod, ns_mod, eigen_mod,
+                 seen: list) -> None:
+    """The same stubs of the baseflow, Newton, assembly and eigensolve in
+    one package's modules: a "baseflow" is [Re], each eigensolve records
+    its Re and returns the conjugate pair of ``_sigma_of``."""
+
+    class Baseflow:
+        def __init__(self, ctx, mesh, bcs, *, re):
+            self.re = re
+
+        def solve(self, **kw):
+            return np.array([self.re])
+
+    class Newton:
+        def __init__(self, asm, **kw):
+            pass
+
+        def solve(self, w, re, **kw):
+            return SimpleNamespace(w=np.array([re]))
+
+    class Linearized:
+        def __init__(self, w, ctx, re, bcs, mesh):
+            self.re = re
+
+        def assemble_eigensystem(self):
+            return self.re, None
+
+    class Eigen:
+        def __init__(self, A, M, config):
+            self.re = A
+
+        def __getattr__(self, name):  # set_st_type, set_target, ...
+            return lambda *args: None
+
+        def solve(self):
+            seen.append(self.re)
+            s = _sigma_of(self.re)
+            v = np.array([1.0, 1j])
+            return [(s.conjugate(), v.conj()), (s, v)]
+
+    mp.setattr(baseflow_mod, "BaseFlowSolver", Baseflow)
+    mp.setattr(newton_mod, "NewtonSolver", Newton)
+    mp.setattr(ns_mod, "StationaryNavierStokesAssembler", lambda *a, **k: None)
+    mp.setattr(ns_mod, "LinearizedNavierStokesAssembler", Linearized)
+    mp.setattr(eigen_mod, "EigenSolver", Eigen)
+
+
+def test_find_critical_re_matches_jax(cases, monkeypatch):
+    """The secant of both packages on the same stubbed sigma(Re): the same
+    Re iterates, Re_c, baseflow and sigma."""
+    jc, tc = cases
+    jseen, tseen = [], []
+    _stub_branch(monkeypatch, jbaseflow, jnewton, jns, jeigen, jseen)
+    _stub_branch(monkeypatch, twnl, twnl, twnl, twnl, tseen)
+    args = (jc["bcs_base"], jc["bcs_pert"], 40.0, 55.0)
+    jre, jw, jsig = jwnl.find_critical_re(jc["ctx"], jc["mesh"], *args, tol=1e-3)
+    re_c, w, sig = twnl.find_critical_re(tc["ctx"], tc["mesh"], tc["bcs_base"], tc["bcs_pert"],
+                                         40.0, 55.0, tol=1e-3, device="cpu")
+    print(f"find_critical_re: iterates {tseen}")
+    assert len(tseen) > 3 and tseen[:2] == [40.0, 55.0]
+    assert np.allclose(tseen, jseen, rtol=1e-12, atol=0)
+    assert re_c == pytest.approx(jre, rel=1e-12) and np.array_equal(w, [re_c])
+    assert abs(sig - jsig) <= 1e-12 and abs(sig.real) < 1e-3 * abs(sig.imag) and sig.imag > 0
+    with pytest.raises(ValueError, match="bracket"):
+        twnl.find_critical_re(tc["ctx"], tc["mesh"], tc["bcs_base"], tc["bcs_pert"], 47.0, 55.0,
+                              device="cpu")
