@@ -147,6 +147,15 @@ class BandPlan:
             self._device[key] = hit
         return hit
 
+    @staticmethod
+    def band_bytes(n: int, B: int, *, nb: int, chunk: int = 128, per_entry: int = 8) -> int:
+        """Bytes of the band of an n-row system at B off-diagonal blocks:
+        (nblk_pad + B) block rows of 2B + 1 (nb, nb) blocks, the block
+        rows padded to a multiple of ``chunk``; ``per_entry`` 8 for a
+        complex64 band, 4 for f32 or complex bf16, 2 for real bf16."""
+        nblk_pad = -(-(-(-n // nb)) // chunk) * chunk
+        return (nblk_pad + B) * (2 * B + 1) * nb * nb * per_entry
+
     @classmethod
     def build(
         cls,
@@ -190,7 +199,7 @@ class BandPlan:
             f32_b, bf16_b = (4, 2) if real else (8, 4)
 
             def _bytes(B_, per_entry):
-                return (nblk_pad + B_) * (2 * B_ + 1) * nb * nb * per_entry
+                return cls.band_bytes(n, B_, nb=nb, chunk=chunk, per_entry=per_entry)
 
             if force_f32:
                 while B > 1 and _bytes(B, f32_b) > max_bytes:
@@ -211,7 +220,7 @@ class BandPlan:
         logger.info(
             "BandPlan: n=%d bandwidth=%d B=%d nblk=%d (%sband %.2f GB %s, %.1fs plan%s)",
             n, bw, B, nblk, "real " if real else "",
-            (nblk_pad + B) * (2 * B + 1) * nb * nb * (4 if real else 8)
+            cls.band_bytes(n, B, nb=nb, chunk=chunk, per_entry=4 if real else 8)
             / (2 if band_dtype == "bf16" else 1) / 1e9, band_dtype, time.time() - t0,
             f"; {dropped} entries outside the band dropped" if dropped else "",
         )
@@ -231,6 +240,11 @@ def pattern_permutation(pattern: SparsityPattern) -> np.ndarray:
         return rcm_permutation(pat + pat.T)
 
     return per_pattern(pattern, ("rcm",), build)
+
+
+def band_nb() -> int:
+    """Block size of the band plans: env ``LSAFW_BAND_NB``, default 128."""
+    return int(os.environ.get("LSAFW_BAND_NB", "128"))
 
 
 def band_mem_budget() -> int:
@@ -264,7 +278,7 @@ def plan_for_csr(A: CSRMatrix, *, nb: int | None = None, chunk: int = 128,
     :func:`mark_bf16_unstable` force ``force_f32`` (the budget clips B at
     f32 storage instead of asking for bf16)."""
     if nb is None:
-        nb = int(os.environ.get("LSAFW_BAND_NB", "128"))
+        nb = band_nb()
     if os.environ.get("LSAFW_BAND_DTYPE", "").lower() == "f32" or bf16_unstable(A.pattern):
         force_f32 = True
     if max_bytes is None:

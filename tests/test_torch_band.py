@@ -277,6 +277,24 @@ def test_plan_switches_match_jax(system, jax_A, case, monkeypatch):
         assert got.nb == 256 and tband.plan_for_csr(A, nb=128) is not got
 
 
+@pytest.mark.parametrize("real", [False, True])
+def test_band_bytes_is_the_plans_budget_rule(system, real, monkeypatch):
+    """``BandPlan.band_bytes`` is the storage the budget rule weighs: at
+    exactly its f32 figure the plan keeps f32 storage at full B, one byte
+    under it takes the bf16 band; ``band_nb`` reads ``LSAFW_BAND_NB``."""
+    A = system["A"]
+    full = tband.plan_for_csr(A, real=real, max_bytes=1 << 62)
+    per = 4 if real else 8
+    need = tband.BandPlan.band_bytes(full.n, full.B, nb=full.nb, chunk=full.chunk, per_entry=per)
+    assert need == full.rows_total * full.R * full.nb * full.nb * per
+    fits = tband.plan_for_csr(A, real=real, max_bytes=need)
+    over = tband.plan_for_csr(A, real=real, max_bytes=need - 1)
+    assert (fits.band_dtype, fits.B) == ("f32", full.B)
+    assert over.band_dtype == "bf16"
+    monkeypatch.setenv("LSAFW_BAND_NB", "256")
+    assert tband.band_nb() == 256 == tband.plan_for_csr(A, real=real).nb
+
+
 def test_unsupported_nb_raises_before_a_cuda_factor(system):
     """On the CPU the plain versions take any nb; on the card a plan of an
     nb the kernels were not built for raises before its band is made."""
