@@ -181,15 +181,46 @@ non-zero):
      over the default ``LSAFW_BAND_MEM_GB`` of 12, so the beta stages set
      it to that storage plus 1 GB (printed with the reckoning), and
      ``find_critical_re`` brackets (46, 48) with 46 < Re_c < 48; phase
-     4's K1/K2 checks and times run on the beta = 1.5 factor.
+     4's K1/K2 checks and times run on the beta = 1.5 factor;
+  9. (after phase 8, on phase 3's mesh, with the nonlinear problem's BCs)
+     nonlinear time stepping (``solver.timestepping.UnsteadySolver``, the
+     banded chord Newton), the shedding cycle and its Floquet multipliers
+     (``floquet.FloquetSolver``, ``span.spanwise_floquet``), each stage
+     read on its own (``unsteady_path``): 9a the forced DNS closure of
+     ``tests/benchmark/test_resolvent_dns.py`` on phase 7's Re = 40
+     baseflow and optimal forcing at omega = 0.75 (2.25 forcing periods at
+     64 steps a period; amplitude within 5% of the gain, correlation >
+     0.99); 9b ``tests/benchmark/test_unsteady.py`` at Re = 60 (ramped
+     banded baseflow, the leading pair near 0.05+0.75j, 360 steps of 0.25
+     from w + 1e-5 v; the probe's frequency within 3% of sigma_i, its
+     growth rate within 10% + 2e-3 of sigma_r, the envelope's growth, a
+     finite state); 9c ``examples/floquet_cycle.py``'s saturated cycle
+     (1,750 steps of 0.2 on from 9b; the last quarter's amplitude within 5%
+     of the one before, omega_sat > sigma_i, then 40 snapshots of T/40,
+     the orbit closure <= 1e-2) and the device operations of one step
+     under the profiler; 9d the Floquet multipliers on 40 prestored real
+     factors (k = 5: the second-largest |mu| < 1 + 1e-3, the trivial error
+     <= 1e-3), one inexact trip (the cycle-mean factor) within 1e-8 of the
+     prestored one, one step within 1e-9 of a host SuperLU of its implicit
+     matrix (asked for, one factor counted); 9e the spanwise multipliers at
+     beta = 1.6 on the cycle-mean factor (k = 3): every one of a mode that
+     carries velocity below 1, at least one such, and the pure-pressure
+     modes' (``split_modes``) (-1)^40 = 1 within ARPACK's 1e-8 (the theta
+     step maps a pure-pressure vector to its negative), as in 9d.  K1/K2
+     pivoted f32 x1 once per band solve in 9a-9c, pivoted f32 x2 (a complex
+     vector through a real factor, one launch) in 9d and 9e, with no other
+     band launch; G's permute forms and S as in phase 3; no plan built but
+     each pattern's first.  Then phase 4's K1/K2 checks and times run on a
+     9d factor.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, one entry per kernel, mode, storage and type and per
 main-path factor (``launches``: phases 3, 3b, 3c, 6, 6b and 6c;
 ``launches_phase5``: the stages of phase 5; ``launches_phase6``: phases
 6 to 6c; ``launches_phase7``: the stages of phases 7 and 7b;
-``launches_phase8``: the stages of phases 8 and 8b; modes no main path
-runs carry phase 2's random factors), and
+``launches_phase8``: the stages of phases 8 and 8b; ``launches_phase9``:
+the stages of phase 9; modes no main path runs carry phase 2's random
+factors), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -200,6 +231,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -881,38 +913,42 @@ _HOST_LU: dict = {}  # the port's host LU class, kept while forbid_host_lu() stu
 
 def forbid_host_lu() -> None:
     """Make every host LU of the port raise: the device path must not use it."""
-    from lsafw_tpu_torch import sensitivity
-    from lsafw_tpu_torch.solver import baseflow, direct, eigen, newton
+    from lsafw_tpu_torch import floquet, sensitivity
+    from lsafw_tpu_torch.solver import baseflow, direct, eigen, newton, timestepping
 
     def no_host_lu(*args, **kw):
         raise RuntimeError("host LU called on the device path")
 
     _HOST_LU.setdefault("SparseLU", direct.SparseLU)
     for mod, name in ((direct, "SparseLU"), (direct, "direct_solve"), (newton, "SparseLU"),
-                      (baseflow, "direct_solve"), (eigen, "SparseLU"), (sensitivity, "SparseLU")):
+                      (baseflow, "direct_solve"), (eigen, "SparseLU"), (sensitivity, "SparseLU"),
+                      (timestepping, "SparseLU"), (floquet, "SparseLU")):
         setattr(mod, name, no_host_lu)
 
 
 @contextmanager
-def host_lu_counted():
-    """The host LU of the shift-invert operator's ``"lu"`` method, asked
-    for explicitly, while the block runs, counting its factorizations; it
-    raises again after the block."""
+def host_lu_counted(module=None):
+    """The host LU of ``module`` (default: the shift-invert operator's
+    ``"lu"`` method), asked for explicitly, while the block runs, counting
+    its factorizations; it raises again after the block."""
     from lsafw_tpu_torch.solver import eigen
 
+    module = module or eigen
     seen = {"host_lu": 0}
+    lock = threading.Lock()  # the factors may be made in several threads
 
     class Counted(_HOST_LU["SparseLU"]):
         def __init__(self, *args, **kw):
-            seen["host_lu"] += 1
+            with lock:
+                seen["host_lu"] += 1
             super().__init__(*args, **kw)
 
-    saved = eigen.SparseLU
-    eigen.SparseLU = Counted
+    saved = module.SparseLU
+    module.SparseLU = Counted
     try:
         yield seen
     finally:
-        eigen.SparseLU = saved
+        module.SparseLU = saved
 
 
 def nonzero(launches: dict) -> dict:
@@ -1873,7 +1909,7 @@ def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = F
             gate_stage(f"{what} {name}", st, "pivoted.f32x1", "RealPivotedBandedLU", "f64.f32x1")
             if not st["launches"]["spmv_shifted_real.original"]:
                 raise RuntimeError(f"{what} {name}: no real-shift S launch")
-    out = dict(curve=curve, modes=modes, rnorm=rnorm, growth=growth, stages=stages,
+    out = dict(curve=curve, modes=modes, rnorm=rnorm, growth=growth, stages=stages, w=w, M=M,
                launches={k: sum(st["launches"][k] for st in stages.values()) for k in counts()})
     if cross_check:  # needs k = 2 and the norm
         # The resolvent's gains and norm are solved again on the host LU.  The
@@ -1883,15 +1919,23 @@ def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = F
         # operator (equal to G to second order in q0's error), and apply the
         # gain operator to q0, held vector by vector.
         t0 = time.time()
-        with host_lu_counted() as hl:
-            rs_lu = ResolventSolver(A, M, nu, mask, method="lu", device=dev)
-            g_lu = rs_lu.solve(OMEGA_CHECK, k=2).gains
-            n_lu = rs_lu.resolvent_norm(Z_CHECK, tol=1e-9)
+
+        def resolvent_lu():
+            return ResolventSolver(A, M, nu, mask, method="lu", device=dev)
+
+        def transient_lu():
             ts_lu = TransientGrowthSolver(A, M, nu, mask, method="lu", device=dev)
             fw_lu, ad_lu, s = ts_lu._propagators(HORIZON / CN_STEPS)
             qT = ts_lu._march(fw_lu, q0, CN_STEPS)
             z_lu = ts_lu._march_adjoint(ad_lu, s, ts_lu._mass(qT), CN_STEPS)
-            G_lu = float(qT @ ts_lu._mass(qT))
+            return qT, z_lu, float(qT @ ts_lu._mass(qT))
+
+        # the three host-LU checks side by side: SuperLU releases the GIL
+        with host_lu_counted() as hl, ThreadPoolExecutor(max_workers=3) as pool:
+            jobs = (pool.submit(lambda: resolvent_lu().solve(OMEGA_CHECK, k=2).gains),
+                    pool.submit(lambda: resolvent_lu().resolvent_norm(Z_CHECK, tol=1e-9)),
+                    pool.submit(transient_lu))
+            g_lu, n_lu, (qT, z_lu, G_lu) = (job.result() for job in jobs)
         rel_g = float(np.abs(modes.gains - g_lu).max() / np.abs(g_lu).max())
         rel_n, rel_G = abs(rnorm - n_lu) / n_lu, abs(growth.gains[0] - G_lu) / G_lu
         rel_z = float(torch.linalg.vector_norm(z_lu - z_bd) / torch.linalg.vector_norm(z_bd))
@@ -2302,6 +2346,350 @@ def wnl_path(case, phase: str, dev, *, cross_check: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: nonlinear time stepping, the shedding cycle and its Floquet multipliers
+# ---------------------------------------------------------------------------
+
+UNSTEADY_RE = 60.0  # tests/benchmark/test_unsteady.py:29, examples/floquet_cycle.py:37
+DNS_TARGET, DNS_EPS, DNS_DT, DNS_STEPS = 0.05 + 0.75j, 1e-5, 0.25, 360  # test_unsteady.py
+SAT_DT, SAT_STEPS = 0.2, 1750  # examples/floquet_cycle.py: dt 0.2, t_sat = 350
+N_SNAPS, FLOQUET_K = 40, 5  # examples/floquet_cycle.py
+SPAN_FLOQUET_BETA, SPAN_FLOQUET_K = 1.6, 3  # mode A's wavenumber; secondary_instability.py's k
+FORCED_EPS, FORCED_PER = 1e-6, 64  # tests/benchmark/test_resolvent_dns.py
+# K1/K2 mode, band factor class and G's types: the march's real vectors and
+# the Floquet trips' complex ones, both on real factors
+MARCH_KEY = ("pivoted.f32x1", "RealPivotedBandedLU", "f64.f32x1")
+TRIP_KEY = ("pivoted.f32x2", "RealPivotedBandedLU", "c128.f32x2")
+# the stages that may build a plan: the first on the 2D pattern's real and
+# complex plans (cached since phase 3 unless evicted) and on the quasi-3D one
+P9_BUILDS = {"9a forced DNS": 1, "9b eigen": 1, "9e spanwise floquet": 1}
+
+
+def probe_dof(spaces) -> int:
+    """The v-velocity DOF nearest (2.5, 0), the reference's wake probe."""
+    coords, nu = spaces.velocity.dof_coords, spaces.num_velocity_dofs
+    d2 = (coords[1:nu:2, 0] - 2.5) ** 2 + coords[1:nu:2, 1] ** 2
+    return 2 * int(np.argmin(d2)) + 1
+
+
+def p9_line(what: str, st: dict, stats: dict | None = None) -> None:
+    """One line per phase-9 stage: seconds, band solves, GCR iterations,
+    factors and their seconds, ARPACK applies (monodromy applies), peak
+    memory above the stage's start, plans built."""
+    s = stats or {}
+    log(f"{what}: {st['seconds']:.2f} s, band solves {st['solves']}, GCR iterations "
+        f"{s.get('gcr_its', 0)}, factors {s.get('factors', 0)} in {s.get('factor_s', 0.0):.2f} s, "
+        f"monodromy applies {s.get('applies', 0)}, original-order matvecs {st['matvecs']}, peak "
+        f"{st['peak_gb'] - st['resident_gb']:.3f} GB above its start ({st['peak_gb']:.3f} GB in "
+        f"all), plans built {st['builds']}")
+
+
+def split_modes(res, velocity: np.ndarray) -> tuple[list, list]:
+    """(multipliers of modes that carry velocity, multipliers of
+    pure-pressure modes): a mode whose velocity rows (``velocity``, a
+    boolean row mask) hold at most 1e-8 of its norm is pure pressure.  The
+    theta step maps a pure-pressure vector (0, p0) to (0, -p0) (u1 = 0
+    solves the momentum rows with G p1 = -G p0, and the continuity and
+    Dirichlet rows), so such modes carry mu = (-1)^N exactly: no state of
+    the flow, and a cluster of |mu| = 1 that ARPACK meets."""
+    flow, pressure = [], []
+    for mu, x in zip(res.multipliers, res.modes):
+        vel = np.linalg.norm(x[velocity]) <= 1e-8 * np.linalg.norm(x)
+        (pressure if vel else flow).append(complex(mu))
+    return flow, pressure
+
+
+def forced_dns(case, p7: dict, dev) -> dict:
+    """Phase 9a (``tests/benchmark/test_resolvent_dns.py``): the stable
+    Re = 40 flow forced with eps Re(M f e^{i omega t}), f the optimal
+    forcing at omega = 0.75 of phase 7, started on the predicted harmonic
+    orbit w + eps Re(gain q), marched 2.25 forcing periods at 64 steps a
+    period; the response amplitude reconstructed from t = 2 and 2.25
+    periods against the gain, its shape against the resolvent mode."""
+    import torch
+    from lsafw_tpu_torch.ops.sparse import spmv
+    from lsafw_tpu_torch.solver.timestepping import UnsteadySolver
+
+    modes, M = p7["modes"], p7["M"]
+    w = torch.as_tensor(p7["w"], device=dev)
+    gain, om = float(modes.gains[0]), float(modes.omega)
+    f = torch.as_tensor(modes.forcings[0], device=dev)
+    qhat = gain * torch.as_tensor(modes.responses[0], device=dev)
+    Mf = spmv(M, f)
+    a, b = Mf.real.contiguous(), Mf.imag.contiguous()
+
+    def load_fn(t):
+        return FORCED_EPS * (a * np.cos(om * t) - b * np.sin(om * t))
+
+    dt = 2 * np.pi / om / FORCED_PER
+    us = UnsteadySolver(case["ctx"], case["mesh"], case["bcs_base"], NONMODAL_RE,
+                        newton_tol=1e-11, refactor_every=100, device=dev)
+    full = us.run(w + FORCED_EPS * qhat.real, dt, 2 * FORCED_PER, load_fn=load_fn)
+    quarter = us.run(full.q, dt, FORCED_PER // 4, t0=float(full.t[-1]), load_fn=load_fn)
+    est = (full.q - w) / FORCED_EPS - 1j * (quarter.q - w) / FORCED_EPS
+    amp = float(torch.sqrt(torch.vdot(est, spmv(M, est)).real))
+    corr = float(torch.vdot(est, spmv(M, qhat)).abs()
+                 / (amp * torch.sqrt(torch.vdot(qhat, spmv(M, qhat)).real)))
+    return dict(gain=gain, amp=amp, corr=corr, dt=dt, steps=2 * FORCED_PER + FORCED_PER // 4,
+                solver=us, newton=[s.newton_iters for s in full.stats + quarter.stats])
+
+
+def unsteady_path(case, p7: dict, dev, keep: list | None = None) -> dict:
+    """Phase 9, on phase 3's 43k mesh with the nonlinear problem's BCs:
+    9a the forced DNS closure at Re = 40 (:func:`forced_dns`); 9b the DNS
+    against linear theory at Re = 60 (``tests/benchmark/test_unsteady.py``:
+    ramped banded baseflow, 4 steps, tol 1e-10; the leading pair near
+    0.05+0.75j, num_eig 2, ncv 30, atol 1e-9; the march from w + 1e-5 v,
+    v = Re(v_hat) normalised, dt 0.25, 360 steps, refactor every 50,
+    Newton to 1e-10; the probe v at (2.5, 0)); 9c the saturated cycle
+    (``examples/floquet_cycle.py``: on from 9b's state at dt 0.2, refactor
+    every 10, Newton to 1e-9, t_sat = 350; then N = 40 steps of T/40,
+    refactoring every step, stored as the snapshots); 9d the 2D Floquet
+    multipliers on the prestored factors (k = 5), one inexact trip against
+    the prestored one and one step against a host SuperLU (asked for, one
+    factor counted); 9e the spanwise Floquet multipliers at beta = 1.6 on
+    the cycle-mean factor (k = 3).  Each a stage, gated.  ``keep``
+    receives one of 9d's factors."""
+    import torch
+    from scipy.signal import hilbert
+    from lsafw_tpu_torch import floquet as tfloquet
+    from lsafw_tpu_torch.floquet import FloquetSolver
+    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.ops.sparse import CSRMatrix
+    from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
+    from lsafw_tpu_torch.solver.eigen import (
+        EigenSolver, EigensolverConfig, STType, _si_apply_C, eigen_residuals)
+    from lsafw_tpu_torch.solver.timestepping import UnsteadySolver, dominant_frequency
+    from lsafw_tpu_torch.span import SpanwiseStability, spanwise_floquet
+
+    what = "phase 9"
+    t_phase = time.time()
+    stages: dict = {}
+    stats: dict = {}
+    ctx, mesh, bcs, spaces = case["ctx"], case["mesh"], case["bcs_base"], case["spaces"]
+    nu, n = spaces.num_velocity_dofs, spaces.num_dofs
+    probe = probe_dof(spaces)
+    rng = np.random.default_rng(9)
+    out: dict = {}
+
+    def done(name: str) -> None:
+        p9_line(f"{what}: {name}", stages[name], stats[name])
+
+    with plain_loops_forbidden():
+        with stage("9a forced DNS", stages):
+            fa = forced_dns(case, p7, dev)
+        stats["9a forced DNS"] = fa.pop("solver").stats
+        done("9a forced DNS")
+
+        with stage("9b baseflow", stages):
+            bf = BaseFlowSolver(ctx, mesh, bcs, re=UNSTEADY_RE)
+            w = torch.as_tensor(bf.solve(ramp=True, steps=4, tol=1e-10, max_it=40,
+                                         linear_solver="banded"), device=dev)
+        stats["9b baseflow"] = dict(factors=bf.stats["factors"], factor_s=bf.stats["factor_s"],
+                                    gcr_its=bf.stats["gcr_its"])
+        done("9b baseflow")
+        with stage("9b eigen", stages):
+            A, M = LinearizedNavierStokesAssembler(w, ctx, UNSTEADY_RE, case["bcs_pert"],
+                                                   mesh).assemble_eigensystem()
+            es = EigenSolver(A, M, EigensolverConfig(num_eig=2, atol=1e-9, ncv=30))
+            es.set_st_type(STType.SINVERT)
+            es.set_target(DNS_TARGET)
+            es.set_st_pc_type("banded")
+            pairs = es.solve()
+        sigma, vhat = max(pairs, key=lambda p: p[0].real)
+        e_res = float(eigen_residuals(A, M, [(sigma, vhat)])[0])
+        fig = es.operator.figures()
+        stats["9b eigen"] = dict(factors=1, factor_s=fig["factor_s"], applies=fig["applies"])
+        done("9b eigen")
+        del A, M, es
+        v = np.real(vhat)
+        v = torch.as_tensor(v / np.linalg.norm(v), device=dev)
+        with stage("9b march", stages):
+            us = UnsteadySolver(ctx, mesh, bcs, UNSTEADY_RE, newton_tol=1e-10, refactor_every=50,
+                                device=dev)
+            dns = us.run(w + DNS_EPS * v, DNS_DT, DNS_STEPS, probe_dofs=[probe])
+        stats["9b march"] = us.stats
+        done("9b march")
+        del us
+        wp = float(w[probe])
+        sig, t = dns.probes[:, 0] - wp, dns.t
+        m = len(t)
+        omega_fit = dominant_frequency(t[m // 3:], sig[m // 3:])
+        env = np.abs(hilbert(sig - sig.mean()))
+        half = slice(m // 2, 5 * m // 6)
+        sigma_r_fit = float(np.polyfit(t[half], np.log(env[half]), 1)[0])
+        grow = env[half][-1] / (np.exp(sigma.real * (t[half][-1] - t[half][0])) * env[half][0])
+
+        with stage("9c saturation", stages):
+            us = UnsteadySolver(ctx, mesh, bcs, UNSTEADY_RE, newton_tol=1e-9, refactor_every=10,
+                                device=dev)
+            sat = us.run(dns.q, SAT_DT, SAT_STEPS, probe_dofs=[probe], t0=float(t[-1]))
+        stats["9c saturation"] = us.stats
+        done("9c saturation")
+        newton_sat = [s.newton_iters for s in sat.stats]
+        q, _ = us.step(sat.q, SAT_DT)  # a refactoring step; the next reuses its factor
+        step_wall, step_busy, step_ops = device_busy(lambda: us.step(q, SAT_DT))
+        del us
+        ssig = sat.probes[:, 0] - wp
+        q4 = len(ssig) // 4
+        a_last, a_prev = np.abs(ssig[-q4:]).max(), np.abs(ssig[-2 * q4:-q4]).max()
+        omega_sat = dominant_frequency(sat.t[-2 * q4:], ssig[-2 * q4:])
+        period = 2 * np.pi / omega_sat
+        dt_f = period / N_SNAPS
+        with stage("9c snapshots", stages):
+            us = UnsteadySolver(ctx, mesh, bcs, UNSTEADY_RE, newton_tol=1e-10, refactor_every=1,
+                                device=dev)
+            snaps = torch.empty((N_SNAPS, n), dtype=torch.float64, device=dev)
+            q = sat.q
+            for k in range(N_SNAPS):
+                snaps[k] = q
+                q, _ = us.step(q, dt_f)
+        stats["9c snapshots"] = us.stats
+        done("9c snapshots")
+        del us
+        closure = float(torch.linalg.vector_norm(q - snaps[0]) / torch.linalg.vector_norm(snaps[0]))
+
+        with stage("9d floquet", stages):
+            fs = FloquetSolver(ctx, mesh, bcs, UNSTEADY_RE, snaps, dt_f, device=dev)
+            fr = fs.solve(k=FLOQUET_K)
+        stats["9d floquet"] = dict(fs.stats)
+        done("9d floquet")
+        vseed = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+        with stage("9d inexact", stages):
+            x_pre = fs.monodromy_apply(vseed)
+            fi = FloquetSolver(ctx, mesh, bcs, UNSTEADY_RE, snaps, dt_f, inexact=True, device=dev)
+            x_in = fi.monodromy_apply(vseed)
+        stats["9d inexact"] = dict(fi.stats)
+        done("9d inexact")
+        in_rel = float(np.linalg.norm(x_in - x_pre) / np.linalg.norm(x_pre))
+        in_gcr = fi.stats["gcr_its"] / max(fi.stats["steps"], 1)
+        del fi
+        t0 = time.time()
+        with host_lu_counted(tfloquet) as hl:
+            x_dev = fs._step_lin(0, vseed)
+            b = fs._rhs(0, torch.as_tensor(vseed, device=dev)).cpu().numpy()
+            lu = tfloquet.SparseLU(CSRMatrix(fs._pattern, fs._imp_data(0)))
+            xs = lu.solve(np.stack([b.real, b.imag], axis=1))
+        x_lu = xs[:, 0] + 1j * xs[:, 1]
+        lu_rel = float(np.linalg.norm(x_dev - x_lu) / np.linalg.norm(x_lu))
+        t_lu = time.time() - t0
+        storage_gb = fs.factor_bytes / 1e9
+        if keep is not None:
+            keep.append(fs._facs[0][0])
+        del fs, lu
+        torch.cuda.empty_cache()
+
+        with stage("9e spanwise floquet", stages):
+            span = SpanwiseStability(ctx, snaps[0], UNSTEADY_RE, case["bcs_pert"], mesh,
+                                     device=dev)
+            sfs = spanwise_floquet(span, snaps, dt_f, SPAN_FLOQUET_BETA, device=dev)
+            sr = sfs.solve(k=SPAN_FLOQUET_K)
+        stats["9e spanwise floquet"] = dict(sfs.stats)
+        done("9e spanwise floquet")
+        rhos = []
+        for k in (0, N_SNAPS // 2):  # one refinement step on a unit vector
+            op = sfs._imp_op(k)
+            b0 = torch.as_tensor(rng.standard_normal(span.num_dofs)
+                                 + 1j * rng.standard_normal(span.num_dofs), device=dev)
+            b0 = b0 / torch.linalg.vector_norm(b0)
+            rhos.append(float(torch.linalg.vector_norm(b0 - _si_apply_C(op, op.blu.solve(b0)))))
+        span_gcr = sfs.stats["gcr_its"] / max(sfs.stats["steps"], 1)
+        span_dofs, span_n2 = span.num_dofs, span.n2
+        del sfs, span, op
+        torch.cuda.empty_cache()
+
+    log(f"{what}a: Re = {NONMODAL_RE:g}, omega = {p7['modes'].omega:g}: {fa['steps']} steps of "
+        f"dt {fa['dt']:.6f}; amplitude {fa['amp']:.6f} against the gain {fa['gain']:.6f} "
+        f"(rel {abs(fa['amp'] - fa['gain']) / fa['gain']:.2e}, limit 0.05), correlation "
+        f"{fa['corr']:.8f} (limit 0.99); Newton corrections a step {np.mean(fa['newton']):.2f}")
+    log(f"{what}b: Re = {UNSTEADY_RE:g}: sigma = {sigma.real:+.10f}{sigma.imag:+.10f}j (residual "
+        f"{e_res:.1e}; the pair of {len(pairs)} with the largest real part); probe DOF {probe}; "
+        f"DNS fit omega {omega_fit:.6f} (rel {abs(omega_fit - sigma.imag) / sigma.imag:.2e}, "
+        f"limit 0.03), sigma_r {sigma_r_fit:+.6f} (off {abs(sigma_r_fit - sigma.real):.2e}, limit "
+        f"{0.1 * abs(sigma.real) + 2e-3:.2e}); envelope growth over the fit window "
+        f"{grow:.3f} of e^(sigma_r t) (limit 0.5); Newton corrections a step "
+        f"{np.mean([s.newton_iters for s in dns.stats]):.2f}")
+    log(f"{what}c: {SAT_STEPS} steps of dt {SAT_DT}: amplitude of the last quarter {a_last:.6f}, "
+        f"the quarter before {a_prev:.6f} (rel {abs(a_last - a_prev) / a_last:.2e}, limit 0.05); "
+        f"omega_sat {omega_sat:.6f} (sigma_i {sigma.imag:.6f}), period {period:.6f}; Newton "
+        f"corrections a step {np.mean(newton_sat):.2f}; orbit closure over {N_SNAPS} steps of "
+        f"{dt_f:.6f}: {closure:.3e} (limit 1e-2)")
+    per_step = stages["9c saturation"]["seconds"] / SAT_STEPS * 1e3
+    log(f"{what}c: one saturated step on a chord factor under the profiler: {step_ops} device "
+        f"operations, {step_wall:.2f} ms wall, the card busy {step_busy:.2f} ms "
+        f"({100 * step_busy / step_wall:.1f}%); the march {per_step:.2f} ms a step")
+    velocity2 = np.arange(n) < nu
+    flow2, pres2 = split_modes(fr, velocity2)
+    # the phase mode is the orbit's tangent at q_0: each mode's alignment with it
+    tangent = (snaps[1] - snaps[-1]).cpu().numpy()
+    align = [float(abs(np.vdot(x, tangent)) / (np.linalg.norm(x) * np.linalg.norm(tangent)))
+             for x in fr.modes]
+    absmu = np.sort(np.abs(fr.multipliers))
+    log(f"{what}d: multipliers "
+        + ", ".join(f"{z.real:+.13f}{z.imag:+.2e}j" for z in fr.multipliers)
+        + f"; |mu| {np.abs(fr.multipliers).tolist()}; trivial error {fr.trivial_error:.2e}; "
+        f"{len(pres2)} pure-pressure modes, {len(flow2)} carrying velocity; each mode's "
+        f"alignment with the orbit's tangent at q_0 {np.round(align, 6).tolist()}")
+    log(f"{what}d: factor storage {storage_gb:.2f} GB ({N_SNAPS} real pivoted factors, reckoned "
+        f"from BandPlan.band_bytes and pivoted_extra_bytes); peak "
+        f"{stages['9d floquet']['peak_gb']:.2f} GB; inexact trip against the prestored one rel "
+        f"{in_rel:.2e} (limit 1e-8), {in_gcr:.2f} GCR iterations a step; one step against the host "
+        f"SuperLU rel {lu_rel:.2e} (limit 1e-9; {hl['host_lu']} host factor, {t_lu:.2f} s)")
+    velocity3 = (np.arange(span_dofs) < nu) | (np.arange(span_dofs) >= span_n2)
+    flow3, pres3 = split_modes(sr, velocity3)
+    log(f"{what}e: beta = {SPAN_FLOQUET_BETA:g}, {span_dofs} DOFs: multipliers "
+        + ", ".join(f"{z.real:+.13f}{z.imag:+.2e}j" for z in sr.multipliers)
+        + f"; |mu| {np.abs(sr.multipliers).tolist()}; {len(pres3)} pure-pressure modes, "
+        f"{len(flow3)} carrying velocity; {span_gcr:.2f} GCR iterations a step; the mean factor's "
+        f"contraction on steps 0 and {N_SNAPS // 2}: {rhos}")
+    for name, st in stages.items():
+        builds = P9_BUILDS.get(name, 0)
+        if name == "9b eigen":
+            gate_class(f"{what} {name}", st, COMPLEX_CLASSES, builds)
+            continue
+        trip = name[:2] in ("9d", "9e")
+        key, cls, types = TRIP_KEY if trip else MARCH_KEY
+        gate_stage(f"{what} {name}", st, key, cls, types, builds)
+        for s_key in (("spmv_shifted.original", "spmv_complex.original") if trip
+                      else ("spmv_real.original",)):
+            if not st["launches"][s_key]:
+                raise RuntimeError(f"{what} {name}: no {s_key} launch")
+    sign = (-1.0) ** N_SNAPS
+    checks = [
+        (abs(fa["amp"] - fa["gain"]) < 0.05 * fa["gain"], f"9a amplitude {fa['amp']} against "
+                                                          f"the gain {fa['gain']}"),
+        (fa["corr"] > 0.99, f"9a correlation {fa['corr']}"),
+        (sigma.real > 0 and e_res <= 1e-8, f"9b sigma {sigma} (residual {e_res:.1e})"),
+        (abs(omega_fit - sigma.imag) < 0.03 * sigma.imag, f"9b omega {omega_fit} against {sigma}"),
+        (abs(sigma_r_fit - sigma.real) < 0.1 * abs(sigma.real) + 2e-3,
+         f"9b sigma_r {sigma_r_fit} against {sigma}"),
+        (grow > 0.5, f"9b envelope growth {grow}"),
+        (bool(torch.isfinite(dns.q).all()) and bool(torch.isfinite(sat.q).all()),
+         "a state is not finite"),
+        (abs(a_last - a_prev) < 0.05 * a_last, f"9c not saturated: {a_last} against {a_prev}"),
+        (omega_sat > sigma.imag, f"9c omega_sat {omega_sat} <= sigma_i {sigma.imag}"),
+        (closure <= 1e-2, f"9c orbit closure {closure:.2e}"),
+        (absmu[-2] < 1.0 + 1e-3, f"9d the second-largest |mu| {absmu[-2]} (stable_cycle)"),
+        (fr.trivial_error <= 1e-3, f"9d trivial error {fr.trivial_error:.2e}"),
+        (in_rel <= 1e-8, f"9d inexact against prestored rel {in_rel:.2e}"),
+        (lu_rel <= 1e-9 and hl["host_lu"] == 1, f"9d one step against the host LU rel "
+                                                f"{lu_rel:.2e} ({hl['host_lu']} host factors)"),
+        (all(abs(mu - sign) <= 1e-8 for mu in pres2 + pres3),
+         f"9d/9e pure-pressure multipliers {pres2 + pres3} are not (-1)^N"),
+        (len(flow3) >= 1 and all(abs(mu) < 1.0 for mu in flow3),
+         f"9e multipliers of modes carrying velocity {flow3}: none, or one not below 1"),
+    ]
+    for ok, msg in checks:
+        if not ok:
+            raise RuntimeError(f"{what}: {msg}")
+    out.update(stages=stages, seconds=time.time() - t_phase, sigma=sigma, omega_sat=omega_sat,
+               saturation=(sat.t, ssig),
+               multipliers=fr.multipliers, span_multipliers=sr.multipliers,
+               launches={k: sum(st["launches"][k] for st in stages.values()) for k in counts()})
+    log(f"{what}: {out['seconds']:.1f} s in all (budget 200 s)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2422,7 +2810,8 @@ def main() -> int:
             f"{graph_ms(lib):.4f} ms; one call with its host overhead (CUDA events) "
             f"{cuda_ms(kern, 20):.4f} ms, x[idx] {cuda_ms(lib, 20):.4f} ms")
     size = {"f64": 8, "c128": 16, "c64": 8, "f32x1": 4, "f32x2": 8}
-    main_types = {"in.c128.c64", "out.c64.c128", "in.f64.f32x1", "out.f32x1.f64"}
+    main_types = {"in.c128.c64", "out.c64.c128", "in.f64.f32x1", "out.f32x1.f64",
+                  "in.c128.f32x2", "out.f32x2.c128"}
     for (form, types), (kern, plain) in mg["permutes"].items():
         a, b = types.split(".")
         ix, bcx, brx = mg["plans"]["c64" if "c64" in types else "f32"]
@@ -2469,10 +2858,11 @@ def main() -> int:
         bound_ms, bound_by = bound(*spmv_work(mode, order, cop.plan.n, cop.plan.nnz, ntiles),
                                    FP64_FLOPS_PER_S)
         key = S_KEYS[mode] + ("" if order == "permuted" else ".original")
-        # the complex shifted operator never asks for both outputs; the real one
-        # does (the Cayley right-hand side of phase 7), and a mode with M x counts
-        # its launches under the same mode without it (one kernel, one key)
-        on_main = order == "original" and mode != "shifted_mass"
+        # the Cayley right-hand side of phase 7 (real) and the Floquet trips'
+        # right-hand sides of phase 9 (complex, at sigma = 0) ask for both
+        # outputs; a mode with M x counts its launches under the same mode
+        # without it (one kernel, one key)
+        on_main = order == "original"
         paired = mode in ("shifted_mass", "shifted_real_mass")
         note = (" (launches counted with the mode without M x)" if paired and on_main else
                 "" if on_main else " (not on the main path)")
@@ -2520,7 +2910,13 @@ def main() -> int:
     p8 = {"span": span_path(case, p3, "8", dev, cross_check=True)}
     torch.cuda.empty_cache()
     p8["wnl"] = wnl_path(case, "8", dev, cross_check=True)
-    del case, p3
+    del p3
+    torch.cuda.empty_cache()
+    floquet_factors: list = []
+    p9 = unsteady_path(case, p7, dev, keep=floquet_factors)
+    # phase 4, continued: K1/K2 pivoted f32 (x2: the Floquet trips') on a 9d factor
+    kernels += band_kernels([(", 43k phase 9d Floquet", floquet_factors[0])], errs, dev)
+    del case, floquet_factors, p9["stages"], p7["M"]
     torch.cuda.empty_cache()
 
     p6 = production_path(dev)
@@ -2582,13 +2978,15 @@ def main() -> int:
         e["launches_phase7"] = p7["launches"][key] + p7b["launches"][key] if key else 0
         e["launches_phase8"] = sum(p[k]["launches"][key] for p in (p8, p8b)
                                    for k in ("span", "wnl")) if key else 0
+        e["launches_phase9"] = p9["launches"][key] if key else 0
     for e in kernels:
         log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
             f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
             f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}), "
             f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound, {e['launches']} launches "
             f"({e['launches_phase5']} in phase 5, {e['launches_phase6']} in phase 6, "
-            f"{e['launches_phase7']} in phase 7, {e['launches_phase8']} in phase 8)")
+            f"{e['launches_phase7']} in phase 7, {e['launches_phase8']} in phase 8, "
+            f"{e['launches_phase9']} in phase 9)")
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
 
     log(name_power)

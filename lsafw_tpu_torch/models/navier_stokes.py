@@ -139,6 +139,7 @@ class _NSBase:
             np.asarray(bcs.dirichlet_values, dtype=np.float64), device=ctx.device
         )
         self._outlets = tuple(build_facet_context(ctx, mesh, m) for m in bcs.outlet_markers)
+        self._outlet_units = None
 
     def _f(self, f):
         return None if f is None else torch.as_tensor(
@@ -147,9 +148,16 @@ class _NSBase:
     def _state(self, w) -> torch.Tensor:
         return torch.as_tensor(w, dtype=torch.float64, device=self.ctx.device)
 
+    def _outlet_unit_data(self) -> list[torch.Tensor]:
+        """Each outlet's viscous term at Re = 1, assembled once (it does
+        not depend on the state)."""
+        if self._outlet_units is None:
+            self._outlet_units = [viscous_outlet_matrix_data(fc, self.ctx, 1.0)
+                                  for fc in self._outlets]
+        return self._outlet_units
+
     def _outlet_data(self, re) -> torch.Tensor | int:
-        return sum((1.0 / re) * viscous_outlet_matrix_data(fc, self.ctx, 1.0)
-                   for fc in self._outlets)
+        return sum((1.0 / re) * data for data in self._outlet_unit_data())
 
 
 class StokesAssembler(_NSBase):
@@ -198,8 +206,7 @@ class StationaryNavierStokesAssembler(_NSBase):
         ctx = self.ctx
         w = self._state(w)
         r = scatter_vector(ctx, ns_residual_elements(ctx, w, re, self.f))
-        for fc in self._outlets:
-            data = viscous_outlet_matrix_data(fc, ctx, 1.0)
+        for data in self._outlet_unit_data():
             r = r + (1.0 / re) * spmv(CSRMatrix(ctx.pattern, data), w)
         for fc, alpha, g in self._robin:
             data = robin_matrix_data(fc, ctx, alpha)

@@ -17,6 +17,13 @@ solve, the vectors crossing to the host and back.  The (ncv x ncv)
 Hessenberg bookkeeping, sorted Schur restarts and Ritz extraction run
 on the host in numpy/scipy complex128.
 
+With M = None the operator is C = A - sigma I, at a real shift (the
+theta-stepper's and the Floquet trip's implicit matrices, at sigma = 0):
+the band factor is real, the refinement matvecs run through S on A's
+own values (one real matrix; a complex x takes S's real-on-complex
+mode), and a complex128 right-hand side goes through the real factor as
+two f32 columns in one band pass.
+
 Eigenvalue back-transform: theta = 1/(lambda - sigma), so
 lambda = sigma + 1/theta; Cayley: lambda = (sigma theta + nu)/(theta - 1).
 """
@@ -35,7 +42,7 @@ import scipy.sparse as sp
 import torch
 
 from lsafw_tpu_torch import resolve_device
-from lsafw_tpu_torch.ops.bcsr import BCSRShiftedOp, plan_for_pattern
+from lsafw_tpu_torch.ops.bcsr import BCSROperator, BCSRShiftedOp, plan_for_pattern
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
 from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
@@ -83,13 +90,15 @@ class BandedSIOp:
     C = A - sigma M (any factor of :mod:`~lsafw_tpu_torch.solver.band`),
     the shift, ``Cop``, the fused (A, M) operator of the refinement
     matvecs (None: the CSR pair applies them), and ``nu``, the Cayley
-    antishift (None: the shift-invert right-hand side M v)."""
+    antishift (None: the shift-invert right-hand side M v).  ``M = None``
+    stands for the identity (C = A - sigma I, sigma real); ``Cop`` is then
+    A's own :class:`~lsafw_tpu_torch.ops.bcsr.BCSROperator`."""
 
     A: CSRMatrix
-    M: CSRMatrix
+    M: CSRMatrix | None
     blu: object
     sigma: complex
-    Cop: BCSRShiftedOp | None = None
+    Cop: BCSRShiftedOp | BCSROperator | None = None
     nu: complex | None = None
 
 
@@ -100,14 +109,19 @@ def _coef(z: complex, x: torch.Tensor):
 
 
 def _si_apply_C(op: BandedSIOp, x: torch.Tensor) -> torch.Tensor:
-    """(A - sigma M) x."""
+    """(A - sigma M) x; A x - sigma x where M is None."""
+    if op.M is None:
+        Ax = op.Cop.matvec(x) if op.Cop is not None else spmv(op.A, x)
+        return Ax - op.sigma.real * x if op.sigma != 0 else Ax
     if op.Cop is not None:
         return op.Cop.matvec_pair(x)
     return spmv(op.A, x) - _coef(op.sigma, x) * spmv(op.M, x)
 
 
 def _si_apply_M(op: BandedSIOp, x: torch.Tensor) -> torch.Tensor:
-    """M x, from Cop's storage where there is a Cop."""
+    """M x, from Cop's storage where there is a Cop (x where M is None)."""
+    if op.M is None:
+        return x
     if op.Cop is not None:
         return op.Cop.mass_pair(x)
     return spmv(op.M, x)
@@ -119,7 +133,9 @@ def _si_rhs(op: BandedSIOp, v: torch.Tensor) -> torch.Tensor:
     come from one pass of the fused operator."""
     if op.nu is None:
         return _si_apply_M(op, v)
-    if op.Cop is not None:
+    if op.M is None:
+        Cv, Mv = _si_apply_C(op, v), v
+    elif op.Cop is not None:
         Cv, Mv = op.Cop.matvec_pair(v, mass=True)
     else:
         Mv = spmv(op.M, v)
@@ -140,18 +156,16 @@ def banded_solve_raw(op: BandedSIOp, b: torch.Tensor, *, tol: float = 1e-9,
 def _refine(op: BandedSIOp, b: torch.Tensor, *, tol: float, max_its: int,
             m: int = 8) -> tuple[torch.Tensor, int, float]:
     """:func:`banded_solve_raw`'s GCR(m), returning (x, iterations, the
-    last relative residual norm it saw)."""
-    bnorm = torch.linalg.vector_norm(b)
-    floor = max(float(bnorm), 1e-300)
+    last relative residual norm it saw).  One host synchronisation per
+    iteration and one before the first."""
     x = op.blu.solve(b)
     r = b - _si_apply_C(op, x)
+    bnorm, rn = torch.stack([torch.linalg.vector_norm(b), torch.linalg.vector_norm(r)]).tolist()
+    floor = max(bnorm, 1e-300)
     D = torch.zeros((m, b.shape[0]), dtype=b.dtype, device=b.device)
     CD = torch.zeros_like(D)
     k = 0
-    while k < max_its:
-        rn = float(torch.linalg.vector_norm(r))
-        if not (np.isfinite(rn) and rn > tol * floor):
-            break
+    while k < max_its and np.isfinite(rn) and rn > tol * floor:
         d = op.blu.solve(r)
         Cd = _si_apply_C(op, d)
         beta = CD.conj() @ Cd  # complex CGS against the kept images
@@ -165,7 +179,7 @@ def _refine(op: BandedSIOp, b: torch.Tensor, *, tol: float, max_its: int,
         D[k % m] = d
         CD[k % m] = Cd
         k += 1
-    rn = float(torch.linalg.vector_norm(r))
+        rn = float(torch.linalg.vector_norm(r))
     return x, k, rn / floor
 
 
@@ -190,6 +204,14 @@ def _free_device_bytes(device: torch.device, held: int) -> float:
         return float(free + torch.cuda.memory_reserved(device)
                      - torch.cuda.memory_allocated(device))
     return float(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")) - held
+
+
+def bcsr_budget(device: torch.device, held: int = 0) -> float:
+    """Device bytes the refinement matvecs' values may take:
+    min(``LSAFW_BCSR_MEM_GB``, default 6, the free memory of
+    :func:`_free_device_bytes` less a 3.5 GB margin)."""
+    return min(float(os.environ.get("LSAFW_BCSR_MEM_GB", "6")) * 1e9,
+               _free_device_bytes(device, held) - 3.5e9)
 
 
 class FactorUnusable(RuntimeError):
@@ -320,7 +342,15 @@ class ShiftInvertOperator:
         with the saddle regularization of the zero pressure diagonals.  A
         real shift factors one real band."""
         A, M = self.A, self.M
-        if M is None or M.pattern is not A.pattern:
+        if M is None:
+            if self.sigma.imag != 0.0:
+                raise NotImplementedError("M = None takes a real shift on the banded method")
+            dre = A.data.clone()
+            dre[A.idx()["diag_slots"]] -= self.sigma.real
+            blu, self.pivoted = factor_auto(plan_for_csr(A, real=True), dre,
+                                            diag_slots=A.pattern.diag_slots)
+            return blu
+        if M.pattern is not A.pattern:
             raise NotImplementedError("A and M must share one sparsity pattern")
         dre = A.data - self.sigma.real * M.data
         if self.sigma.imag == 0.0:
@@ -331,23 +361,24 @@ class ShiftInvertOperator:
         blu, self.pivoted = factor_auto(plan_for_csr(A), dre, dim, diag_slots=A.pattern.diag_slots)
         return blu
 
-    def _build_bcsr_ops(self, band_bytes: int = 0) -> BCSRShiftedOp | None:
-        """The fused (A, M) operator of the refinement matvecs, or None (the
-        CSR pair applies them) when its values do not fit beside the
-        factors: the budget is min(``LSAFW_BCSR_MEM_GB``, default 6, the
-        device's free memory less a 3.5 GB margin), where the free memory
-        already excludes this factor and any other alive (two at once in a
-        resolvent frequency or a transient horizon)."""
+    def _build_bcsr_ops(self, band_bytes: int = 0) -> BCSRShiftedOp | BCSROperator | None:
+        """The fused (A, M) operator of the refinement matvecs (A's own
+        operator where M is None), or None (the CSR pair applies them) when
+        its values do not fit beside the factors: the budget is
+        :func:`bcsr_budget`, whose free memory already excludes this factor
+        and any other alive (two at once in a resolvent frequency or a
+        transient horizon)."""
         A, M = self.A, self.M
         plan = plan_for_pattern(A)
-        budget = min(float(os.environ.get("LSAFW_BCSR_MEM_GB", "6")) * 1e9,
-                     _free_device_bytes(A.device, band_bytes) - 3.5e9)
-        need = 2 * plan.bytes_per_matrix + plan.index_bytes
+        budget = bcsr_budget(A.device, band_bytes)
+        need = (1 if M is None else 2) * plan.bytes_per_matrix + plan.index_bytes
         if need > budget:
             logger.info("CSR (A, M) operator (%.2f GB) over budget %.1f GB; applying the CSR pair.",
                         need / 1e9, budget / 1e9)
             return None
         logger.info("Refinement matvecs on the permuted CSR of (A, M): %.3f GB", need / 1e9)
+        if M is None:
+            return BCSROperator.from_csr(A, plan)
         return BCSRShiftedOp.from_csr(A, M, self.sigma, plan)
 
     def figures(self) -> dict:

@@ -34,9 +34,10 @@ Dirichlet rule for the spanwise field: w is constrained at a node iff
 ALL in-plane velocity components are constrained there (no-slip and
 inflow walls pin w; symmetry planes leave it free).
 
-Not ported yet: ``spanwise_floquet`` (the spanwise Floquet analysis of a
-periodic 2D orbit) needs ``floquet.py`` and ``solver/timestepping.py``;
-it raises.
+:func:`spanwise_floquet` takes the same quasi-3D operator around the
+snapshots of a periodic 2D orbit into the monodromy trip of
+:mod:`lsafw_tpu_torch.floquet` (Barkley & Henderson's secondary
+instability).
 """
 
 from __future__ import annotations
@@ -234,11 +235,27 @@ class SpanwiseStability:
         return out
 
 
-def spanwise_floquet(span: SpanwiseStability, snapshots, dt: float, beta, **kw):
-    """Floquet multipliers of spanwise perturbations of a 2D periodic
-    orbit (Barkley & Henderson's secondary instability): not ported yet.
-    It needs the port of ``floquet.py`` and ``solver/timestepping.py``
-    (ROADMAP queue 1 item 8)."""
-    raise NotImplementedError(
-        "spanwise_floquet needs floquet.py and solver/timestepping.py, which are not ported yet "
-        "(ROADMAP queue 1 item 8); the steady-base analysis (SpanwiseStability) is")
+def spanwise_floquet(span: SpanwiseStability, snapshots, dt: float, beta, *, theta: float = 0.5,
+                     method: str = "banded", inexact: bool = True, device="cuda"):
+    """Floquet solver for spanwise perturbations of a 2D periodic orbit,
+    the secondary-instability calculation of Barkley & Henderson (JFM 322,
+    1996): multipliers mu(beta) of the quasi-3D monodromy around the 2D
+    cycle; |mu| > 1 at some beta marks the three-dimensional transition.
+
+    ``snapshots``: (N, n2) 2D states over one period (those the 2D
+    :class:`~lsafw_tpu_torch.floquet.FloquetSolver` takes); the returned
+    solver acts on quasi-3D vectors ``[u, v, p; w]``.  The mass has zero
+    Dirichlet rows.  ``inexact`` defaults to True (one cycle-mean factor),
+    since the quasi-3D space is about 4/3 of the 2D one.  ``device`` must
+    be ``span``'s; the default ``"cuda"`` raises without a usable GPU
+    unless ``device="cpu"`` is passed."""
+    from lsafw_tpu_torch.floquet import FloquetSolver
+
+    device = resolve_device(device)
+    if device.type != span.ctx.device.type:
+        raise ValueError(f"device {device} is not the spanwise operator's {span.ctx.device}")
+    Md = quasi3d_mass_data(span.ctx, span.pattern, span.bc_mask, 0.0)
+    Jdata = [span.operator_data(beta, state=s) for s in snapshots]
+    return FloquetSolver.from_operator_data(span.pattern, Md, Jdata, span.momentum_mask(), dt,
+                                            theta=theta, method=method, inexact=inexact,
+                                            device=device)

@@ -16,10 +16,12 @@ from lsafw_tpu_torch.fem.assembly import AssemblyContext
 from lsafw_tpu_torch.fem.bcs import BoundaryConditions
 from lsafw_tpu_torch.fem.spaces import define_spaces
 from lsafw_tpu_torch.meshing.mesh import unit_square
+from lsafw_tpu_torch.floquet import FloquetSolver
 from lsafw_tpu_torch.ops.sparse import CSRMatrix
 from lsafw_tpu_torch.resolvent import ResolventSolver
 from lsafw_tpu_torch.sensitivity import EigenSensitivitySolver
 from lsafw_tpu_torch.solver.eigen import krylov_schur
+from lsafw_tpu_torch.solver.timestepping import UnsteadySolver
 from lsafw_tpu_torch.span import SpanwiseStability, spanwise_floquet
 from lsafw_tpu_torch.transient import TransientGrowthSolver
 from lsafw_tpu_torch.wnl import find_critical_re, weakly_nonlinear
@@ -47,7 +49,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import sys, lsafw_tpu_torch, lsafw_tpu_torch.interop, lsafw_tpu_torch.solver.eigen, "
         "lsafw_tpu_torch.solver.baseflow, lsafw_tpu_torch.sensitivity, lsafw_tpu_torch.resolvent, "
         "lsafw_tpu_torch.transient, lsafw_tpu_torch.solver.eigen2, "
-        "lsafw_tpu_torch.models.membrane, lsafw_tpu_torch.span, lsafw_tpu_torch.wnl\n"
+        "lsafw_tpu_torch.models.membrane, lsafw_tpu_torch.span, lsafw_tpu_torch.wnl, "
+        "lsafw_tpu_torch.solver.timestepping, lsafw_tpu_torch.floquet\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -126,16 +129,17 @@ def test_nonmodal_solvers_refuse_the_cpu_by_default(monkeypatch):
 
 
 def test_span_and_wnl_refuse_the_cpu_by_default(monkeypatch):
-    """``SpanwiseStability``, ``weakly_nonlinear`` and ``find_critical_re``
-    default to the card: without one they raise unless ``device="cpu"``
-    is passed; ``spanwise_floquet`` (the periodic base) is not ported and
-    says so."""
+    """``SpanwiseStability``, ``weakly_nonlinear``, ``find_critical_re``,
+    ``UnsteadySolver``, ``FloquetSolver`` (both constructors) and
+    ``spanwise_floquet`` default to the card: without one they raise
+    unless ``device="cpu"`` is passed."""
     spaces = define_spaces(unit_square(2))
     ctx = AssemblyContext.build(spaces, device="cpu")
     mesh = spaces.velocity.mesh
     n = spaces.num_dofs
     bcs = BoundaryConditions(num_dofs=n, dirichlet_mask=np.zeros(n, bool),
                              dirichlet_values=np.zeros(n))
+    snaps = np.zeros((2, n))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         SpanwiseStability(ctx, np.zeros(n), 10.0, bcs, mesh)
@@ -143,7 +147,15 @@ def test_span_and_wnl_refuse_the_cpu_by_default(monkeypatch):
         weakly_nonlinear(ctx, mesh, bcs, bcs, 10.0, np.zeros(n))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         find_critical_re(ctx, mesh, bcs, bcs, 40.0, 50.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        UnsteadySolver(ctx, mesh, bcs, 10.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FloquetSolver(ctx, mesh, bcs, 10.0, snaps, 0.1)
     span = SpanwiseStability(ctx, np.zeros(n), 10.0, bcs, mesh, device="cpu")
     assert span.num_dofs == n + spaces.num_velocity_dofs // 2
-    with pytest.raises(NotImplementedError, match="floquet.py"):
-        spanwise_floquet(span, np.zeros((2, n)), 0.1, 1.0)
+    Md = torch.zeros(span.pattern.nnz, dtype=torch.float64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FloquetSolver.from_operator_data(span.pattern, Md, [Md, Md], np.zeros(span.num_dofs), 0.1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        spanwise_floquet(span, snaps, 0.1, 1.0)
+    assert UnsteadySolver(ctx, mesh, bcs, 10.0, device="cpu").method == "banded"
