@@ -30,7 +30,13 @@ non-zero):
      on an f64 x at a real shift) and both orders against its plain
      version, relative error <= 1e-12 (``SPMV_REL_TOL``), on a random
      matrix with empty rows, tiles of the most rows a tile holds and a row
-     longer than a tile;
+     longer than a tile, with 2D row lengths (0 to 59) and with the 3D
+     cube's (60 to 130, 95 on average); and K1/K2 at the lid cube's widths
+     (``PHASE2_WIDE``: B = 86 at nb = 128 and B = 43 at nb = 256, factors
+     drawn on the card) in every mode and type, with the cluster size, ring
+     tiles and shared memory each launch chose (K1 pivoted complex64 at
+     nb = 256, B = 43 must raise: its two windows leave no room for a ring
+     tile at any cluster size);
   3. this slice's main path, the reference's device path
      (``bench.py`` ``_pipeline``): the reduced cylinder (43,671
      Taylor-Hood DOFs) at Re = 47, ramped Newton baseflow on the banded
@@ -213,14 +219,48 @@ non-zero):
      each pattern's first.  Then phase 4's K1/K2 checks and times run on a
      9d factor.
 
+  10. (after phase 8b) the lid-driven cube of ``tests/benchmark/test_cavity3d.py``
+     at the reference's 20^3 (``unit_cube(20)``, 216,024 DOFs, B = 86 at
+     nb = 128; one pressure DOF pinned, as ``examples/cube.py`` pins it),
+     under its own budgets (``CUBE_ENV``: the real pivoted Newton factor,
+     31.71 GB, and the pivoted complex64 eigen factor, 63.33 GB, each band
+     at full width in f32): the banded Newton baseflow at Re = 100 (ramped,
+     3 steps, tol 1e-9), the eigensystem and four pairs nearest -0.2+0.3j
+     (ncv 24), each a stage, with the test's gates (four pairs, every
+     sigma_r < 0, residuals <= 1e-8, at least two complex modes paired with
+     their conjugates within 1e-6) and phase 3's launch gates in the
+     stage's mode; the band reckoned and the peaks logged; then K1/K2 on
+     the last Newton factor and on the eigen factor, and S (real, shifted,
+     mass) on the cube's (A, M), held to their plain versions and timed;
+  10b. test_step_spectrum.py's backward-facing step (resolution 0.22,
+     refinement 2, the parabolic inlet, Re = 150): the banded baseflow,
+     1 < L_r < 12; twenty pairs nearest 0 at ncv 45 on the real factor of
+     the real shift: every sigma_r < 0, conjugates within 1e-4 max(1,
+     |sigma|) (the edge rule of 10c), residuals <= 1e-6, the Krylov-Schur
+     cycles logged; and,
+     after phase 9 on phase 7's Re = 40 43k baseflow,
+     test_cylinder_stability.py's diagnostics: 1.5 < L_r < 4 and
+     1.2 < C_d = 2 F_x < 2 (the traction integral on the card);
+  10c. the 3D step from ``config_files/3D/step/*.toml`` (distmesh3d on the
+     host; the pressure DOFs that the Dirichlet walls decouple pinned): the
+     banded baseflow at Re = 50 (ramped, 3 steps, tol 1e-9), a
+     recirculation behind the step, six pairs nearest 0 (ncv 30) on the
+     default real pivoted factor (residuals <= 1e-8, conjugates as 10b; an
+     edge mode whose conjugate ties it at the cut is held by that
+     conjugate's true residual), and the pivot-free factor
+     (``LSAFW_PIVOT_MEM_GB=0``): refused by its calibration, or its sigma
+     within 1e-8 of the default's; then K1/K2 and S timed on its factors
+     and (A, M).
+
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, one entry per kernel, mode, storage and type and per
 main-path factor (``launches``: phases 3, 3b, 3c, 6, 6b and 6c;
 ``launches_phase5``: the stages of phase 5; ``launches_phase6``: phases
 6 to 6c; ``launches_phase7``: the stages of phases 7 and 7b;
 ``launches_phase8``: the stages of phases 8 and 8b; ``launches_phase9``:
-the stages of phase 9; modes no main path runs carry phase 2's random
-factors), and
+the stages of phase 9; ``launches_phase10``: the stages of phases 10 to
+10c; modes no main path runs carry phase 2's random factors, and the wide
+random factors have entries of their own), and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -468,15 +508,20 @@ def kind_name(b) -> str:
 
 
 def random_band(B: int, nb: int, rows_total: int, nblk: int, device, real: bool = False,
-                bf16: bool = False):
+                bf16: bool = False, on_device: bool = False):
     """A random factored pivot-free band and Dinv (scaled by 2e-3 so the
-    recursion stays bounded); ``bf16``: the band rounded to bf16 storage."""
+    recursion stays bounded); ``bf16``: the band rounded to bf16 storage;
+    ``on_device``: drawn by the card's generator (a wide band's gigabytes)."""
     import torch
     from lsafw_tpu_torch.solver import band_cuda as bc
 
     rng = np.random.default_rng(0)
+    g = torch.Generator(device=device).manual_seed(0)
 
     def rand(shape, scale):
+        if on_device:
+            return torch.randn(shape, generator=g, device=device,
+                               dtype=torch.float32 if real else torch.complex64) * scale
         z = rng.standard_normal(shape + (1 if real else 2,), dtype=np.float32) * np.float32(scale)
         t = torch.from_numpy(z[..., 0] if real else z)
         return (t if real else torch.view_as_complex(t)).to(device)
@@ -487,36 +532,40 @@ def random_band(B: int, nb: int, rows_total: int, nblk: int, device, real: bool 
                            dinv=(rand((nblk, nb, nb), 2e-3) + eye).contiguous())
 
 
-def random_pivoted(B: int, nb: int, nblk: int, device, real: bool = False):
+def random_pivoted(B: int, nb: int, nblk: int, device, real: bool = False,
+                   on_device: bool = False, scale: float = 0.005):
     """A random band that needs pivoting, factored on the card by the
-    port's ``_pfactor``.  The matrix is a row permutation of I + 0.005 N
-    (N standard normal, zero in the band's two outermost slots): half the
-    rows of each even block row trade places with rows of the next block
-    row, and the rows inside each diagonal block are shuffled.  So the
-    panel LU pivots within and across block rows, and the factor is well
-    conditioned: f32 solves agree with f64 to about 3e-7 (a CPU run at
-    B = 7, 24 block rows)."""
+    port's ``_pfactor``.  The matrix is a row permutation of I + s N
+    (N standard normal, zero in the band's two outermost slots; s =
+    ``scale``): half the rows of each even block row trade places with
+    rows of the next block row, and the rows inside each diagonal block
+    are shuffled.  So the panel LU pivots within and across block rows,
+    and the factor is well conditioned: f32 solves agree with f64 to
+    about 3e-7 (a CPU run at B = 7, 24 block rows).  ``on_device``: drawn
+    by the card's generator."""
     import torch
     from lsafw_tpu_torch.solver import band as tband
 
-    g = torch.Generator().manual_seed(0)
+    gen_dev = device if on_device else "cpu"
+    g = torch.Generator(device=gen_dev).manual_seed(0)
     rows_total, R = nblk + B, 2 * B + 1
 
     def noise():
-        return torch.randn((rows_total, R, nb, nb), generator=g) * 0.005
+        return torch.randn((rows_total, R, nb, nb), generator=g, device=gen_dev) * scale
 
     band = noise() if real else torch.complex(noise(), noise())
     band[:, 0] = 0
     band[:, 2 * B] = 0
-    band[:, B] += torch.eye(nb)
+    band[:, B] += torch.eye(nb, device=gen_dev)
     band = band.to(device)
     for K in range(0, nblk - 1, 2):
-        a, a2 = (torch.randperm(nb, generator=g)[:nb // 2].to(device) for _ in range(2))
+        a, a2 = (torch.randperm(nb, generator=g, device=gen_dev)[:nb // 2].to(device)
+                 for _ in range(2))
         row_a, row_b = band[K, :, a].clone(), band[K + 1, :, a2].clone()
         band[K, :, a] = torch.cat([torch.zeros_like(row_b[:1]), row_b[:-1]])  # one slot right
         band[K + 1, :, a2] = torch.cat([row_a[1:], torch.zeros_like(row_a[:1])])  # one slot left
     for K in range(nblk):
-        band[K] = band[K][:, torch.randperm(nb, generator=g).to(device)]
+        band[K] = band[K][:, torch.randperm(nb, generator=g, device=gen_dev).to(device)]
     L2, L1inv, Uinv, perms = tband._pfactor(band, nblk, 0.0)
     return SimpleNamespace(band=band, L2=L2, L1inv=L1inv, Uinv=Uinv, perms=perms)
 
@@ -1284,18 +1333,20 @@ def check_spmv(cases: dict, what: str) -> dict:
     return out
 
 
-def random_shifted_op(n: int, device, seed: int):
-    """A shifted operator on a random pattern from a seed: 0 to 59
-    nonzeros a row, every 97th row empty, row 5 of 5,000 nonzeros (longer
-    than a tile), under a random permutation that puts rows of one nonzero
-    at 1,000 to 1,599 (tiles of the most rows a tile holds)."""
+def random_shifted_op(n: int, device, seed: int, row_lens: tuple[int, int] = (0, 60)):
+    """A shifted operator on a random pattern from a seed: ``row_lens``
+    (low, high) nonzeros a row, by default 0 to 59 (2D Taylor-Hood rows
+    average 29; (60, 131) averages the 95 of the 3D cube's), every 97th row
+    empty, row 5 of 5,000 nonzeros (longer than a tile), under a random
+    permutation that puts rows of one nonzero at 1,000 to 1,599 (tiles of
+    the most rows a tile holds)."""
     import torch
     import scipy.sparse as sp
     from lsafw_tpu_torch.ops import bcsr
 
     rng = np.random.default_rng(seed)
     perm = rng.permutation(n)
-    lens = rng.integers(0, 60, n)
+    lens = rng.integers(*row_lens, n)
     lens[perm[1000:1600]] = 1
     lens[::97] = 0
     lens[5] = 5000
@@ -1350,30 +1401,34 @@ def band_entry(k: str, f, kind: str, label: str, err: float, ms: float, plain_ms
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def band_kernels(factors: list, errs: dict, device) -> list:
-    """K1/K2 in each mode and type on the main path's own factors, given
-    as (label, factor) pairs: held against their plain versions, then
-    timed one call at a time with CUDA events (each band exceeds the 50 MB
-    L2, so every call is cold) beside the plain loops and the bounds.
-    Returns the kernels-line entries."""
+def band_kernels(factors: list, errs: dict, device, *, only: tuple | None = None,
+                 plain_reps: int = 3) -> list:
+    """K1/K2 in each mode and type (or the types in ``only``) on the main
+    path's own factors, given as (label, factor) pairs: held against their
+    plain versions, then timed one call at a time with CUDA events (each
+    band exceeds the 50 MB L2, so every call is cold) beside the plain
+    loops (``plain_reps`` calls) and the bounds.  Returns the kernels-line
+    entries."""
     out = []
     for label, f in factors:
         fwd, fwd_plain, bwd, bwd_plain = substitutions(f)
         md, nb = mode_of(f), f.band.shape[2]
         nblk = f.L1inv.shape[0] if md == "pivoted" else f.dinv.shape[0]
         for seed, kind in enumerate(kinds(f)):
+            if only and kind not in only:
+                continue
             b = rhs(kind, nblk, nb, device, 10 + seed)
             res = check_kernels(f, b, f"phase 4 {type(f).__name__}{label}")
             for k, (a, _) in res.items():
                 errs[key_of(k, f, kind)] = max(errs.get(key_of(k, f, kind), 0.0), a)
             y = fwd_plain(b)
-            times = {"K1": (cuda_ms(lambda: fwd(b), 20), cuda_ms(lambda: fwd_plain(b), 3)),
-                     "K2": (cuda_ms(lambda: bwd(y), 20), cuda_ms(lambda: bwd_plain(y), 3))}
+            times = {"K1": (cuda_ms(lambda: fwd(b), 20), cuda_ms(lambda: fwd_plain(b), plain_reps)),
+                     "K2": (cuda_ms(lambda: bwd(y), 20), cuda_ms(lambda: bwd_plain(y), plain_reps))}
             for k, (ms, plain_ms) in times.items():
                 out.append(band_entry(k, f, kind, label, errs[key_of(k, f, kind)], ms, plain_ms))
             if kind in ("c64", "f32x1"):
                 bounds = subst_bounds(f, kind)
-                plain_solve = cuda_ms(lambda: bwd_plain(fwd_plain(b)), 3)
+                plain_solve = cuda_ms(lambda: bwd_plain(fwd_plain(b)), plain_reps)
                 solve = cuda_ms(lambda: bwd(fwd(b)), 10)
                 log(f"phase 4: one {mode_name(f, kind)}{label} solve (K1 + K2) {solve:.4f} ms, "
                     f"the torch loops {plain_solve:.3f} ms: {plain_solve / solve:.1f}x; bound "
@@ -1981,6 +2036,7 @@ CLASS_KEYS = {"PivotedBandedLU": ("pivoted.c64", "c128.c64"),
               "RealPivotedBandedLU": ("pivoted.f32x1", "f64.f32x1"),
               "RealBandedLU": ("pivot_free.f32x1", "f64.f32x1")}
 COMPLEX_CLASSES = ("PivotedBandedLU", "BandedLU")
+REAL_CLASSES = ("RealPivotedBandedLU", "RealBandedLU")  # a real shift's factors (phases 10b, 10c)
 
 
 def gate_class(what: str, st: dict, classes: tuple, builds: int = 0) -> str:
@@ -2075,14 +2131,10 @@ def span_path(case, p2d: dict, phase: str, dev, *, cross_check: bool = False,
         with stage("setup", stages):
             span = SpanwiseStability(case["ctx"], p2d["w"], 47.0, case["bcs_pert"], case["mesh"],
                                      device=dev)
-            perm = tband.pattern_permutation(span.pattern)  # the RCM ordering, reckoned here
+            tband.pattern_permutation(span.pattern)  # the RCM ordering, reckoned here
         pat = span.pattern
-        iperm = np.empty_like(perm)
-        iperm[perm] = np.arange(perm.size)
-        bw = int(np.abs(iperm[pat.row_ids] - iperm[pat.indices]).max())
-        nb = tband.band_nb()
-        B = max(1, -(-bw // nb))
-        c64_gb = tband.BandPlan.band_bytes(span.num_dofs, B, nb=nb) / 1e9
+        rk = reckon_band(pat, span.num_dofs)
+        bw, nb, B, c64_gb = rk["bw"], rk["nb"], rk["B"], rk["c64"]
         budget_gb = tband.band_mem_budget() / 1e9
         band_gb = float(np.ceil(c64_gb) + 1) if c64_gb > budget_gb else None
         log(f"{what}: {span.n2} mixed + {span.ns} spanwise = {span.num_dofs} DOFs, {pat.nnz} nnz; "
@@ -2690,6 +2742,628 @@ def unsteady_path(case, p7: dict, dev, keep: list | None = None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: 3D flows and the backward-facing step
+# ---------------------------------------------------------------------------
+
+# phase 2's wide bands, (B, block rows) per nb: the lid-driven cube's B at
+# unit_cube(20) (216,024 DOFs), at nb = 128 and 256, in the modes phases 10
+# and 10c run
+PHASE2_WIDE = {128: (86, 96), 256: (43, 48)}
+# (mode, real) of the wide factors, each in every type it takes: the cube's
+# Newton (pivoted f32 x1) and eigen (pivot-free c64) factors, the real
+# factors of a real shift (phases 10b and 10c: a complex vector as two f32
+# columns) and the main path's pivoted c64
+WIDE_MODES = (("pivot_free", False), ("pivot_free", True), ("pivoted", False), ("pivoted", True))
+S3D_ROW_LENS = (60, 131)  # nonzeros a row: 95 on average, as the cube's 20,448,316 / 216,024
+# tests/benchmark/test_cavity3d.py at examples/cube.py's 20^3 (BASELINE.md:20)
+CUBE_N, CUBE_RE, CUBE_TARGET, CUBE_NEV, CUBE_NCV = 20, 100.0, -0.2 + 0.3j, 4, 24
+# the phase's own budgets: the real pivoted Newton factor (21.29 GB band and
+# 10.41 GB of pivoted extras, 31.71 GB) and the pivoted complex64 eigen factor
+# (42.58 GB band and 20.75 GB of extras, 63.33 GB), each band at full width in
+# f32.  The pivot-free complex64 factor (42.58 GB alone) contracts by 0.243
+# at B = 86 on an H100: 36 GCR iterations an apply, residuals 5.6e-7, the
+# eigenvectors polluted at the target and at the offset shift (290 s)
+CUBE_ENV = {"LSAFW_PIVOT_MEM_GB": "70", "LSAFW_BAND_MEM_GB": "45"}
+LID, WALL = 1, 2
+# tests/benchmark/test_step_spectrum.py: geometry, inlet, Re, spectrum
+STEP_GEOMETRY = dict(dim=2, inlet_length=5.0, step_height=1.0, outlet_length=15.0,
+                     channel_height=1.0, resolution=0.22, refinement_factor=2.0)
+STEP_RE, STEP_NEV, STEP_NCV = 150.0, 20, 45
+STEP_INLET, STEP_OUTLET, STEP_WALL = 1, 2, 3
+CYL_MARKER = 5  # cylinder_case's cylinder
+STEP3D_CONFIG = Path(__file__).resolve().parent / "config_files" / "3D" / "step"
+STEP3D_RE, STEP3D_NEV, STEP3D_NCV = 50.0, 6, 30
+
+
+def wide_kernels(dev, errs: dict) -> list:
+    """Phase 2 at the cube's widths: K1/K2 in each mode of ``WIDE_MODES``
+    on random factors at ``PHASE2_WIDE`` (drawn on the card), held against
+    their plain versions, the cluster and ring tiles each launch chose, and
+    one time each.  Returns the kernels-line entries."""
+    from lsafw_tpu_torch.solver import band_cuda as bc
+
+    out = []
+    for nb2, (B, nblk) in PHASE2_WIDE.items():
+        for mode, real in WIDE_MODES:
+            f = (random_pivoted(B, nb2, nblk, dev, real, on_device=True,
+                                scale=0.005 * (7 / B) ** 0.5) if mode == "pivoted"
+                 else random_band(B, nb2, nblk + B, nblk, dev, real, on_device=True))
+            for seed, kind in enumerate(kinds(f)):
+                b = rhs(kind, nblk, nb2, dev, 3 + seed)
+                what = f"phase 2 wide B={B} nblk={nblk}"
+                try:
+                    res = check_kernels(f, b, what)
+                except RuntimeError as e:  # K1 pivoted c64 past its window's room must raise
+                    if not (mode == "pivoted" and kind == "c64" and "CUDA error 9" in str(e)):
+                        raise
+                    log(f"  {what}: K1 {mode_name(f, kind)} refused, as it must: its two windows "
+                        f"of (B + 1) nb = {(B + 1) * nb2} complex entries and a ring tile of "
+                        f"nb / 16 rows leave no room in a block's 232,448 B of shared memory "
+                        f"at any cluster size ({e})")
+                    continue
+                fwd, fwd_plain, bwd, bwd_plain = substitutions(f)
+                y = fwd(b)
+                chosen = {"K1": bc.last_choice(nb2)}
+                bwd(y)
+                chosen["K2"] = bc.last_choice(nb2)
+                for k, (a, _) in res.items():
+                    errs[key_of(k, f, kind)] = max(errs.get(key_of(k, f, kind), 0.0), a)
+                ms = {"K1": cuda_ms(lambda: fwd(b), 3), "K2": cuda_ms(lambda: bwd(y), 3)}
+                plain = {"K1": cuda_ms(lambda: fwd_plain(b), 1),
+                         "K2": cuda_ms(lambda: bwd_plain(y), 1)}
+                for k in ("K1", "K2"):
+                    c = chosen[k]
+                    log(f"  {what}: {k} {mode_name(f, kind)}: window {c['window']} block rows, "
+                        f"a cluster of {c['cluster']} blocks, {c['tiles']} ring tiles, "
+                        f"{c['smem']} B of shared memory a block; {ms[k]:.4f} ms")
+                    out.append(band_entry(k, f, kind, f", random factor B={B} nblk={nblk}",
+                                          errs[key_of(k, f, kind)], ms[k], plain[k]))
+                del b, y
+            del f
+    return out
+
+
+def gate_eigen_stage(what: str, st: dict, classes: tuple, builds: int = 1) -> str:
+    """An eigen stage's band solves all of one factor class of ``classes``;
+    K1/K2 in that class's mode once per band solve, in the types it takes
+    (a complex factor c64; a real factor, at a real shift, f32 x1 for real
+    vectors and f32 x2 for a complex vector as two columns), K1 and K2 alike
+    per type, and no other band launch; G's permute-in and permute-out once
+    each per band solve, in and out alike per type; one original-order S
+    launch per original-order matvec; no flat complex128 G; at most
+    ``builds`` plans of each kind.  Returns the class."""
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+    from lsafw_tpu_torch.solver import band_cuda as bc
+
+    if len(st["solves"]) != 1 or next(iter(st["solves"])) not in classes:
+        raise RuntimeError(f"{what}: band solves {st['solves']}, expected one class of {classes}")
+    cls = next(iter(st["solves"]))
+    n, L = st["solves"][cls], st["launches"]
+    mode = CLASS_KEYS[cls][0].split(".")[0]
+    types = {"c64": "c128"} if cls in COMPLEX_CLASSES else {"f32x1": "f64", "f32x2": "c128"}
+    k1 = {t: L[f"K1.{mode}.{t}"] for t in types}
+    k2 = {t: L[f"K2.{mode}.{t}"] for t in types}
+    others = {k: v for k, v in L.items() if k in bc.LAUNCHES and v and not any(
+        k == f"{kk}.{mode}.{t}" for kk in ("K1", "K2") for t in types)}
+    pin = {t: L[f"permute_in.{src}.{t}"] for t, src in types.items()}
+    pout = {t: L[f"permute_out.{t}.{src}"] for t, src in types.items()}
+    n_in = sum(L[f"permute_in.{t}"] for t in sc.PERMUTES["in"])
+    n_out = sum(L[f"permute_out.{t}"] for t in sc.PERMUTES["out"])
+    s_orig = sum(L[m + ".original"] for m in sc.SPMV_KEYS)
+    s_perm = sum(L[m] for m in sc.SPMV_KEYS)
+    if not (k1 == k2 == pin == pout and sum(k1.values()) == n_in == n_out == n > 0) or others:
+        raise RuntimeError(f"{what}: {n} band solves of {cls}: K1 {k1}, K2 {k2}, permute-in "
+                           f"{pin} ({n_in} in all), permute-out {pout} ({n_out}), other band "
+                           f"launches {others}")
+    if L["gather_c128"] or not (s_orig == st["matvecs"] > 0) or s_perm:
+        raise RuntimeError(f"{what}: {L['gather_c128']} flat complex128 G launches, {s_orig} "
+                           f"original-order and {s_perm} permuted S launches for "
+                           f"{st['matvecs']} original-order matvecs")
+    if any(v > builds for v in st["builds"].values()):
+        raise RuntimeError(f"{what} planned a pattern again: {st['builds']} (at most {builds})")
+    return cls
+
+
+def reckon_band(pattern, n: int) -> dict:
+    """The band of ``pattern`` under its RCM ordering at ``band_nb()``:
+    bandwidth, B, and the gigabytes of the real (f32) and complex64 bands
+    and of their pivoted extras."""
+    from lsafw_tpu_torch.solver import band as tband
+
+    perm = tband.pattern_permutation(pattern)
+    iperm = np.empty_like(perm)
+    iperm[perm] = np.arange(perm.size)
+    bw = int(np.abs(iperm[pattern.row_ids] - iperm[pattern.indices]).max())
+    nb = tband.band_nb()
+    B = max(1, -(-bw // nb))
+    nblk_pad = -(-(-(-n // nb)) // 128) * 128
+    gb = {}
+    for name, real in (("real", True), ("c64", False)):
+        gb[name] = tband.BandPlan.band_bytes(n, B, nb=nb, per_entry=4 if real else 8) / 1e9
+        extra = tband.pivoted_extra_bytes(SimpleNamespace(nb=nb, B=B, real=real,
+                                                          nblk_pad=nblk_pad))
+        gb[name + "_extra"] = extra / 1e9
+    return dict(bw=bw, B=B, nb=nb, **gb)
+
+
+def log_reckoning(what: str, rk: dict, nnz: int, n: int) -> None:
+    log(f"{what}: {n} DOFs, {nnz} nonzeros ({nnz / n:.1f} a row); RCM bandwidth {rk['bw']}: B = "
+        f"{rk['B']} at nb = {rk['nb']}; real band {rk['real']:.2f} GB + pivoted extras "
+        f"{rk['real_extra']:.2f} GB = {rk['real'] + rk['real_extra']:.2f} GB; complex64 band "
+        f"{rk['c64']:.2f} GB + pivoted extras {rk['c64_extra']:.2f} GB = "
+        f"{rk['c64'] + rk['c64_extra']:.2f} GB")
+
+
+def conjugates_paired(sig: np.ndarray, tol_abs: float, rel: bool) -> tuple[int, list]:
+    """(complex eigenvalues whose conjugate is among ``sig``, those whose
+    conjugate is not): within ``tol_abs`` (times max(1, |s|) when ``rel``)."""
+    cplx = sig[np.abs(sig.imag) > (1e-4 if rel else 1e-8)]
+    paired, lone = 0, []
+    for z in cplx:
+        d = np.abs(sig - np.conj(z)).min()
+        if d < tol_abs * (max(1.0, abs(z)) if rel else 1.0):
+            paired += 1
+        else:
+            lone.append(complex(z))
+    return paired, lone
+
+
+def lone_conjugates(what: str, sig: np.ndarray, vecs: list, A, M, target: complex,
+                    res_tol: float) -> list:
+    """The complex eigenvalues among ``sig`` whose conjugate is not among
+    them (within 1e-4 max(1, |sigma|), test_step_spectrum.py's rule), but
+    for one at the edge of the set: at a real target a conjugate pair is
+    equidistant from it, so the cut of the ``nev`` nearest can split the
+    farthest pair; such a mode's conjugate is held to be an eigenpair by
+    its true residual, ||A conj(x) - conj(sigma) M conj(x)|| / ||x|| <=
+    ``res_tol`` (the pencil is real)."""
+    from lsafw_tpu_torch.solver.eigen import eigen_residuals
+
+    _, lone = conjugates_paired(sig, 1e-4, rel=True)
+    edge = float(np.abs(sig - target).max())
+    out = []
+    for z in lone:
+        i = int(np.argmin(np.abs(sig - z)))
+        if complex(target).imag == 0.0 and abs(abs(z - target) - edge) <= 1e-8 * max(1.0, edge):
+            r = float(eigen_residuals(A, M, [(np.conj(z), np.conj(vecs[i]))])[0])
+            log(f"{what}: {z:.10f} is the farthest of the set; its conjugate, ranked just "
+                f"outside it, has the true residual {r:.2e} (<= {res_tol:g})")
+            if r <= res_tol:
+                continue
+        out.append(z)
+    return out
+
+
+def eigen_stage(A, M, nev: int, ncv: int, target: complex):
+    """``EigenSolver`` (SINVERT, the default banded st_pc) for ``nev`` pairs
+    nearest ``target``: (eigenvalues, residuals, solver), the eigenvectors
+    in ``solver.vectors``."""
+    import torch
+    from lsafw_tpu_torch.solver.eigen import (
+        EigenSolver, EigensolverConfig, STType, eigen_residuals)
+
+    es = EigenSolver(A, M, EigensolverConfig(num_eig=nev, atol=1e-9, ncv=ncv))
+    es.set_st_type(STType.SINVERT)
+    es.set_target(target)
+    pairs = es.solve()
+    torch.cuda.synchronize()
+    es.vectors = [p[1] for p in pairs]
+    return np.array([p[0] for p in pairs]), eigen_residuals(A, M, pairs), es
+
+
+def log_eigen(what: str, sig: np.ndarray, res: np.ndarray, es) -> None:
+    op = es.operator
+    log(f"{what}: {len(sig)} eigenvalues {[f'{z.real:+.10f}{z.imag:+.10f}j' for z in sig]}; "
+        f"residuals max {res.max():.2e}; Krylov-Schur {es.result.restarts} cycles, "
+        f"{es.result.iterations} applies; factor {type(op.device_op.blu).__name__} "
+        f"{op.factor_seconds:.2f} s, contraction {op.rho:.2e}, refinement cap {op.refine_its}")
+
+
+def gate_baseflow(what: str, solver, st: dict) -> None:
+    """Every Newton solve of the ramp converged; the band solves all on
+    real pivoted factors, K1/K2 pivoted f32 x1 once per band solve, G and
+    S as in phase 3."""
+    s = solver.stats
+    log(f"{what}: factor {s['factor_s']:.2f} s in {s['factors']} ({s['pivoted']} pivoted), band "
+        f"solves {s['solve_s']:.2f} s in {s['solves']}, SpMV {s['spmv_s']:.2f} s in {s['spmvs']}; "
+        f"Newton iterations {[r.iterations for r in solver.newton_results]}, GCR iterations "
+        f"{s['gcr_its']} ({s['gcr_its'] / max(s['factors'], 1):.2f} a factor)")
+    if not all(r.converged for r in solver.newton_results):
+        raise RuntimeError(f"{what}: a Newton solve of the ramp did not converge")
+    if s["pivoted"] != s["factors"]:
+        raise RuntimeError(f"{what}: {s['factors']} factors, {s['pivoted']} pivoted")
+    gate_stage(what, st, "pivoted.f32x1", "RealPivotedBandedLU", "f64.f32x1", builds=1)
+
+
+@contextmanager
+def last_newton_factor():
+    """Keep the last band factor the banded Newton made while the block
+    runs (``out["factor"]``), for the kernels' checks and times after it.
+    The hook drops the factor it holds before the next one is made, so the
+    solve's peak memory is unchanged."""
+    from lsafw_tpu_torch.solver import newton
+
+    out: dict = {}
+    factor_auto = newton.factor_auto
+
+    def kept(*args, **kw):
+        out.pop("factor", None)
+        out["factor"], pivoted = factor_auto(*args, **kw)
+        return out["factor"], pivoted
+
+    newton.factor_auto = kept
+    try:
+        yield out
+    finally:
+        newton.factor_auto = factor_auto
+
+
+def cube_case(device, n: int) -> dict:
+    """test_cavity3d.py's lid-driven cube on ``unit_cube(n)``: the lid z = 1
+    at u = (1, 0, 0), the other walls no-slip; one pressure DOF pinned in
+    both BC sets, as ``examples/cube.py`` pins it (the enclosed flow's
+    constant pressure is otherwise in the kernel of J and of A - sigma M)."""
+    import torch
+    from lsafw_tpu_torch.config import BoundaryConditionsConfig as C
+    from lsafw_tpu_torch.fem.assembly import AssemblyContext
+    from lsafw_tpu_torch.fem.bcs import define_bcs, pin_dofs
+    from lsafw_tpu_torch.fem.spaces import define_spaces
+    from lsafw_tpu_torch.meshing.mesh import unit_cube
+    from lsafw_tpu_torch.meshing.tags import mark_boundary_facets
+
+    t0 = time.time()
+    mesh = unit_cube(n)
+    mark_boundary_facets(mesh, lambda x: np.where(np.isclose(x[:, 2], 1.0), LID, WALL)
+                         .astype(np.int32))
+    spaces = define_spaces(mesh)
+
+    def walls(lid: float):
+        return [C(marker=LID, type="dirichlet_velocity", value=(lid, 0.0, 0.0)),
+                C(marker=WALL, type="dirichlet_velocity", value=(0.0, 0.0, 0.0))]
+
+    bcs_base, bcs_pert = define_bcs(mesh, spaces, walls(1.0)), define_bcs(mesh, spaces, walls(0.0))
+    for bcs in (bcs_base, bcs_pert):
+        pin_dofs(bcs, spaces.dofs_p[0])
+    ctx = AssemblyContext.build(spaces, device=device)
+    torch.cuda.synchronize()
+    return dict(mesh=mesh, spaces=spaces, bcs_base=bcs_base, bcs_pert=bcs_pert, ctx=ctx,
+                seconds=time.time() - t0)
+
+
+def cube_path(dev, errs: dict) -> dict:
+    """Phase 10: the lid-driven cube at Re = 100 on ``unit_cube(CUBE_N)``
+    under ``CUBE_ENV``: the banded Newton baseflow (ramped, 3 steps, tol
+    1e-9; real pivoted f32 factors), the eigensystem and ``CUBE_NEV`` pairs
+    nearest ``CUBE_TARGET`` (ncv ``CUBE_NCV``; the pivoted complex64
+    factor), each a stage, with test_cavity3d.py's gates; then K1/K2 on a
+    real pivoted factor of the last Jacobian and on the eigen factor, and S
+    on (A, M), each held against its plain version and timed."""
+    import torch
+    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
+
+    what = "phase 10"
+    t_phase = time.time()
+    case = cube_case(dev, CUBE_N)
+    ctx, mesh = case["ctx"], case["mesh"]
+    rk = reckon_band(ctx.pattern, ctx.spaces.num_dofs)
+    log(f"{what}: lid-driven cube, unit_cube({CUBE_N}) tetrahedra: {mesh.num_cells} cells; mesh, "
+        f"spaces and assembly context {case['seconds']:.2f} s (host)")
+    log_reckoning(what, rk, ctx.pattern.nnz, ctx.spaces.num_dofs)
+    log(f"{what}: the phase's budgets {CUBE_ENV}")
+    stages: dict = {}
+    with env(**CUBE_ENV):
+        with plain_loops_forbidden(), last_newton_factor() as last:
+            with stage("baseflow", stages):
+                solver = BaseFlowSolver(ctx, mesh, case["bcs_base"], re=CUBE_RE)
+                w = solver.solve(ramp=True, steps=3, tol=1e-9, linear_solver="banded")
+        log_stage(f"{what}: baseflow", stages["baseflow"])
+        gate_baseflow(f"{what} baseflow", solver, stages["baseflow"])
+        above = stages["baseflow"]["peak_gb"] - stages["baseflow"]["resident_gb"]
+        log(f"{what}: baseflow peak {above:.2f} GB above its start against the real pivoted "
+            f"factor's reckoned {rk['real'] + rk['real_extra']:.2f} GB")
+        # K1/K2 pivoted f32 x1 at the cube's B, on the last Newton factor
+        kernels = band_kernels([(", 216k lid cube Newton (phase 10)", last.pop("factor"))], errs,
+                               dev, only=("f32x1",), plain_reps=1)
+        torch.cuda.empty_cache()
+        with plain_loops_forbidden():
+            with stage("assemble", stages):
+                A, M = LinearizedNavierStokesAssembler(w, ctx, CUBE_RE, case["bcs_pert"],
+                                                       mesh).assemble_eigensystem()
+            with stage("eigen", stages):
+                sig, res, es = eigen_stage(A, M, CUBE_NEV, CUBE_NCV, CUBE_TARGET)
+    eig = stages["eigen"]
+    log_stage(f"{what}: eigen", eig)
+    log_eigen(f"{what}: eigen", sig, res, es)
+    log(f"{what}: eigen peak {eig['peak_gb'] - eig['resident_gb']:.2f} GB above its start against "
+        f"the pivoted complex64 factor's reckoned {rk['c64'] + rk['c64_extra']:.2f} GB")
+    # the factor class the budget gives: at 20^3 the pivoted one
+    pivot_gb = float(CUBE_ENV["LSAFW_PIVOT_MEM_GB"])
+    expect = "PivotedBandedLU" if rk["c64"] + rk["c64_extra"] <= pivot_gb else "BandedLU"
+    gate_eigen_stage(f"{what} eigen", eig, (expect,))
+    paired, lone = conjugates_paired(sig, 1e-6, rel=False)
+    if len(sig) != CUBE_NEV or not (sig.real < 0).all() or not res.max() <= 1e-8 or paired < 2:
+        raise RuntimeError(f"{what}: test_cavity3d.py's gates: {len(sig)} pairs ({CUBE_NEV}), "
+                           f"sigma {sig} (every real part < 0), residuals {res} (<= 1e-8), "
+                           f"{paired} complex modes paired with their conjugates (>= 2)")
+    op = es.operator
+    kernels += band_kernels([(", 216k lid cube eigen (phase 10)", op.device_op.blu)], errs, dev,
+                            plain_reps=1)
+    kernels += spmv_timed(op.device_op.Cop, A, M, dev, ", 216k lid cube (phase 10)")
+    del es, op
+    out = dict(stages=stages, kernels=kernels, sigma=sig, dofs=ctx.spaces.num_dofs, B=rk["B"],
+               launches={k: sum(s_["launches"][k] for s_ in stages.values()) for k in counts()})
+    out["seconds"] = time.time() - t_phase
+    log(f"{what}: {out['seconds']:.1f} s in all")
+    return out
+
+
+def spmv_timed(cop, A, M, dev, label: str) -> list:
+    """S in its main-path modes (real: J's pattern and values class, here
+    A; shifted (A - sigma M); mass) in the original order on a shifted
+    operator's storage: held against the plain version, timed with L2
+    evicted beside cuSPARSE, bounded by its bytes.  Returns kernels-line
+    entries (launches filled in from ``_key``)."""
+    cases = {k: v for k, v in spmv_cases(cop, dev).items()
+             if k in (("real", "original"), ("shifted", "original"), ("mass", "original"))}
+    errs = check_spmv(cases, f"on (A, M){label}")
+    libs = spmv_library(A, M, cop.sigma, dev)
+    ntiles = cop.plan.tile_row.size - 1
+    out = []
+    names = {"real": "real J x (J's pattern)", "shifted": "shifted", "mass": "mass"}
+    lines = {"real": "lsafw_tpu/ops/bcsr.py:446", "shifted": "lsafw_tpu/ops/bcsr.py:638",
+             "mass": "lsafw_tpu/ops/bcsr.py:646"}
+    for (mode, order), (kern, plain) in cases.items():
+        bound_ms, bound_by = bound(*spmv_work(mode, order, cop.plan.n, cop.plan.nnz, ntiles),
+                                   FP64_FLOPS_PER_S)
+        e = dict(name=f"csr_tiled_spmv_kernel (S), {names[mode]}, {order} order{label}",
+                 route="cuda", source="lsafw_tpu_torch/csrc/spmv_gather.cu", replaces=lines[mode],
+                 launches=0, _key=S_KEYS[mode] + ".original", max_abs_err=errs[(mode, order)],
+                 ms=cold_ms(kern), plain_ms=cold_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=cold_ms(libs[mode]))
+        log(f"{label.strip(', ')}: S {mode}: {e['ms']:.4f} ms cold, bound {bound_ms:.4f} ms "
+            f"({100 * bound_ms / e['ms']:.1f}%), cuSPARSE {e['library_ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f} ms; {cop.plan.nnz} nonzeros in {ntiles} tiles "
+            f"({cop.plan.n / ntiles:.1f} rows a tile)")
+        out.append(e)
+    return out
+
+
+def cylinder_diagnostics(case, w) -> dict:
+    """Phase 10b, on the 43k cylinder's Re = 40 baseflow of phase 7:
+    test_cylinder_stability.py's recirculation length and drag coefficient
+    C_d = 2 F_x (the traction integral on the card)."""
+    from lsafw_tpu_torch.solver.baseflow import compute_drag, compute_recirculation_length
+
+    t0 = time.time()
+    L = compute_recirculation_length(case["ctx"], w)
+    cd = 2.0 * compute_drag(case["ctx"], case["mesh"], w, re=NONMODAL_RE,
+                            cylinder_marker=CYL_MARKER)
+    log(f"phase 10b: the 43k cylinder at Re = {NONMODAL_RE:g} (phase 7's baseflow): L_r = "
+        f"{L:.6f} (1.5, 4.0), C_d = {cd:.6f} (1.2, 2.0); {time.time() - t0:.2f} s")
+    if not (1.5 < L < 4.0 and 1.2 < cd < 2.0):
+        raise RuntimeError(f"phase 10b: L_r {L} not in (1.5, 4.0) or C_d {cd} not in (1.2, 2.0)")
+    return dict(L=L, cd=cd)
+
+
+def step_case(device) -> dict:
+    """test_step_spectrum.py's backward-facing step (``STEP_GEOMETRY``):
+    walls no-slip, the outlet's pressure 0, the parabolic inlet profile
+    4 y (1 - y) on the upper channel; perturbation BCs on walls and inlet."""
+    import torch
+    from lsafw_tpu_torch.config import BoundaryConditionsConfig as C, StepFlowGeometryConfig
+    from lsafw_tpu_torch.fem.assembly import AssemblyContext
+    from lsafw_tpu_torch.fem.bcs import define_bcs
+    from lsafw_tpu_torch.fem.spaces import define_spaces
+    from lsafw_tpu_torch.meshing.geometries import step_flow_mesh
+    from lsafw_tpu_torch.meshing.tags import facets_with_marker, mark_boundary_facets
+
+    t0 = time.time()
+    g = STEP_GEOMETRY
+    mesh = step_flow_mesh(StepFlowGeometryConfig(**g), max_iter=100)
+    t_mesh = time.time() - t0
+
+    def marker(x):
+        out = np.full(x.shape[0], STEP_WALL, dtype=np.int32)
+        out[np.isclose(x[:, 0], -g["inlet_length"])] = STEP_INLET
+        out[np.isclose(x[:, 0], g["outlet_length"])] = STEP_OUTLET
+        return out
+
+    mark_boundary_facets(mesh, marker)
+    spaces = define_spaces(mesh)
+    bcs_base = define_bcs(mesh, spaces, [
+        C(marker=STEP_WALL, type="dirichlet_velocity", value=(0.0, 0.0)),
+        C(marker=STEP_OUTLET, type="dirichlet_pressure", value=0.0)])
+    dofs = spaces.velocity.dofs_on_facets(facets_with_marker(mesh, STEP_INLET))
+    y = spaces.velocity.dof_coords[dofs][:, 1]
+    bcs_base.dirichlet_mask[dofs] = True
+    bcs_base.dirichlet_values[dofs] = np.where(dofs % 2 == 0,
+                                               np.clip(4.0 * y * (1.0 - y), 0.0, None), 0.0)
+    bcs_pert = define_bcs(mesh, spaces, [
+        C(marker=STEP_WALL, type="dirichlet_velocity", value=(0.0, 0.0)),
+        C(marker=STEP_INLET, type="dirichlet_velocity", value=(0.0, 0.0))])
+    ctx = AssemblyContext.build(spaces, device=device)
+    torch.cuda.synchronize()
+    return dict(mesh=mesh, spaces=spaces, bcs_base=bcs_base, bcs_pert=bcs_pert, ctx=ctx,
+                mesh_seconds=t_mesh, seconds=time.time() - t0)
+
+
+def step_path(dev) -> dict:
+    """Phase 10b: test_step_spectrum.py on the card: the Re = 150 ramped
+    banded baseflow (4 steps, tol 1e-9, max_it 40), its recirculation
+    length in (1, 12), and STEP_NEV pairs nearest 0 at ncv STEP_NCV (the
+    Krylov-Schur restarts the test exists to force): every sigma_r < 0,
+    conjugates within 1e-4 max(1, |sigma|), residuals <= 1e-6."""
+    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver, compute_recirculation_length
+
+    what = "phase 10b"
+    t_phase = time.time()
+    case = step_case(dev)
+    ctx = case["ctx"]
+    rk = reckon_band(ctx.pattern, ctx.spaces.num_dofs)
+    log(f"{what}: backward-facing step (test_step_spectrum.py): {case['mesh'].num_cells} "
+        f"triangles, mesh {case['mesh_seconds']:.2f} s, case {case['seconds']:.2f} s (host)")
+    log_reckoning(what, rk, ctx.pattern.nnz, ctx.spaces.num_dofs)
+    stages: dict = {}
+    with plain_loops_forbidden():
+        with stage("baseflow", stages):
+            solver = BaseFlowSolver(ctx, case["mesh"], case["bcs_base"], re=STEP_RE)
+            w = solver.solve(ramp=True, steps=4, tol=1e-9, max_it=40, linear_solver="banded")
+        log_stage(f"{what}: baseflow", stages["baseflow"])
+        gate_baseflow(f"{what} baseflow", solver, stages["baseflow"])
+        L = compute_recirculation_length(ctx, w)
+        log(f"{what}: recirculation length {L:.6f} (1, 12)")
+        if not 1.0 < L < 12.0:
+            raise RuntimeError(f"{what}: recirculation length {L} not in (1, 12)")
+        with stage("assemble", stages):
+            A, M = LinearizedNavierStokesAssembler(w, ctx, STEP_RE, case["bcs_pert"],
+                                                   case["mesh"]).assemble_eigensystem()
+        with stage("eigen", stages):
+            sig, res, es = eigen_stage(A, M, STEP_NEV, STEP_NCV, 0.0)
+    eig = stages["eigen"]
+    log_stage(f"{what}: eigen", eig)
+    log_eigen(f"{what}: eigen", sig, res, es)
+    gate_eigen_stage(f"{what} eigen", eig, REAL_CLASSES)
+    lone = lone_conjugates(what, sig, es.vectors, A, M, 0.0, 1e-6)
+    if len(sig) != STEP_NEV or not (sig.real < 0).all() or lone or not res.max() <= 1e-6:
+        raise RuntimeError(f"{what}: test_step_spectrum.py's gates: {len(sig)} pairs "
+                           f"({STEP_NEV}), sigma {sig} (every real part < 0), without their "
+                           f"conjugates {lone}, largest residual {res.max():.2e} (<= 1e-6)")
+    out = dict(stages=stages, sigma=sig, L=L, restarts=es.result.restarts,
+               launches={k: sum(s_["launches"][k] for s_ in stages.values()) for k in counts()})
+    out["seconds"] = time.time() - t_phase
+    log(f"{what}: {out['seconds']:.1f} s in all")
+    return out
+
+
+def decoupled_pressure_dofs(ctx, bcs) -> np.ndarray:
+    """The pressure DOFs (not already Dirichlet) whose every coupling in the
+    mixed pattern is to a Dirichlet velocity DOF: a vertex whose cells have
+    all their velocity nodes on no-slip or inflow walls (a corner
+    tetrahedron of a distmesh3d mesh).  After the Dirichlet elimination
+    their rows and columns of the Stokes operator, of J and of A - sigma M
+    are zero: the pressure there is free, as an enclosed flow's constant
+    is, and each is pinned (``pin_dofs``) as one pins that constant."""
+    pat, nu, n = ctx.pattern, ctx.spaces.num_velocity_dofs, ctx.spaces.num_dofs
+    mask = np.asarray(bcs.dirichlet_mask)
+    rows, cols = pat.row_ids.astype(np.int64), pat.indices.astype(np.int64)
+    live = (rows >= nu) & (cols < nu) & ~mask[cols]
+    coupled = np.zeros(n, dtype=bool)
+    coupled[rows[live]] = True
+    p = np.arange(nu, n)
+    return p[~coupled[p] & ~mask[p]]
+
+
+def step3d_path(dev, errs: dict) -> dict:
+    """Phase 10c: the 3D step from ``config_files/3D/step/*.toml``
+    (``step_flow_mesh`` with dim = 3: distmesh3d on the host): the Re = 50
+    banded baseflow (ramped, 3 steps, tol 1e-9), a recirculation behind
+    the step, STEP3D_NEV pairs nearest 0 on the default factor (a real
+    pivoted one at this real shift: residuals <= 1e-8, conjugates as phase
+    10b) and again pivot-free (``LSAFW_PIVOT_MEM_GB=0``), each a stage: the
+    pivot-free factor either refused by its calibration (FactorUnusable,
+    no band solve of another factor) or its sigma within 1e-8 of the
+    default's; then K1/K2 on the eigen factor and on the last Newton
+    factor, and S on (A, M)."""
+    import torch
+    from lsafw_tpu_torch.config import load_bc_config, load_facet_config, load_step_flow_config
+    from lsafw_tpu_torch.fem.assembly import AssemblyContext
+    from lsafw_tpu_torch.fem.bcs import define_bcs, pin_dofs
+    from lsafw_tpu_torch.fem.spaces import define_spaces
+    from lsafw_tpu_torch.meshing.geometries import step_flow_mesh
+    from lsafw_tpu_torch.meshing.tags import mark_boundary_facets
+    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver, compute_recirculation_length
+    from lsafw_tpu_torch.solver.eigen import FactorUnusable
+
+    what = "phase 10c"
+    t_phase = time.time()
+    cfg = STEP3D_CONFIG
+    mesh = step_flow_mesh(load_step_flow_config(cfg / "geometry.toml"))
+    t_mesh = time.time() - t_phase
+    mark_boundary_facets(mesh, load_facet_config(cfg / "facets.toml"))
+    spaces = define_spaces(mesh)
+    bcs = define_bcs(mesh, spaces, load_bc_config(cfg / "bcs.toml"))
+    ctx = AssemblyContext.build(spaces, device=dev)
+    free_p = decoupled_pressure_dofs(ctx, bcs)
+    pin_dofs(bcs, free_p)
+    bcs_pert = bcs.homogeneous()
+    torch.cuda.synchronize()
+    t_case = time.time() - t_phase
+    rk = reckon_band(ctx.pattern, spaces.num_dofs)
+    log(f"{what}: 3D step from {'/'.join(cfg.parts[-3:])}/*.toml: "
+        f"{mesh.num_vertices} vertices, {mesh.num_cells} tetrahedra; mesh (distmesh3d) "
+        f"{t_mesh:.2f} s, case {t_case:.2f} s (host)")
+    log_reckoning(what, rk, ctx.pattern.nnz, spaces.num_dofs)
+    log(f"{what}: {free_p.size} decoupled pressure DOFs pinned (rows and columns zero after the "
+        f"Dirichlet elimination): {free_p.tolist()} at "
+        f"{spaces.pressure.node_coords[free_p - spaces.num_velocity_dofs].tolist()}")
+    stages: dict = {}
+    with plain_loops_forbidden(), last_newton_factor() as last:
+        with stage("baseflow", stages):
+            solver = BaseFlowSolver(ctx, mesh, bcs, re=STEP3D_RE)
+            w = solver.solve(ramp=True, steps=3, tol=1e-9, linear_solver="banded")
+    log_stage(f"{what}: baseflow", stages["baseflow"])
+    gate_baseflow(f"{what} baseflow", solver, stages["baseflow"])
+    L = compute_recirculation_length(ctx, w)
+    log(f"{what}: recirculation length {L:.6f} (> 0: behind the step)")
+    if not L > 0.0:
+        raise RuntimeError(f"{what}: no recirculation behind the step (L = {L})")
+    kernels = band_kernels([(", 3D step Newton (phase 10c)", last.pop("factor"))], errs, dev,
+                           only=("f32x1",))
+    with plain_loops_forbidden():
+        with stage("assemble", stages):
+            A, M = LinearizedNavierStokesAssembler(w, ctx, STEP3D_RE, bcs_pert,
+                                                   mesh).assemble_eigensystem()
+        with stage("eigen", stages):
+            sig, res, es = eigen_stage(A, M, STEP3D_NEV, STEP3D_NCV, 0.0)
+        # the pivot-free factor of the same pencil: at sigma = 0 a real
+        # factor of A with the saddle regularization; its calibration may
+        # refuse it (FactorUnusable, no fallback), else its sigma is held
+        # to the default factor's
+        refused = None
+        with env(LSAFW_PIVOT_MEM_GB="0"), stage("eigen pivot-free", stages):
+            try:
+                sig_pf, res_pf, es_pf = eigen_stage(A, M, STEP3D_NEV, STEP3D_NCV, 0.0)
+            except FactorUnusable as e:
+                refused = str(e)
+    st = stages["eigen"]
+    log_stage(f"{what}: eigen", st)
+    log_eigen(f"{what}: eigen", sig, res, es)
+    cls = gate_eigen_stage(f"{what} eigen", st, REAL_CLASSES)
+    lone = lone_conjugates(what, sig, es.vectors, A, M, 0.0, 1e-8)
+    if cls != "RealPivotedBandedLU" or len(sig) != STEP3D_NEV or lone or not res.max() <= 1e-8:
+        raise RuntimeError(f"{what} eigen: {cls} factor, {len(sig)} pairs ({STEP3D_NEV}), "
+                           f"without their conjugates {lone}, largest residual {res.max():.2e} "
+                           f"(<= 1e-8)")
+    pf = stages["eigen pivot-free"]
+    log_stage(f"{what}: eigen pivot-free", pf)
+    if refused is not None:
+        log(f"{what}: the pivot-free factor refused, as the calibration must refuse it: {refused}")
+        if pf["solves"].get("RealPivotedBandedLU") or pf["launches"]["K1.pivoted.f32x2"]:
+            raise RuntimeError(f"{what}: a pivoted factor ran in the pivot-free stage: {pf}")
+    else:
+        log_eigen(f"{what}: eigen pivot-free", sig_pf, res_pf, es_pf)
+        cls_pf = gate_eigen_stage(f"{what} eigen pivot-free", pf, REAL_CLASSES)
+        gap = max(float(np.abs(sig_pf - z).min()) for z in sig)
+        log(f"{what}: the pivot-free factor's sigma within {gap:.2e} of the default factor's")
+        if cls_pf != "RealBandedLU" or not gap <= 1e-8 or not res_pf.max() <= 1e-8:
+            raise RuntimeError(f"{what}: pivot-free {cls_pf}, sigma gap {gap:.2e} (<= 1e-8), "
+                               f"residual {res_pf.max():.2e}")
+        del es_pf
+    op = es.operator
+    kernels += band_kernels([(", 3D step eigen (phase 10c)", op.device_op.blu)], errs, dev)
+    kernels += spmv_timed(op.device_op.Cop, A, M, dev, ", 3D step (phase 10c)")
+    out = dict(stages=stages, kernels=kernels, sigma=sig, L=L, dofs=spaces.num_dofs, B=rk["B"],
+               mesh_seconds=t_mesh, refused=refused,
+               launches={k: sum(s_["launches"][k] for s_ in stages.values()) for k in counts()})
+    out["seconds"] = time.time() - t_phase
+    log(f"{what}: {out['seconds']:.1f} s in all ({t_mesh:.1f} s of it the host mesh)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2735,6 +3409,7 @@ def main() -> int:
                                 k, f, kind, f", random factor B={B} nblk={nblk}",
                                 errs[key_of(k, f, kind)], ms[k], plain[k])
                     del f
+    wide_entries = wide_kernels(dev, errs)
     gi = gather_inputs(dev)
     g_errs = check_gather(gi)
     for nb2, n in ((nb, 10007), (256, 20011)):
@@ -2743,11 +3418,14 @@ def main() -> int:
                        f"on a random permutation at nb = {nb2}")
     rop = random_shifted_op(20011, dev, seed=5)
     check_spmv(spmv_cases(rop, dev), "on a random matrix")
+    rop = random_shifted_op(20011, dev, seed=6, row_lens=S3D_ROW_LENS)
+    check_spmv(spmv_cases(rop, dev), "on a random matrix with 3D row lengths")
     del rop
     log(f"phase 2: K1/K2 match their plain versions in both modes and every type, f32 and bf16 "
-        f"storage, at (B, block rows) per (nb, storage) {PHASE2_SHAPES}; G matches x[idx] at the "
-        f"probes' shapes, its permute forms their plain versions at nb = 128 and 256; S its "
-        f"plain version in every mode and order")
+        f"storage, at (B, block rows) per (nb, storage) {PHASE2_SHAPES}, and in {WIDE_MODES} at "
+        f"(B, block rows) per nb {PHASE2_WIDE}; G matches x[idx] at the probes' shapes, its "
+        f"permute forms their plain versions at nb = 128 and 256; S its plain version in every "
+        f"mode and order, on 2D and 3D row lengths")
     if "--kernels" in sys.argv[1:]:
         return 0
 
@@ -2916,7 +3594,9 @@ def main() -> int:
     p9 = unsteady_path(case, p7, dev, keep=floquet_factors)
     # phase 4, continued: K1/K2 pivoted f32 (x2: the Floquet trips') on a 9d factor
     kernels += band_kernels([(", 43k phase 9d Floquet", floquet_factors[0])], errs, dev)
-    del case, floquet_factors, p9["stages"], p7["M"]
+    del floquet_factors
+    p10cyl = cylinder_diagnostics(case, p7["w"])
+    del case, p9["stages"], p7["M"]
     torch.cuda.empty_cache()
 
     p6 = production_path(dev)
@@ -2967,8 +3647,21 @@ def main() -> int:
     p8s = {ph: sum(p[k]["seconds"] for k in ("span", "wnl")) for ph, p in (("8", p8), ("8b", p8b))}
     log(f"phase 8: phases 8 and 8b took {p8s['8'] + p8s['8b']:.1f} s ({p8s['8']:.1f} + "
         f"{p8s['8b']:.1f} s; budget 150 s)")
+    torch.cuda.empty_cache()
+
+    p10 = cube_path(dev, errs)
+    kernels += p10.pop("kernels")
+    torch.cuda.empty_cache()
+    p10b = step_path(dev)
+    p10c = step3d_path(dev, errs)
+    kernels += p10c.pop("kernels")
+    p10s = " + ".join(f"{p['seconds']:.1f}" for p in (p10, p10b, p10c))
+    log(f"phase 10: phases 10, 10b and 10c took "
+        f"{sum(p['seconds'] for p in (p10, p10b, p10c)):.1f} s ({p10s} s; budget 250 s); the "
+        f"cylinder's diagnostics L_r {p10cyl['L']:.6f}, C_d {p10cyl['cd']:.6f}")
     timed = {e["_key"] for e in kernels}
     kernels += [e for key, e in random_entries.items() if key not in timed]
+    kernels += wide_entries
     for e in kernels:
         key = e.pop("_key")
         if key:
@@ -2979,6 +3672,7 @@ def main() -> int:
         e["launches_phase8"] = sum(p[k]["launches"][key] for p in (p8, p8b)
                                    for k in ("span", "wnl")) if key else 0
         e["launches_phase9"] = p9["launches"][key] if key else 0
+        e["launches_phase10"] = sum(p["launches"][key] for p in (p10, p10b, p10c)) if key else 0
     for e in kernels:
         log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
             f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
@@ -2986,7 +3680,7 @@ def main() -> int:
             f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound, {e['launches']} launches "
             f"({e['launches_phase5']} in phase 5, {e['launches_phase6']} in phase 6, "
             f"{e['launches_phase7']} in phase 7, {e['launches_phase8']} in phase 8, "
-            f"{e['launches_phase9']} in phase 9)")
+            f"{e['launches_phase9']} in phase 9, {e['launches_phase10']} in phase 10)")
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
 
     log(name_power)

@@ -16,7 +16,10 @@ the non-modal toolbox: resolvent gains and pseudospectra
 the Cayley transform on a real factor), the quasi-3D spanwise
 stability of a steady 2D base (``span``) and the weakly nonlinear
 Stuart-Landau expansion at the Hopf point with its forced solves on
-the band factors (``wnl``).  It imports nothing of the JAX package.
+the band factors (``wnl``).  The same path runs on tetrahedral meshes
+(``meshing.mesh.box_mesh``, ``unit_cube``; ``meshing.geometries``'
+``distmesh3d``, the 3D cylinder and the backward-facing step in 2D and
+3D) with 3D facet integrals.  It imports nothing of the JAX package.
 ``solver/direct.py`` keeps host SuperLU for
 ``linear_solver="lu"`` and the shift-invert ``method="lu"``, which run
 only when asked for.

@@ -1,8 +1,9 @@
-"""Configuration of the cylinder slice: the TOML loaders of the reference
-package (``lsafw_tpu/config.py``, copied so that the port imports
-nothing of it) and their dataclasses: boundary conditions, the
-cylinder-in-channel geometry and facet-tagging rules.  The production
-case is built from ``config_files/2D/cylinder/*.toml`` through them."""
+"""Configuration: the TOML loaders of the reference package
+(``lsafw_tpu/config.py``, copied so that the port imports nothing of it)
+and their dataclasses: boundary conditions, the cylinder-in-channel and
+backward-facing-step geometries and facet-tagging rules.  The production
+cylinder and the step cases are built from ``config_files/*/*/*.toml``
+through them."""
 
 from __future__ import annotations
 
@@ -140,6 +141,24 @@ def load_cylinder_flow_config(path: Path | str) -> CylinderFlowGeometryConfig:
         if key in raw:
             raw[key] = tuple(raw[key])
     return CylinderFlowGeometryConfig(**raw)
+
+
+@dataclass(frozen=True)
+class StepFlowGeometryConfig:
+    """Backward-facing step geometry (parity: ``config.py:124-143``)."""
+
+    dim: int
+    inlet_length: float
+    step_height: float
+    outlet_length: float
+    channel_height: float
+    resolution: float
+    width: float | None = None
+    refinement_factor: float | None = None
+
+
+def load_step_flow_config(path: Path | str) -> StepFlowGeometryConfig:
+    return StepFlowGeometryConfig(**read_toml(path))
 
 
 # ---------------------------------------------------------------------------

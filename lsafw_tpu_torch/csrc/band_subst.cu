@@ -839,6 +839,13 @@ void keep_choice(const Choice& ch) {
   if (g_nchoices < kMaxChoices) g_choices[g_nchoices++] = ch;
 }
 
+Choice g_last = {nullptr, 0, 0, 0, 0, 0};  // the choice of the last launch
+
+void note_last(const Choice& ch) {
+  std::lock_guard<std::mutex> lock(g_choices_mu);
+  g_last = ch;
+}
+
 // The largest cluster of kMaxCluster, kMaxCluster / 2, ..., 1 blocks whose
 // shared memory fits and that the card can co-schedule.  For each size c,
 // sizes(c, side, rest) gives the mode's side and window bytes; the ring of
@@ -884,6 +891,7 @@ int launch(void (*kernel)(Args), Args args, int key, SizesFn sizes, void* stream
     if (err != cudaSuccess) return (int)err;
     keep_choice(ch);
   }
+  note_last(ch);
   args.nt = ch.nt;
   const Config k(ch.c, ch.smem, stream);
   err = cudaLaunchKernelEx(&k.cfg, kernel, args);
@@ -936,6 +944,16 @@ struct Bwd {
 }  // namespace
 
 extern "C" int band_nb() { return kNb; }
+
+// The last launch's window size (B forward, S backward), cluster size,
+// ring tiles and shared-memory bytes, into out[0..3].
+extern "C" void band_last_choice(int64_t* out) {
+  std::lock_guard<std::mutex> lock(g_choices_mu);
+  out[0] = g_last.key;
+  out[1] = g_last.c;
+  out[2] = g_last.nt;
+  out[3] = (int64_t)g_last.smem;
+}
 
 extern "C" int band_fwd(int type, int bf16, const void* band, const void* b, void* y,
                         int64_t rows_total, int64_t nblk, int B, void* stream) {

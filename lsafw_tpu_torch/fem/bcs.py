@@ -131,6 +131,17 @@ def define_bcs(
     return bcs
 
 
+def pin_dofs(bcs: BoundaryConditions, dofs, values: float | np.ndarray = 0.0) -> None:
+    """Pin extra DOFs as Dirichlet constraints in place: e.g. a single
+    pressure DOF of an enclosed flow, whose constant pressure is otherwise
+    in the kernel of every operator (parity: ``iPETScMatrix.pin_dof``,
+    ``FEM/utils.py:596-602``, done at the BC level so every operator sees
+    it)."""
+    dofs = np.asarray(dofs).ravel()
+    bcs.dirichlet_mask[dofs] = True
+    bcs.dirichlet_values[dofs] = values
+
+
 def _as_vector(value, gdim: int) -> tuple[float, ...]:
     arr = np.atleast_1d(np.asarray(value, dtype=float)).ravel()
     if arr.size == 1:

@@ -47,21 +47,26 @@ def build_facet_context(
             f"No boundary facets tagged with marker {marker}; check the "
             "facet rules against the mesh boundary coordinates."
         )
-    if mesh.tdim != 2:
-        raise NotImplementedError("facet integrals are ported for 2D meshes only")
     cells = mesh.facet_to_cells[facet_ids, 0]
-    fverts = mesh.vertices[mesh.facets[facet_ids]]  # (nf, 2, gdim)
+    fverts = mesh.vertices[mesh.facets[facet_ids]]  # (nf, tdim, gdim)
     nf = facet_ids.size
 
-    frule = quadrature_rule(CellType.INTERVAL, quad_degree or spaces.quad_degree)
-    xi = frule.points  # (nqf, 1)
+    # facet reference rule: intervals of triangles, triangles of tetrahedra
+    frule = quadrature_rule(CellType.INTERVAL if mesh.tdim == 2 else CellType.TRIANGLE,
+                            quad_degree or spaces.quad_degree)
+    xi = frule.points  # (nqf, tdim - 1)
 
-    # physical quadrature points on each facet: x = v0 + xi (v1 - v0)
-    e = fverts[:, 1:] - fverts[:, :1]  # (nf, 1, gdim)
+    # physical quadrature points on each facet: x = v0 + sum_k xi_k (vk - v0)
+    e = fverts[:, 1:] - fverts[:, :1]  # (nf, tdim - 1, gdim)
     phys = fverts[:, None, 0, :] + np.einsum("qk,fkd->fqd", xi, e)
 
-    detJf = np.linalg.norm(e[:, 0], axis=1)
-    normals = np.stack([e[:, 0, 1], -e[:, 0, 0]], axis=1)
+    # facet measure scale (length, or twice the triangle's area) and normals
+    if mesh.tdim == 2:
+        detJf = np.linalg.norm(e[:, 0], axis=1)
+        normals = np.stack([e[:, 0, 1], -e[:, 0, 0]], axis=1)
+    else:
+        normals = np.cross(e[:, 0], e[:, 1])
+        detJf = np.linalg.norm(normals, axis=1)
     normals = normals / np.linalg.norm(normals, axis=1, keepdims=True)
     # orient outward: away from the parent cell centroid
     centroids = mesh.vertices[mesh.cells[cells]].mean(axis=1)
@@ -143,9 +148,39 @@ def robin_matrix_data(fc: FacetContext, ctx: AssemblyContext, alpha: float) -> t
 
 def viscous_outlet_matrix_data(fc: FacetContext, ctx: AssemblyContext, re: float) -> torch.Tensor:
     """nnz data of +(1/re) integral (grad(u) n) . v on outlet facets."""
+    return _scatter_vv_block(fc, ctx, viscous_outlet_element_blocks(fc, ctx, re))
+
+
+def viscous_outlet_element_blocks(fc: FacetContext, ctx: AssemblyContext, re) -> torch.Tensor:
+    """(nf, nud, nud) facet element blocks of the viscous-outlet term: the
+    nnz scatter above, or extra "cells" of an element-matrix form of the
+    operator (``LinearizedNavierStokesAssembler.element_matrices``)."""
     gn = torch.einsum("fqjd,fd->fqj", fc.gphi_u, fc.normals)
     s = (1.0 / re) * torch.einsum("q,f,fqi,fqj->fij", fc.w, fc.detJf, fc.phi_u, gn)
-    return _scatter_vv_block(fc, ctx, expand_vector_diag(s, ctx.gdim))
+    return expand_vector_diag(s, ctx.gdim)
+
+
+def traction_force(fc: FacetContext, ctx: AssemblyContext, w_mixed: torch.Tensor, re: float,
+                   direction: int = 0) -> torch.Tensor:
+    """Nondimensional force component over the facet set from the Cauchy
+    stress sigma = -p I + (2/re) sym(grad u) (parity: ``compute_drag``,
+    ``Solver/baseflow.py:188-213``); a 0-d f64 tensor on the context's
+    device."""
+    nu = ctx.spaces.velocity.num_dofs
+    g = ctx.gdim
+    w_mixed = torch.as_tensor(w_mixed, dtype=torch.float64, device=ctx.device)
+    parents = torch.as_tensor(fc.parent_cells.astype(np.int64), device=ctx.device)
+    u_nodes = w_mixed[:nu].reshape(-1, g)[ctx.cell_nodes_u[parents]]  # (nf, nu_el, g)
+    p_cells = torch.as_tensor(ctx.spaces.pressure.cell_nodes.astype(np.int64),
+                              device=ctx.device)[parents]
+    p_nodes = w_mixed[nu:][p_cells]  # (nf, np_el)
+    gradu = torch.einsum("fid,fqie->fqde", u_nodes, fc.gphi_u)
+    pq = torch.einsum("fqk,fk->fq", fc.phi_p, p_nodes)
+    sym = 0.5 * (gradu + gradu.transpose(-1, -2))
+    eye = torch.eye(g, dtype=w_mixed.dtype, device=ctx.device)
+    sigma = -pq[:, :, None, None] * eye + (2.0 / re) * sym
+    tr = torch.einsum("fqde,fe->fqd", sigma, fc.normals)
+    return torch.einsum("q,f,fq->", fc.w, fc.detJf, tr[:, :, direction])
 
 
 def _scatter_vv_block(fc: FacetContext, ctx: AssemblyContext, vv: torch.Tensor) -> torch.Tensor:

@@ -2,13 +2,14 @@
 
 Replaces the reference's ``Mesher`` over dolfinx/gmsh
 (``Meshing/core.py:28-262``, enums ``Meshing/utils.py:12-120``) with
-plain numpy arrays: a mesh is static compile-time data for the jitted
-numerics, so it lives on the host and is consumed when building
+plain numpy arrays: a mesh is host data, consumed when building
 dofmaps, quadrature tables and sparsity patterns.
 
-The cell-type enum and topology tables keep the reference's coverage;
-the generators here are the structured 2D ones (the 3D, interval and
-shape-dispatch generators are not ported).
+Supported cell types: interval, triangle, tetrahedron (the simplex
+path: affine geometry, a constant Jacobian per cell, batched assembly
+on the device), plus quadrilateral/hexahedron generation for parity
+with the reference's ``iCellType`` coverage (assembly takes simplices
+only).
 """
 
 from __future__ import annotations
@@ -60,6 +61,22 @@ class CellType(Enum):
 
     @classmethod
     def from_string(cls, value: str) -> "CellType":
+        return cls(value.lower().strip())
+
+
+class Shape(Enum):
+    """Canonical shapes (parity: ``Meshing/utils.py:56-87``)."""
+
+    UNIT_INTERVAL = "unit_interval"
+    UNIT_SQUARE = "unit_square"
+    UNIT_CUBE = "unit_cube"
+    BOX = "box"
+    CYLINDER_FLOW = "cylinder_flow"
+    STEP_FLOW = "step_flow"
+    CUSTOM = "custom"
+
+    @classmethod
+    def from_string(cls, value: str) -> "Shape":
         return cls(value.lower().strip())
 
 
@@ -213,10 +230,59 @@ class Mesh:
         (parity: ``Meshing/core.py:264-292`` midpoint predicates)."""
         return self.vertices[self.facets].mean(axis=1)
 
+    @cached_property
+    def cell_volumes(self) -> np.ndarray:
+        """Measure (length/area/volume) of every cell (simplices only)."""
+        v = self.vertices[self.cells]
+        if self.cell_type is CellType.INTERVAL:
+            return np.abs(v[:, 1, 0] - v[:, 0, 0])
+        if self.cell_type is CellType.TRIANGLE:
+            e1 = v[:, 1] - v[:, 0]
+            e2 = v[:, 2] - v[:, 0]
+            return 0.5 * np.abs(e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0])
+        if self.cell_type is CellType.TETRAHEDRON:
+            e = v[:, 1:] - v[:, :1]
+            return np.abs(np.linalg.det(e)) / 6.0
+        raise NotImplementedError(f"cell_volumes for {self.cell_type}")
+
+    @cached_property
+    def hmin(self) -> float:
+        """Minimum cell diameter (edge-length based)."""
+        return float(self._edge_lengths().min())
+
+    @cached_property
+    def hmax(self) -> float:
+        return float(self._edge_lengths().max())
+
+    def _edge_lengths(self) -> np.ndarray:
+        v = self.vertices[self.cells]
+        k = v.shape[1]
+        pairs = [(i, j) for i in range(k) for j in range(i + 1, k)]
+        return np.stack(
+            [np.linalg.norm(v[:, i] - v[:, j], axis=1) for i, j in pairs], axis=1
+        )
+
+    def summary(self) -> str:
+        """Human-readable summary (parity: ``Meshing/plot.py:124``)."""
+        tagged = 0 if self.facet_tags is None else int((self.facet_tags != 0).sum())
+        return (
+            f"Mesh({self.cell_type.value}, gdim={self.gdim}): "
+            f"{self.num_vertices} vertices, {self.num_cells} cells, "
+            f"{self.facets.shape[0]} facets ({self.boundary_facets.size} boundary, "
+            f"{tagged} tagged), h=[{self.hmin:.3g},{self.hmax:.3g}]"
+        )
+
 
 # ---------------------------------------------------------------------------
 # Structured generators (parity: Meshing/core.py:162-213 generate())
 # ---------------------------------------------------------------------------
+
+
+def unit_interval(n: int) -> Mesh:
+    """Uniform mesh of [0, 1] with ``n`` cells."""
+    x = np.linspace(0.0, 1.0, n + 1)[:, None]
+    cells = np.stack([np.arange(n), np.arange(1, n + 1)], axis=1)
+    return Mesh(x, cells, CellType.INTERVAL)
 
 
 def _grid_vertices_2d(p0, p1, nx, ny):
@@ -259,3 +325,88 @@ def rectangle_mesh(
 def unit_square(nx: int, ny: int | None = None, cell_type: CellType = CellType.TRIANGLE) -> Mesh:
     """Structured mesh of the unit square (parity: ``Meshing/core.py`` UNIT_SQUARE)."""
     return rectangle_mesh((0.0, 0.0), (1.0, 1.0), nx, ny or nx, cell_type)
+
+
+# Kuhn subdivision of a cube into 6 tetrahedra sharing the main diagonal.
+_KUHN_TETS = np.array(
+    [
+        [0, 1, 3, 7],
+        [0, 1, 5, 7],
+        [0, 2, 3, 7],
+        [0, 2, 6, 7],
+        [0, 4, 5, 7],
+        [0, 4, 6, 7],
+    ],
+    dtype=np.int64,
+)
+
+
+def box_mesh(
+    p0: tuple[float, float, float],
+    p1: tuple[float, float, float],
+    nx: int,
+    ny: int,
+    nz: int,
+    cell_type: CellType = CellType.TETRAHEDRON,
+) -> Mesh:
+    """Structured mesh of the axis-aligned box [p0, p1]
+    (parity: ``Meshing/core.py`` BOX generation)."""
+    xs = np.linspace(p0[0], p1[0], nx + 1)
+    ys = np.linspace(p0[1], p1[1], ny + 1)
+    zs = np.linspace(p0[2], p1[2], nz + 1)
+    X, Y, Z = np.meshgrid(xs, ys, zs, indexing="ij")
+    verts = np.stack([X.ravel(), Y.ravel(), Z.ravel()], axis=1)
+
+    def vid(i, j, k):
+        return (i * (ny + 1) + j) * (nz + 1) + k
+
+    i, j, k = np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij")
+    corners = np.stack(
+        [
+            vid(i + di, j + dj, k + dk).ravel()
+            for di in (0, 1)
+            for dj in (0, 1)
+            for dk in (0, 1)
+        ],
+        axis=1,
+    )  # (ncubes, 8), binary order (di,dj,dk)
+    if cell_type is CellType.HEXAHEDRON:
+        cells = corners
+    elif cell_type is CellType.TETRAHEDRON:
+        cells = corners[:, _KUHN_TETS.reshape(-1)].reshape(-1, 4)
+    else:
+        raise ValueError(f"box_mesh does not support {cell_type}")
+    return Mesh(verts, cells, cell_type)
+
+
+def unit_cube(nx: int, ny: int | None = None, nz: int | None = None,
+              cell_type: CellType = CellType.TETRAHEDRON) -> Mesh:
+    """Structured mesh of the unit cube (parity: ``Meshing/core.py`` UNIT_CUBE)."""
+    return box_mesh((0, 0, 0), (1, 1, 1), nx, ny or nx, nz or nx, cell_type)
+
+
+def generate_mesh(shape: Shape | str, **kw) -> Mesh:
+    """Dispatch generator by shape name (parity: ``Meshing/core.py:162``)."""
+    shape = Shape.from_string(shape) if isinstance(shape, str) else shape
+    if shape is Shape.UNIT_INTERVAL:
+        return unit_interval(kw.get("n", 16))
+    if shape is Shape.UNIT_SQUARE:
+        return unit_square(kw.get("nx", 16), kw.get("ny"), kw.get("cell_type", CellType.TRIANGLE))
+    if shape is Shape.UNIT_CUBE:
+        return unit_cube(
+            kw.get("nx", 8), kw.get("ny"), kw.get("nz"), kw.get("cell_type", CellType.TETRAHEDRON)
+        )
+    if shape is Shape.BOX:
+        return box_mesh(
+            kw["p0"], kw["p1"], kw["nx"], kw["ny"], kw["nz"],
+            kw.get("cell_type", CellType.TETRAHEDRON),
+        )
+    if shape is Shape.CYLINDER_FLOW:
+        from lsafw_tpu_torch.meshing.geometries import cylinder_flow_mesh
+
+        return cylinder_flow_mesh(kw["config"])
+    if shape is Shape.STEP_FLOW:
+        from lsafw_tpu_torch.meshing.geometries import step_flow_mesh
+
+        return step_flow_mesh(kw["config"])
+    raise ValueError(f"Cannot generate shape {shape}")

@@ -38,6 +38,7 @@ from lsafw_tpu_torch.fem.facets import (
     neumann_pressure_load,
     neumann_velocity_load,
     robin_matrix_data,
+    viscous_outlet_element_blocks,
     viscous_outlet_matrix_data,
 )
 from lsafw_tpu_torch.meshing.mesh import Mesh
@@ -256,3 +257,41 @@ class LinearizedNavierStokesAssembler(_NSBase):
     def assemble_eigensystem(self) -> tuple[CSRMatrix, CSRMatrix]:
         """(A, M) on the shared pattern."""
         return self.assemble_linear_operator(), self.assemble_mass_matrix()
+
+    def element_matrices(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(A_el, M_el, dofs): element matrices of the eigensystem (before
+        the Dirichlet rows and columns) and their DOF maps, the
+        matrix-free form of (A, M).  Viscous-outlet facet blocks are
+        appended as extra elements with zero mass, so that the element
+        operator matches the assembled one."""
+        ctx = self.ctx
+        A_el = linearized_ns_elements(ctx, self.base_flow, self.re)
+        M_el = mass_elements(ctx)
+        dofs = ctx.mixed_cell_dofs
+        if self._outlets:
+            nd, nud = ctx.ndofs_el, ctx.nu_el * ctx.gdim
+            extra_A = []
+            for fc in self._outlets:
+                vv = viscous_outlet_element_blocks(fc, ctx, self.re)
+                full = torch.zeros((vv.shape[0], nd, nd), dtype=vv.dtype, device=vv.device)
+                full[:, :nud, :nud] = vv
+                extra_A.append(full)
+            A_el = torch.cat([A_el] + extra_A, dim=0)
+            M_el = torch.cat([M_el, M_el.new_zeros((A_el.shape[0] - M_el.shape[0], nd, nd))])
+            dofs = torch.cat([dofs] + [fc.cell_dofs for fc in self._outlets], dim=0)
+        return A_el, M_el, dofs
+
+    def pressure_nullspace_vector(self) -> np.ndarray:
+        """Normalised constant-pressure vector (parity:
+        ``attach_pressure_nullspace``, ``FEM/operators.py:534-545``)."""
+        spaces = self.ctx.spaces
+        v = np.zeros(spaces.num_dofs)
+        v[spaces.dofs_p] = 1.0
+        return v / np.linalg.norm(v)
+
+    def extract_subblocks(self, mat: CSRMatrix) -> dict:
+        """(vv, vp, pv, pp) scipy subblocks of an operator on the mixed
+        space (parity: ``extract_subblocks``, ``FEM/operators.py:547-562``)."""
+        s = mat.to_scipy()
+        nu = self.ctx.spaces.num_velocity_dofs
+        return {"vv": s[:nu, :nu], "vp": s[:nu, nu:], "pv": s[nu:, :nu], "pp": s[nu:, nu:]}

@@ -76,12 +76,23 @@ def _load(nb: int) -> ctypes.CDLL:
         lib.band_fwd.argtypes = [i32, i32, p, p, p, i64, i64, i32, p]
         lib.band_fwd_pivoted.argtypes = [i32, p, p, p, p, p, i64, i32, p]
         lib.band_bwd.argtypes = [i32, i32, p, p, p, p, i64, i64, i32, i32, i32, p]
+        lib.band_last_choice.argtypes = [p]
+        lib.band_last_choice.restype = None
         for f in (lib.band_fwd, lib.band_fwd_pivoted, lib.band_bwd, lib.band_nb):
             f.restype = ctypes.c_int
         if lib.band_nb() != nb:
             raise RuntimeError(f"{build(nb).name} was built for nb = {lib.band_nb()}, not {nb}")
         _libs[nb] = lib
     return lib
+
+
+def last_choice(nb: int = 128) -> dict:
+    """The last K1/K2 launch's window size (``window``: B forward, S
+    backward), cluster size, ring tiles and shared-memory bytes, as the
+    library of block size ``nb`` chose them for that kernel and window."""
+    out = (ctypes.c_int64 * 4)()
+    _load(nb).band_last_choice(out)
+    return dict(zip(("window", "cluster", "tiles", "smem"), (int(v) for v in out)))
 
 
 def check_nb(nb: int) -> None:
@@ -402,6 +413,6 @@ __all__ = [
     "LAUNCHES", "NBS", "TYPES", "band_is_complex", "build", "bwd_substitute",
     "bwd_substitute_pivoted", "bwd_substitute_pivoted_plain", "bwd_substitute_plain",
     "check_nb", "compute_dtype", "fwd_substitute", "fwd_substitute_pivoted",
-    "fwd_substitute_pivoted_plain", "fwd_substitute_plain", "launch_key", "narrow",
+    "fwd_substitute_pivoted_plain", "fwd_substitute_plain", "last_choice", "launch_key", "narrow",
     "reset_launches", "solve_banded", "solve_pivoted", "widen",
 ]

@@ -1,6 +1,7 @@
 """Baseflow (steady Navier-Stokes) solve: Stokes solve as the Newton
 initial guess, optional Reynolds ramp 1.0 -> Re, damped Newton per
-step, and the recirculation-length diagnostic.
+step, and the diagnostics (recirculation length, drag) and the
+interpolation of a state between meshes.
 
 ``linear_solver="banded"`` runs the Stokes solve and every Newton step
 on the device band LU with f64 GCR refinement (one real band plan,
@@ -12,9 +13,11 @@ rung does); a stalled f32 solve raises.  ``"lu"`` solves on the host."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from lsafw_tpu_torch.fem.assembly import AssemblyContext
 from lsafw_tpu_torch.fem.bcs import BoundaryConditions
+from lsafw_tpu_torch.fem.facets import build_facet_context, traction_force
 from lsafw_tpu_torch.meshing.mesh import Mesh
 from lsafw_tpu_torch.models.navier_stokes import (
     StationaryNavierStokesAssembler,
@@ -92,10 +95,102 @@ class BaseFlowSolver:
         return sol
 
 
-def compute_recirculation_length(ctx: AssemblyContext, baseflow: np.ndarray) -> float:
-    """Max x with u_x < 0."""
-    u, _ = ctx.spaces.split(np.asarray(baseflow))
+def _host(w) -> np.ndarray:
+    """A state as a host f64 array, from numpy or from a tensor on any device."""
+    if isinstance(w, torch.Tensor):
+        return w.detach().to("cpu", torch.float64).numpy()
+    return np.asarray(w, dtype=np.float64)
+
+
+def interpolate_state(w_coarse, spaces_coarse, spaces_fine) -> np.ndarray:
+    """Mixed Taylor-Hood state on one mesh -> the same fields sampled on
+    another mesh's spaces: a mesh-sequenced continuation initial guess
+    (solve the ramp once on a coarse mesh, Newton-polish on the fine one).
+    Linear interpolation through the coarse node clouds (component-wise
+    for velocity), nearest neighbour outside the hull.  Host scipy."""
+    import scipy.interpolate as si
+    from scipy.spatial import cKDTree
+
+    u_c, p_c = spaces_coarse.split(_host(w_coarse))
+
+    def _interp(pts_c, vals_c, pts_f):
+        out = np.atleast_2d(np.asarray(si.LinearNDInterpolator(pts_c, vals_c)(pts_f)))
+        if out.shape[0] == 1 and pts_f.shape[0] != 1:
+            out = out.T
+        bad = ~np.isfinite(out).all(axis=1)
+        if bad.any():
+            _, idx = cKDTree(pts_c).query(pts_f[bad])
+            out[bad] = np.atleast_2d(vals_c)[idx] if vals_c.ndim > 1 else vals_c[idx][:, None]
+        return out
+
+    u_f = _interp(spaces_coarse.velocity.node_coords, u_c, spaces_fine.velocity.node_coords)
+    p_f = _interp(spaces_coarse.pressure.node_coords, p_c[:, None],
+                  spaces_fine.pressure.node_coords)[:, 0]
+    return spaces_fine.combine(u_f, p_f)
+
+
+def point_interpolation_matrix(pts_c: np.ndarray, pts_f: np.ndarray):
+    """Sparse P1 barycentric interpolation matrix (scipy CSR) from one
+    point cloud to another (nearest source point outside the hull)."""
+    import scipy.sparse as sp
+    from scipy.spatial import Delaunay, cKDTree
+
+    tri = Delaunay(pts_c)
+    simp = tri.find_simplex(pts_f)
+    inside = simp >= 0
+    rows, cols, vals = [], [], []
+    if inside.any():
+        s = simp[inside]
+        X = tri.transform[s]  # (m, tdim + 1, tdim)
+        bary = np.einsum("mij,mj->mi", X[:, :-1], pts_f[inside] - X[:, -1])
+        w = np.concatenate([bary, 1.0 - bary.sum(axis=1, keepdims=True)], axis=1)
+        verts = tri.simplices[s]
+        rows.append(np.repeat(np.flatnonzero(inside), verts.shape[1]))
+        cols.append(verts.ravel())
+        vals.append(w.ravel())
+    if (~inside).any():
+        _, nn = cKDTree(pts_c).query(pts_f[~inside])
+        rows.append(np.flatnonzero(~inside))
+        cols.append(nn)
+        vals.append(np.ones(nn.shape[0]))
+    return sp.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(pts_f.shape[0], pts_c.shape[0]))
+
+
+def interpolation_matrix(spaces_coarse, spaces_fine):
+    """Sparse mixed-state prolongation P (fine DOFs x coarse DOFs), the
+    matrix form of :func:`interpolate_state`: ``P @ w_coarse`` equals
+    ``interpolate_state(w_coarse, ...)`` to rounding.  scipy CSR."""
+    import scipy.sparse as sp
+
+    Pu = point_interpolation_matrix(spaces_coarse.velocity.node_coords,
+                                    spaces_fine.velocity.node_coords)
+    Pp = point_interpolation_matrix(spaces_coarse.pressure.node_coords,
+                                    spaces_fine.pressure.node_coords)
+    bs = spaces_fine.velocity.bs
+    return sp.block_diag([sp.kron(Pu, sp.identity(bs, format="csr"), format="csr"), Pp],
+                         format="csr")
+
+
+def compute_recirculation_length(ctx: AssemblyContext, baseflow, *,
+                                 restrict_to_centreline: bool = False,
+                                 centreline_tol: float = 1e-6) -> float:
+    """Max x with u_x < 0, over every velocity node (2D or 3D), or over
+    the nodes with |y| <= ``centreline_tol``."""
+    u, _ = ctx.spaces.split(_host(baseflow))
+    coords = ctx.spaces.velocity.node_coords
     mask = u[:, 0] < 0.0
+    if restrict_to_centreline:
+        mask &= np.abs(coords[:, 1]) <= centreline_tol
     if not mask.any():
         raise RuntimeError("No negative u_x found; no recirculation detected.")
-    return float(ctx.spaces.velocity.node_coords[mask, 0].max())
+    return float(coords[mask, 0].max())
+
+
+def compute_drag(ctx: AssemblyContext, mesh: Mesh, baseflow, *, re: float,
+                 cylinder_marker: int) -> float:
+    """Nondimensional drag |Fx| over the tagged boundary: the traction
+    integral on the context's device."""
+    fc = build_facet_context(ctx, mesh, cylinder_marker)
+    return abs(float(traction_force(fc, ctx, baseflow, re, direction=0)))

@@ -426,6 +426,7 @@ class KrylovSchurResult:
     iterations: int
     converged: bool
     nconv: int = 0
+    restarts: int = 0  # Krylov-Schur cycles run (the first one included)
 
 
 def _sort_key(which: EpsWhich, target: complex | None):
@@ -532,7 +533,7 @@ def krylov_schur(
                         nconv, nev, restart + 1, n_ops)
             return KrylovSchurResult(
                 eigenvalues=evals_s[:m_ext], eigenvectors=X, residuals=resid[:m_ext],
-                iterations=n_ops, converged=nconv >= nev, nconv=nconv,
+                iterations=n_ops, converged=nconv >= nev, nconv=nconv, restarts=restart + 1,
             )
 
         # restart: keep the leading k-block, V_new[:k] = Qk^T V[:ncv]
@@ -605,7 +606,7 @@ class EigenSolver:
             which=EpsWhich.LARGEST_MAGNITUDE,  # largest theta = closest to the shift
             tol=cfg.atol, max_restarts=cfg.max_it, v0=self._v0, device=self.A.device,
         )
-        self.operator = op
+        self.operator, self.result = op, result
         return op, result
 
     def solve(self) -> list[tuple[complex, np.ndarray]]:
@@ -637,6 +638,9 @@ class EigenSolver:
                                          > 10.0 * max(cfg.atol, 1e-12)).any():
             logger.info("Shift-invert eigenvectors polluted; retrying with offset shift %.1e.",
                         offset)
+            # the polluted factor is freed before the retry's is made: two
+            # bands of a wide system do not fit the card side by side
+            op = result = self.operator = self.result = None
             op, result = self._run(self._target + offset)
             lam = op.back_transform(result.eigenvalues)
         if not result.converged:
