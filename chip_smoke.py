@@ -8,7 +8,10 @@ Phases, one or more lines each (a failure raises and the exit code is
 non-zero):
   1. the card (``nvidia-smi`` name and power limit) and the kernel build:
      ``csrc/band_subst.cu`` at nb = 128 and at nb = 256 and
-     ``csrc/spmv_gather.cu``, one nvcc each, started together;
+     ``csrc/spmv_gather.cu``, one nvcc each, started together; after phase
+     2 one worker process (terminated at exit) makes the host meshes of
+     phases 6 and 10c (distmesh, numpy alone; the same seeds, so the same
+     meshes) while the card runs the phases before them;
   2. kernels against their plain PyTorch versions on the card, relative
      error <= 1e-5: the band substitution K1/K2 in both modes and every
      type (complex64; float32 with one and two columns) on random factors
@@ -34,9 +37,14 @@ non-zero):
      cube's (60 to 130, 95 on average); and K1/K2 at the lid cube's widths
      (``PHASE2_WIDE``: B = 86 at nb = 128 and B = 43 at nb = 256, factors
      drawn on the card) in every mode and type, with the cluster size, ring
-     tiles and shared memory each launch chose (K1 pivoted complex64 at
-     nb = 256, B = 43 must raise: its two windows leave no room for a ring
-     tile at any cluster size);
+     tiles and shared memory each launch chose beside the library's room
+     query (``band_room``: the launch's choice made without a launch) and
+     the pure formula the CPU uses (``band_cuda.room``), which must agree on
+     what fits; K1 pivoted complex64 at nb = 256, B = 43 must raise (its two
+     windows leave no room for a ring tile at any cluster size) at the
+     launch, in the room query and in the plan-time check
+     (``band_cuda.require_room``, which ``factor_auto`` runs before any
+     factor work);
   3. this slice's main path, the reference's device path
      (``bench.py`` ``_pipeline``): the reduced cylinder (43,671
      Taylor-Hood DOFs) at Re = 47, ramped Newton baseflow on the banded
@@ -156,7 +164,8 @@ non-zero):
   7b. (after 6c, on phase 6's mesh, 175,491 DOFs) phase 7 at full width
      without the sweep, the norm and the host LU: the Re = 40 baseflow,
      the resolvent at omega = 0.75 (k = 1; the default plan's pivot-free
-     complex64 band) and G(4) with 32 steps, with phase 7's gates; then
+     complex64 band) and, cut in depth, G(2) with 16 steps (phase 7's dt),
+     with phase 7's gates; then
      phase 4's K1/K2 checks and times on the transient's real pivoted
      factor (B = 17, 1,408 block rows);
   8. (after phase 7, on phase 3's mesh, baseflow and (A, M), Re = 47)
@@ -242,7 +251,8 @@ non-zero):
      test_cylinder_stability.py's diagnostics: 1.5 < L_r < 4 and
      1.2 < C_d = 2 F_x < 2 (the traction integral on the card);
   10c. the 3D step from ``config_files/3D/step/*.toml`` (distmesh3d on the
-     host; the pressure DOFs that the Dirichlet walls decouple pinned): the
+     host; the pressure DOFs that the Dirichlet walls decouple, found by
+     ``fem.bcs.decoupled_pressure_dofs``, pinned): the
      banded baseflow at Re = 50 (ramped, 3 steps, tol 1e-9), a
      recirculation behind the step, six pairs nearest 0 (ncv 30) on the
      default real pivoted factor (residuals <= 1e-8, conjugates as 10b; an
@@ -250,7 +260,30 @@ non-zero):
      conjugate's true residual), and the pivot-free factor
      (``LSAFW_PIVOT_MEM_GB=0``): refused by its calibration, or its sigma
      within 1e-8 of the default's; then K1/K2 and S timed on its factors
-     and (A, M).
+     and (A, M);
+  11. (after 10c) ``examples/scm_limit_cycle.py`` then ``examples/scm_hb2.py
+     --hill`` at full width: the examples' cylinder from
+     ``config_files/2D/cylinder/{geometry,facets}_small.toml``, ``bcs.toml``
+     and ``bcs_perturbation.toml`` (11,323 DOFs, the records' count), Re =
+     60: 11a the ramped banded baseflow and ``SelfConsistentModel.solve(w,
+     A0=0.1, tol_sigma=2e-4)`` (every mean Newton and eigensolve a stage;
+     history[0] sigma_r > 5e-3, converged with |sigma_r| <= 2e-3, 1.005 <
+     omega / omega_Hopf < 1.3, omega within 1% of the DNS 0.85289, A within
+     5% of 2.9142); 11b HB1 and 11c HB2 (``solve_coupled``; every bordered
+     GCR solve and the q2 seed a stage; A, omega and A2 within 1e-4 of
+     ``doc/scm_hb2_re60.json``, HB2's omega within 0.5% of the DNS
+     0.862225); 11d ``hill_floquet`` (n_blocks 3, num 12) on HB2's cycle
+     (the trivial exponent within 1e-2 omega, every other exponent stable,
+     the leading |mu| beside the DNS monodromy's 0.802) and the card's pairs
+     in the reference's complex pencil built on the host (true residuals
+     1e-8); the launch gates of
+     ``gate_class`` in each stage (K1/K2 pivoted f32 x1 in the Newton and
+     bordered stages, complex64 in the eigen, seed and Hill stages; G's
+     permutes; S per matvec; no plan built beyond each pattern's first);
+     then the repair of the silent refinement miss: the 11k baseflow's
+     pivot-free factor with its refinement cap forced to 1 must make the
+     eigensolve raise ``FactorUnusable``; then K1/K2 and S on HB1's and
+     HB2's K0 and on the Hill pair.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, one entry per kernel, mode, storage and type and per
@@ -259,14 +292,17 @@ main-path factor (``launches``: phases 3, 3b, 3c, 6, 6b and 6c;
 6 to 6c; ``launches_phase7``: the stages of phases 7 and 7b;
 ``launches_phase8``: the stages of phases 8 and 8b; ``launches_phase9``:
 the stages of phase 9; ``launches_phase10``: the stages of phases 10 to
-10c; modes no main path runs carry phase 2's random factors, and the wide
+10c; ``launches_phase11``: the stages of phase 11; modes no main path
+runs carry phase 2's random factors, and the wide
 random factors have entries of their own), and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import atexit
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -1640,21 +1676,56 @@ def sensitivity_path(case, mp: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 
+_MESHES: dict = {}  # kind -> AsyncResult of (mesh, seconds) from the mesh worker
+
+
+def _host_mesh(kind: str):
+    """The host mesh (distmesh: numpy on the host alone) of a later phase,
+    ``"production"`` (phase 6) or ``"step3d"`` (phase 10c): (mesh,
+    seconds).  The body of the mesh worker's tasks."""
+    from lsafw_tpu_torch.config import load_cylinder_flow_config, load_step_flow_config
+    from lsafw_tpu_torch.meshing.geometries import cylinder_flow_mesh, step_flow_mesh
+
+    t0 = time.time()
+    if kind == "production":
+        mesh = cylinder_flow_mesh(load_cylinder_flow_config(PRODUCTION_CONFIG / "geometry.toml"))
+    else:
+        mesh = step_flow_mesh(load_step_flow_config(STEP3D_CONFIG / "geometry.toml"))
+    return mesh, time.time() - t0
+
+
+def start_mesh_worker() -> None:
+    """One worker process that makes the host meshes of phases 6 and 10c
+    while the card runs the phases before them (the same seeded numpy, so
+    the same meshes); it is terminated when the script exits."""
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    atexit.register(pool.terminate)
+    for kind in ("production", "step3d"):
+        _MESHES[kind] = pool.apply_async(_host_mesh, (kind,))
+
+
+def host_mesh(kind: str):
+    """(mesh, seconds of making it): from the mesh worker where it runs,
+    else made here."""
+    job = _MESHES.get(kind)
+    return job.get() if job is not None else _host_mesh(kind)
+
+
 def production_case(device) -> dict:
     """The repo's production configuration, from its TOML files
     (``config_files/2D/cylinder``: domain [-40, 120] x [-40, 40],
     resolution 1.25 / 0.115), built as ``scripts/dev_167k.py`` builds it."""
     import torch
-    from lsafw_tpu_torch.config import load_bc_config, load_cylinder_flow_config, load_facet_config
+    from lsafw_tpu_torch.config import load_bc_config, load_facet_config
     from lsafw_tpu_torch.fem.assembly import AssemblyContext
     from lsafw_tpu_torch.fem.bcs import define_bcs
     from lsafw_tpu_torch.fem.spaces import define_spaces
-    from lsafw_tpu_torch.meshing.geometries import cylinder_flow_mesh
     from lsafw_tpu_torch.meshing.tags import mark_boundary_facets
 
     t0 = time.time()
     cfg = PRODUCTION_CONFIG
-    mesh = cylinder_flow_mesh(load_cylinder_flow_config(cfg / "geometry.toml"))
+    mesh, mesh_s = host_mesh("production")
+    t_wait = time.time() - t0
     mark_boundary_facets(mesh, load_facet_config(cfg / "facets.toml"))
     spaces = define_spaces(mesh)
     bcs_base = define_bcs(mesh, spaces, load_bc_config(cfg / "bcs.toml"))
@@ -1662,7 +1733,7 @@ def production_case(device) -> dict:
     ctx = AssemblyContext.build(spaces, device=device)
     torch.cuda.synchronize()
     return dict(mesh=mesh, spaces=spaces, bcs_base=bcs_base, bcs_pert=bcs_pert, ctx=ctx,
-                seconds=time.time() - t0)
+                seconds=time.time() - t0, mesh_seconds=mesh_s, mesh_wait=t_wait)
 
 
 def log_stage(what: str, st: dict) -> None:
@@ -1709,8 +1780,9 @@ def production_path(dev) -> dict:
         with stage("eigen", stages):
             sigma, resid, op, t_eig = leading_pair(A, M)
     st, plan, rplan = solver.stats, tband.plan_for_csr(A), tband.plan_for_csr(A, real=True)
-    log(f"phase 6: production cylinder: {case['spaces'].num_dofs} DOFs, mesh {case['seconds']:.2f} "
-        f"s; complex plan nb = {plan.nb}, B = {plan.B}, nblk_pad = {plan.nblk_pad}, "
+    log(f"phase 6: production cylinder: {case['spaces'].num_dofs} DOFs, case {case['seconds']:.2f} "
+        f"s (the mesh {case['mesh_seconds']:.2f} s in the mesh worker, waited for "
+        f"{case['mesh_wait']:.2f} s); complex plan nb = {plan.nb}, B = {plan.B}, nblk_pad = {plan.nblk_pad}, "
         f"{plan.band_dtype}; real plan B = {rplan.B}, {rplan.band_dtype}")
     for name, s_ in stages.items():
         log_stage(f"phase 6: {name}", s_)
@@ -1876,12 +1948,14 @@ def gate_growth_modes(what: str, res, M, mask, nu: int) -> None:
 
 
 def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = False,
-                  cross_check: bool = False, time_factors: list | None = None) -> dict:
+                  cross_check: bool = False, time_factors: list | None = None,
+                  horizon: tuple = (HORIZON, CN_STEPS)) -> dict:
     """Phase 7 / 7b: the Re = 40 baseflow (ramped banded Newton, 4 steps,
     tol 1e-9) and (A, M) on ``case``; ``ResolventSolver(method="banded")``
     over ``sweep`` (k = 1), at OMEGA_CHECK with ``k`` gains and, with
     ``norm``, its ``resolvent_norm`` at Z_CHECK;
-    ``TransientGrowthSolver(method="banded").solve(HORIZON, CN_STEPS)``;
+    ``TransientGrowthSolver(method="banded").solve(*horizon)`` (default
+    (HORIZON, CN_STEPS); phase 7b, cut in depth, half of it at the same dt);
     each a stage, gated; with ``cross_check`` the same (k = 2 and the norm)
     on the host LU (asked for, counted), held to the banded answers.
     ``time_factors`` receives the transient's forward factor."""
@@ -1921,16 +1995,17 @@ def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = F
             with stage(f"resolvent norm z={Z_CHECK}", stages):
                 rnorm = rs.resolvent_norm(Z_CHECK, tol=1e-9)
             figures[f"resolvent norm z={Z_CHECK}"] = (rs.operators, rs.applies)
+        T_end, n_steps = horizon
         ts = TransientGrowthSolver(A, M, nu, mask, method="banded", device=dev)
-        with stage(f"transient T={HORIZON:g}", stages):
-            growth = ts.solve(HORIZON, CN_STEPS)
-        figures[f"transient T={HORIZON:g}"] = (ts.operators, ts.applies)
-        fw, ad, s = ts._propagators(HORIZON / CN_STEPS)
+        with stage(f"transient T={T_end:g}", stages):
+            growth = ts.solve(T_end, n_steps)
+        figures[f"transient T={T_end:g}"] = (ts.operators, ts.applies)
+        fw, ad, s = ts._propagators(T_end / n_steps)
         if time_factors is not None:
             time_factors.append(fw.device_op.blu)
         if cross_check:  # one T apply of the optimal initial state, for the host LU's
             q0 = torch.as_tensor(growth.initials[0], device=A.device)
-            z_bd = ts._march_adjoint(ad, s, ts._mass(ts._march(fw, q0, CN_STEPS)), CN_STEPS)
+            z_bd = ts._march_adjoint(ad, s, ts._mass(ts._march(fw, q0, n_steps)), n_steps)
     del ts, fw, ad  # the transient's two factors
     for name, st in stages.items():
         log_stage(f"{what}: {name}", st)
@@ -1943,7 +2018,7 @@ def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = F
         f"{[r.iterations for r in solver.newton_results]}; gain curve " + ", ".join(
             f"sigma_1({m.omega:g}) = {m.gains[0]:.10f}" for m in curve))
     log(f"{what}: omega = {OMEGA_CHECK}: gains {modes.gains.tolist()}; ||R({Z_CHECK})||_E = "
-        f"{rnorm}; transient G({HORIZON:g}) = {growth.gains[0]:.10f} ({CN_STEPS} CN steps)")
+        f"{rnorm}; transient G({T_end:g}) = {growth.gains[0]:.10f} ({n_steps} CN steps)")
     gate_resolvent_modes(f"{what} resolvent", modes, raw, A, M, mask, nu)
     gate_growth_modes(f"{what} transient", growth, M, mask, nu)
     first = True
@@ -1980,9 +2055,9 @@ def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = F
 
         def transient_lu():
             ts_lu = TransientGrowthSolver(A, M, nu, mask, method="lu", device=dev)
-            fw_lu, ad_lu, s = ts_lu._propagators(HORIZON / CN_STEPS)
-            qT = ts_lu._march(fw_lu, q0, CN_STEPS)
-            z_lu = ts_lu._march_adjoint(ad_lu, s, ts_lu._mass(qT), CN_STEPS)
+            fw_lu, ad_lu, s = ts_lu._propagators(T_end / n_steps)
+            qT = ts_lu._march(fw_lu, q0, n_steps)
+            z_lu = ts_lu._march_adjoint(ad_lu, s, ts_lu._mass(qT), n_steps)
             return qT, z_lu, float(qT @ ts_lu._mass(qT))
 
         # the three host-LU checks side by side: SuperLU releases the GIL
@@ -2781,6 +2856,7 @@ def wide_kernels(dev, errs: dict) -> list:
     on random factors at ``PHASE2_WIDE`` (drawn on the card), held against
     their plain versions, the cluster and ring tiles each launch chose, and
     one time each.  Returns the kernels-line entries."""
+    import torch
     from lsafw_tpu_torch.solver import band_cuda as bc
 
     out = []
@@ -2792,15 +2868,33 @@ def wide_kernels(dev, errs: dict) -> list:
             for seed, kind in enumerate(kinds(f)):
                 b = rhs(kind, nblk, nb2, dev, 3 + seed)
                 what = f"phase 2 wide B={B} nblk={nblk}"
+                bf16 = f.band.dtype == torch.bfloat16
+                query = {k: bc.query_room(k, mode, kind, B, nb2, bf16) for k in ("K1", "K2")}
+                formula = {k: bc.room(k, mode, kind, B, nb2, bf16) for k in ("K1", "K2")}
+                if {k: v is None for k, v in query.items()} != \
+                        {k: v is None for k, v in formula.items()}:
+                    raise RuntimeError(f"{what}: {mode_name(f, kind)}: the card's room {query} "
+                                       f"and the formula's {formula} disagree")
                 try:
                     res = check_kernels(f, b, what)
                 except RuntimeError as e:  # K1 pivoted c64 past its window's room must raise
                     if not (mode == "pivoted" and kind == "c64" and "CUDA error 9" in str(e)):
                         raise
+                    try:
+                        bc.require_room(mode, (kind,), B, nb2, device=dev)
+                    except bc.NoRoom as refusal:
+                        refused = str(refusal)
+                    else:
+                        raise RuntimeError(f"{what}: the plan-time room check passed a mode "
+                                           f"whose launch fails ({e})")
+                    if query["K1"] is not None:
+                        raise RuntimeError(f"{what}: the card's room query {query} passed a "
+                                           f"mode whose launch fails ({e})")
                     log(f"  {what}: K1 {mode_name(f, kind)} refused, as it must: its two windows "
                         f"of (B + 1) nb = {(B + 1) * nb2} complex entries and a ring tile of "
                         f"nb / 16 rows leave no room in a block's 232,448 B of shared memory "
-                        f"at any cluster size ({e})")
+                        f"at any cluster size: the launch ({e}), the card's room query "
+                        f"{query}, the plan-time check ({refused})")
                     continue
                 fwd, fwd_plain, bwd, bwd_plain = substitutions(f)
                 y = fwd(b)
@@ -2816,7 +2910,8 @@ def wide_kernels(dev, errs: dict) -> list:
                     c = chosen[k]
                     log(f"  {what}: {k} {mode_name(f, kind)}: window {c['window']} block rows, "
                         f"a cluster of {c['cluster']} blocks, {c['tiles']} ring tiles, "
-                        f"{c['smem']} B of shared memory a block; {ms[k]:.4f} ms")
+                        f"{c['smem']} B of shared memory a block; {ms[k]:.4f} ms (the room "
+                        f"query {query[k]}, the formula {formula[k]})")
                     out.append(band_entry(k, f, kind, f", random factor B={B} nblk={nblk}",
                                           errs[key_of(k, f, kind)], ms[k], plain[k]))
                 del b, y
@@ -3099,14 +3194,14 @@ def cube_path(dev, errs: dict) -> dict:
     return out
 
 
-def spmv_timed(cop, A, M, dev, label: str) -> list:
+def spmv_timed(cop, A, M, dev, label: str, modes: tuple = ("real", "shifted", "mass")) -> list:
     """S in its main-path modes (real: J's pattern and values class, here
     A; shifted (A - sigma M); mass) in the original order on a shifted
     operator's storage: held against the plain version, timed with L2
     evicted beside cuSPARSE, bounded by its bytes.  Returns kernels-line
     entries (launches filled in from ``_key``)."""
     cases = {k: v for k, v in spmv_cases(cop, dev).items()
-             if k in (("real", "original"), ("shifted", "original"), ("mass", "original"))}
+             if k[1] == "original" and k[0] in modes}
     errs = check_spmv(cases, f"on (A, M){label}")
     libs = spmv_library(A, M, cop.sigma, dev)
     ntiles = cop.plan.tile_row.size - 1
@@ -3238,24 +3333,6 @@ def step_path(dev) -> dict:
     return out
 
 
-def decoupled_pressure_dofs(ctx, bcs) -> np.ndarray:
-    """The pressure DOFs (not already Dirichlet) whose every coupling in the
-    mixed pattern is to a Dirichlet velocity DOF: a vertex whose cells have
-    all their velocity nodes on no-slip or inflow walls (a corner
-    tetrahedron of a distmesh3d mesh).  After the Dirichlet elimination
-    their rows and columns of the Stokes operator, of J and of A - sigma M
-    are zero: the pressure there is free, as an enclosed flow's constant
-    is, and each is pinned (``pin_dofs``) as one pins that constant."""
-    pat, nu, n = ctx.pattern, ctx.spaces.num_velocity_dofs, ctx.spaces.num_dofs
-    mask = np.asarray(bcs.dirichlet_mask)
-    rows, cols = pat.row_ids.astype(np.int64), pat.indices.astype(np.int64)
-    live = (rows >= nu) & (cols < nu) & ~mask[cols]
-    coupled = np.zeros(n, dtype=bool)
-    coupled[rows[live]] = True
-    p = np.arange(nu, n)
-    return p[~coupled[p] & ~mask[p]]
-
-
 def step3d_path(dev, errs: dict) -> dict:
     """Phase 10c: the 3D step from ``config_files/3D/step/*.toml``
     (``step_flow_mesh`` with dim = 3: distmesh3d on the host): the Re = 50
@@ -3268,11 +3345,10 @@ def step3d_path(dev, errs: dict) -> dict:
     default's; then K1/K2 on the eigen factor and on the last Newton
     factor, and S on (A, M)."""
     import torch
-    from lsafw_tpu_torch.config import load_bc_config, load_facet_config, load_step_flow_config
+    from lsafw_tpu_torch.config import load_bc_config, load_facet_config
     from lsafw_tpu_torch.fem.assembly import AssemblyContext
-    from lsafw_tpu_torch.fem.bcs import define_bcs, pin_dofs
+    from lsafw_tpu_torch.fem.bcs import decoupled_pressure_dofs, define_bcs, pin_dofs
     from lsafw_tpu_torch.fem.spaces import define_spaces
-    from lsafw_tpu_torch.meshing.geometries import step_flow_mesh
     from lsafw_tpu_torch.meshing.tags import mark_boundary_facets
     from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
     from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver, compute_recirculation_length
@@ -3281,13 +3357,13 @@ def step3d_path(dev, errs: dict) -> dict:
     what = "phase 10c"
     t_phase = time.time()
     cfg = STEP3D_CONFIG
-    mesh = step_flow_mesh(load_step_flow_config(cfg / "geometry.toml"))
-    t_mesh = time.time() - t_phase
+    mesh, t_mesh = host_mesh("step3d")
+    t_wait = time.time() - t_phase
     mark_boundary_facets(mesh, load_facet_config(cfg / "facets.toml"))
     spaces = define_spaces(mesh)
     bcs = define_bcs(mesh, spaces, load_bc_config(cfg / "bcs.toml"))
     ctx = AssemblyContext.build(spaces, device=dev)
-    free_p = decoupled_pressure_dofs(ctx, bcs)
+    free_p = decoupled_pressure_dofs(spaces, bcs)
     pin_dofs(bcs, free_p)
     bcs_pert = bcs.homogeneous()
     torch.cuda.synchronize()
@@ -3295,7 +3371,8 @@ def step3d_path(dev, errs: dict) -> dict:
     rk = reckon_band(ctx.pattern, spaces.num_dofs)
     log(f"{what}: 3D step from {'/'.join(cfg.parts[-3:])}/*.toml: "
         f"{mesh.num_vertices} vertices, {mesh.num_cells} tetrahedra; mesh (distmesh3d) "
-        f"{t_mesh:.2f} s, case {t_case:.2f} s (host)")
+        f"{t_mesh:.2f} s in the mesh worker (waited for {t_wait:.2f} s), case {t_case:.2f} s "
+        f"(host)")
     log_reckoning(what, rk, ctx.pattern.nnz, spaces.num_dofs)
     log(f"{what}: {free_p.size} decoupled pressure DOFs pinned (rows and columns zero after the "
         f"Dirichlet elimination): {free_p.tolist()} at "
@@ -3360,7 +3437,347 @@ def step3d_path(dev, errs: dict) -> dict:
                mesh_seconds=t_mesh, refused=refused,
                launches={k: sum(s_["launches"][k] for s_ in stages.values()) for k in counts()})
     out["seconds"] = time.time() - t_phase
-    log(f"{what}: {out['seconds']:.1f} s in all ({t_mesh:.1f} s of it the host mesh)")
+    log(f"{what}: {out['seconds']:.1f} s in all ({t_wait:.1f} s of it waiting for the host mesh)")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the self-consistent model, harmonic balance and Hill's method
+# ---------------------------------------------------------------------------
+
+SCM_RE = 60.0  # examples/scm_limit_cycle.py, examples/scm_hb2.py
+SCM_CONFIG = Path(__file__).resolve().parent / "config_files" / "2D" / "cylinder"
+SCM_DOFS = 11323  # doc/scm_re60_small.json, doc/scm_hb2_re60.json, doc/floquet_re60_small.json
+SCM_SIGMA0 = 0.04029458801579838 + 0.7696851273858805j  # doc/scm_re60_small.json history[0]
+SCM_A = 2.914231806515781  # doc/scm_re60_small.json
+SCM_DNS = 0.8528907621933606  # doc/shedding_re60_small.json, as scm_re60_small.json cites it
+HB1_REC = (2.897778977214202, 0.8559647533486048)  # doc/scm_hb2_re60.json: A, omega
+HB2_REC = (2.8991342152443913, 0.8631488748270492, 0.5263010887028963)  # A, omega, A2
+HB2_DNS = 0.8622250948215022  # doc/scm_hb2_re60.json's dns_omega
+FLOQUET_MU = 0.8020084141670835  # doc/floquet_re60_small.json: the leading non-trivial |mu|
+HILL_BLOCKS, HILL_NUM = 3, 12  # examples/scm_hb2.py --hill
+SCM_CLASSES = {"Newton": ("RealPivotedBandedLU",), "bordered": ("RealPivotedBandedLU",),
+               "eigen": COMPLEX_CLASSES, "q2": COMPLEX_CLASSES}
+
+
+def scm_case(device) -> dict:
+    """The examples' 11k cylinder: ``geometry_small.toml``,
+    ``facets_small.toml``, ``bcs.toml`` and ``bcs_perturbation.toml`` of
+    ``config_files/2D/cylinder``."""
+    import torch
+    from lsafw_tpu_torch.config import (load_bc_config, load_cylinder_flow_config,
+                                        load_facet_config)
+    from lsafw_tpu_torch.fem.assembly import AssemblyContext
+    from lsafw_tpu_torch.fem.bcs import define_bcs
+    from lsafw_tpu_torch.fem.spaces import define_spaces
+    from lsafw_tpu_torch.meshing.geometries import cylinder_flow_mesh
+    from lsafw_tpu_torch.meshing.tags import mark_boundary_facets
+
+    t0 = time.time()
+    mesh = cylinder_flow_mesh(load_cylinder_flow_config(SCM_CONFIG / "geometry_small.toml"))
+    mark_boundary_facets(mesh, load_facet_config(SCM_CONFIG / "facets_small.toml"))
+    spaces = define_spaces(mesh)
+    bcs = define_bcs(mesh, spaces, load_bc_config(SCM_CONFIG / "bcs.toml"))
+    bcs_pert = define_bcs(mesh, spaces, load_bc_config(SCM_CONFIG / "bcs_perturbation.toml"))
+    ctx = AssemblyContext.build(spaces, device=device)
+    torch.cuda.synchronize()
+    return dict(mesh=mesh, spaces=spaces, bcs=bcs, bcs_pert=bcs_pert, ctx=ctx,
+                seconds=time.time() - t0)
+
+
+@contextmanager
+def attr(obj, name: str, value):
+    """``obj.<name>`` set to ``value`` while the block runs."""
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def scm_path(dev, errs: dict) -> dict:
+    """Phase 11: ``examples/scm_limit_cycle.py`` then ``examples/scm_hb2.py
+    --hill`` on the examples' 11k cylinder at Re = 60 (full width): 11a the
+    ramped banded baseflow and ``SelfConsistentModel.solve(w, A0=0.1,
+    tol_sigma=2e-4)``, every mean Newton and eigensolve a stage; 11b HB1
+    and 11c HB2 (``solve_coupled``), every bordered solve and HB2's q2 seed
+    a stage; 11d ``hill_floquet`` (n_blocks 3, num 12) on HB2's cycle, a
+    stage, and its pairs held in the reference's complex pencil built on
+    the host; then the repair
+    of the silent refinement miss: the pivot-free factor of an 11k (A, M)
+    with its refinement cap forced to 1 must raise ``FactorUnusable`` from
+    the eigensolve; then K1/K2 and S on the phase's factors and matrices.
+    Gates: the record's DOF count, the launch gates of ``gate_class`` in
+    each stage's factor class (no plan built beyond each pattern's first),
+    and the records' values (``tests/benchmark/test_scm.py``,
+    ``doc/scm_re60_small.json``, ``doc/scm_hb2_re60.json``)."""
+    import torch
+    from lsafw_tpu_torch import hill, scm
+    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.ops.bcsr import BCSRShiftedOp
+    from lsafw_tpu_torch.ops.sparse import spmv
+    from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
+    from lsafw_tpu_torch.solver.eigen import (EigenSolver, EigensolverConfig, FactorUnusable,
+                                              ShiftInvertOperator, STType)
+
+    what = "phase 11"
+    t_phase = time.time()
+    case = scm_case(dev)
+    ctx, mesh, bcs, bcs_pert = case["ctx"], case["mesh"], case["bcs"], case["bcs_pert"]
+    n = case["spaces"].num_dofs
+    log(f"{what}: the examples' cylinder from {'/'.join(SCM_CONFIG.parts[-3:])}/"
+        f"{{geometry,facets}}_small.toml, bcs.toml, bcs_perturbation.toml: {n} DOFs (the "
+        f"records' {SCM_DOFS}); case {case['seconds']:.2f} s (host)")
+    if n != SCM_DOFS:
+        raise RuntimeError(f"{what}: {n} DOFs, the records were made at {SCM_DOFS}")
+    model = scm.SelfConsistentModel(ctx, mesh, bcs, bcs_pert, SCM_RE, device=dev)
+    for name, pat in (("the cylinder", ctx.pattern), ("HB1's K0", model._block(1).pattern),
+                      ("HB2's K0", model._block(2).pattern)):
+        log_reckoning(f"{what}: {name}", reckon_band(pat, pat.shape[0]), pat.nnz, pat.shape[0])
+    stages: dict = {}
+    figures: dict = {}
+    cur = {"phase": "11a", "n": 0}
+    kept: dict = {}
+    saved = {k: getattr(scm, k) for k in ("NewtonSolver", "EigenSolver", "_forced_solve",
+                                          "factor_auto")}
+
+    def named(kind: str) -> str:
+        cur["n"] += 1
+        return f"{cur['phase']} {kind} {cur['n']}"
+
+    class Newton(saved["NewtonSolver"]):
+        def solve(self, w0, re, **kw):
+            with stage(named("Newton"), stages):
+                return super().solve(w0, re, **kw)
+
+    class Eigen(saved["EigenSolver"]):
+        def solve(self):
+            name = named("eigen")
+            with stage(name, stages):
+                out = super().solve()
+            figures[name] = self.operator.figures()
+            return out
+
+    def forced_solve(*args, **kw):
+        with stage(named("q2 seed"), stages):
+            return saved["_forced_solve"](*args, **kw)
+
+    def factor_kept(*args, **kw):  # K0's factor, kept for the kernel times (the last one alone)
+        kept.pop(cur["phase"], None)
+        out = saved["factor_auto"](*args, **kw)
+        kept[cur["phase"]] = out[0]
+        return out
+
+    bordered = model._bordered_solve
+
+    def bordered_staged(K0, c, r, F):
+        kept[cur["phase"] + " K0"] = K0  # the last K0, for S's times
+        with stage(named("bordered"), stages):
+            return bordered(K0, c, r, F)
+
+    model._bordered_solve = bordered_staged
+    for k, v in (("NewtonSolver", Newton), ("EigenSolver", Eigen), ("_forced_solve", forced_solve),
+                 ("factor_auto", factor_kept)):
+        setattr(scm, k, v)
+    t = {}
+    try:
+        with plain_loops_forbidden():
+            with stage("11a baseflow", stages):
+                solver = BaseFlowSolver(ctx, mesh, bcs, re=SCM_RE)
+                w = solver.solve(ramp=True, steps=4, tol=1e-10, max_it=40, linear_solver="banded")
+            gate_baseflow(f"{what} 11a baseflow", solver, stages["11a baseflow"])
+            t0 = time.time()
+            res = model.solve(np.asarray(w), A0=0.1, tol_sigma=2e-4)
+            t["11a"] = time.time() - t0
+            cur.update(phase="11b", n=0)
+            A0 = res.amplitude_sl or res.amplitude
+            t0 = time.time()
+            hb1 = model.solve_coupled(res.mean, A0 * res.mode, abs(res.sigma.imag))
+            t["11b"] = time.time() - t0
+            stats_hb1 = dict(model.stats, gcr_its=list(model.stats["gcr_its"]))
+            cur.update(phase="11c", n=0)
+            t0 = time.time()
+            hb2 = model.solve_coupled(hb1.mean, hb1.amplitude * hb1.mode, hb1.sigma.imag,
+                                      harmonics=2)
+            t["11c"] = time.time() - t0
+    finally:
+        for k, v in saved.items():
+            setattr(scm, k, v)
+        model._bordered_solve = bordered
+    # every stage in its factor class's mode; the first of each kind may plan
+    # (a real and a complex band of the cylinder's pattern, each K0's band)
+    planned: set = set()
+    per_kind: dict = {}
+    for name, st in stages.items():
+        if name == "11a baseflow" or not st["solves"]:  # a Newton already converged solves nothing
+            continue
+        ph, kind = name.split(" ")[:2]
+        key = (ph if kind == "bordered" else "", "q2" if kind == "q2" else kind)
+        builds = int(key not in planned and kind in ("eigen", "bordered"))
+        planned.add(key)
+        cls = gate_class(f"{what} {name}", st, SCM_CLASSES[key[1]], builds)
+        agg = per_kind.setdefault((ph, kind), dict(n=0, seconds=0.0, solves=0, peak=0.0,
+                                                   classes=set()))
+        agg["n"] += 1
+        agg["seconds"] += st["seconds"]
+        agg["solves"] += sum(st["solves"].values())
+        agg["peak"] = max(agg["peak"], st["peak_gb"] - st["resident_gb"])
+        agg["classes"].add(cls)
+    for (ph, kind), a in per_kind.items():
+        log(f"{what}: {ph} {a['n']} {kind} stages, {a['seconds']:.2f} s, {a['solves']} band "
+            f"solves, factor classes {sorted(a['classes'])}, peak {a['peak']:.3f} GB above a "
+            f"stage's start")
+    eig = [figures[k] for k in figures if k.startswith("11a eigen")]
+    log(f"{what} 11a: {len(eig)} eigensolves, factors {sum(f['factor_s'] for f in eig):.2f} s, "
+        f"contraction max {max(f['rho'] for f in eig):.2e}, applies "
+        f"{sum(f['applies'] for f in eig)}, pivoted {sorted({f['pivoted'] for f in eig})}")
+    hist = res.history
+    omega = abs(res.sigma.imag)
+    s0 = complex(hist[0][1], hist[0][2])
+    log(f"{what} 11a: the alternation {t['11a']:.1f} s, {len(hist) - 1} outer iterations (record "
+        f"19): history[0] sigma = {s0.real:+.6f}{s0.imag:+.6f}j (record "
+        f"{SCM_SIGMA0.real:+.6f}{SCM_SIGMA0.imag:+.6f}j), converged {res.converged}, A = "
+        f"{res.amplitude:.6f} (record {SCM_A:.6f}, {100 * abs(res.amplitude / SCM_A - 1):.2f}% "
+        f"off), sigma = {res.sigma.real:+.3e}{res.sigma.imag:+.6f}j, A_SL {res.amplitude_sl}; "
+        f"omega {omega:.6f} against the DNS {SCM_DNS:.6f}: {100 * abs(omega / SCM_DNS - 1):.3f}% "
+        f"(record 0.37%)")
+    checks = [
+        (s0.real > 5e-3, f"history[0] sigma_r {s0.real:.3e} <= 5e-3"),
+        (res.converged and abs(res.sigma.real) <= 2e-3,
+         f"converged {res.converged}, |sigma_r| {abs(res.sigma.real):.2e}"),
+        (1.005 * s0.imag < omega < 1.3 * s0.imag, f"omega {omega} outside (1.005, 1.3) x "
+                                                  f"omega_Hopf {s0.imag}"),
+        (abs(omega / SCM_DNS - 1) <= 0.01, f"omega {omega} over 1% from the DNS {SCM_DNS}"),
+        (abs(res.amplitude / SCM_A - 1) <= 0.05, f"A {res.amplitude} over 5% from {SCM_A}"),
+    ]
+    M = model._Mmat
+    q2 = torch.as_tensor(hb2.q2, device=dev)
+    a2 = float(torch.sqrt(torch.vdot(q2, spmv(M, q2)).real))
+    for name, r, rec, secs in (("11b HB1", hb1, HB1_REC, t["11b"]),
+                               ("11c HB2", hb2, HB2_REC, t["11c"])):
+        its = [st_ for st_ in stages if st_.startswith(name[:3] + " bordered")]
+        log(f"{what} {name}: {secs:.1f} s, {len(r.history)} Newton iterations, converged "
+            f"{r.converged}: A = {r.amplitude:.8f} (record {rec[0]:.8f}, rel "
+            f"{abs(r.amplitude / rec[0] - 1):.1e}), omega = {r.sigma.imag:.8f} (record "
+            f"{rec[1]:.8f}, rel {abs(r.sigma.imag / rec[1] - 1):.1e})"
+            + (f", A2 = {a2:.8f} (record {rec[2]:.8f}, rel {abs(a2 / rec[2] - 1):.1e}); omega "
+               f"against the DNS {HB2_DNS:.6f}: {100 * abs(r.sigma.imag / HB2_DNS - 1):.3f}% "
+               f"(record 0.107%)" if len(rec) == 3 else "")
+            + f"; {len(its)} bordered solves")
+        checks += [(r.converged, f"{name} did not converge"),
+                   (abs(r.amplitude / rec[0] - 1) <= 1e-4, f"{name} A {r.amplitude} vs {rec[0]}"),
+                   (abs(r.sigma.imag / rec[1] - 1) <= 1e-4,
+                    f"{name} omega {r.sigma.imag} vs {rec[1]}")]
+    checks += [(abs(a2 / HB2_REC[2] - 1) <= 1e-4, f"11c A2 {a2} vs {HB2_REC[2]}"),
+               (abs(hb2.sigma.imag / HB2_DNS - 1) <= 5e-3,
+                f"11c omega {hb2.sigma.imag} over 0.5% from the DNS {HB2_DNS}")]
+    gcr1, gcr = stats_hb1["gcr_its"], model.stats["gcr_its"]
+    log(f"{what} 11b/11c: GCR iterations per bordered solve HB1 {gcr1}, HB2 {gcr[len(gcr1):]}; "
+        f"K0 values formed on the device in {model.stats['form_s']:.3f} s, K0 factors "
+        f"{model.stats['factor_s']:.3f} s, GCR {model.stats['solve_s']:.3f} s")
+    for ok, msg in checks:
+        if not ok:
+            raise RuntimeError(f"{what}: {msg}")
+
+    # 11d: Hill's method on HB2's cycle
+    mask = np.asarray(bcs.dirichlet_mask, bool)
+    A, Mb = LinearizedNavierStokesAssembler(hb2.mean, ctx, SCM_RE, bcs,
+                                            mesh).assemble_eigensystem()
+    harmonics = [hb2.amplitude * hb2.mode, hb2.q2]
+    om = hb2.sigma.imag
+    hill_es: list = []
+
+    class HillEigen(EigenSolver):
+        def solve(self):
+            hill_es.append(self)
+            self.pairs = super().solve()
+            return self.pairs
+
+    with plain_loops_forbidden(), attr(hill, "EigenSolver", HillEigen), stage("11d Hill", stages):
+        hl = hill.hill_floquet(ctx, A, Mb, harmonics, om, n_blocks=HILL_BLOCKS, num=HILL_NUM,
+                               bc_mask=mask, device=dev)
+    es = hill_es[-1]
+    Hp, Bp = es.A, es.M
+    log_reckoning(f"{what} 11d: the Hill pair", reckon_band(Hp.pattern, Hp.shape[0]),
+                  Hp.pattern.nnz, Hp.shape[0])
+    st = stages["11d Hill"]
+    stage_line(f"{what}: 11d Hill", st, es.operator.figures())
+    log(f"{what} 11d: Krylov-Schur {es.result.restarts} cycles, {es.result.iterations} applies, "
+        f"{es.result.nconv} converged; factor {type(es.operator.device_op.blu).__name__}, "
+        f"refinement cap {es.operator.refine_its}; {st['seconds']:.2f} s with the pair's "
+        f"assembly on the card")
+    gate_eigen_stage(f"{what} 11d Hill", st, COMPLEX_CLASSES, builds=1)
+    ex = hl.exponents
+    triv = int(np.argmin(np.abs(ex)))
+    rest = np.delete(ex, triv)
+    lead = rest[np.argsort(-rest.real)]
+    mu = np.exp(lead * 2 * np.pi / om)
+    log(f"{what} 11d: {len(hl.raw)} raw eigenvalues, {len(ex)} principal exponents "
+        f"{[f'{z.real:+.8f}{z.imag:+.8f}j' for z in sorted(ex, key=lambda z: -z.real)]}; trivial "
+        f"|lambda| = {abs(ex[triv]):.2e} (<= {1e-2 * om:.2e}); the leading non-trivial |mu| = "
+        f"{abs(mu[0]):.6f} beside the DNS monodromy's {FLOQUET_MU:.4f} "
+        f"(doc/floquet_re60_small.json; not gated)")
+    if not abs(ex[triv]) <= 1e-2 * om or not (rest.real < 0).all():
+        raise RuntimeError(f"{what} 11d: trivial |lambda| {abs(ex[triv]):.2e} (<= {1e-2 * om:.2e}) "
+                           f"or a non-trivial exponent with Re >= 0: {rest}")
+    # on the host: the card's pairs held in the reference's own complex pencil
+    # (H, B), built as the reference builds it.  (scipy's eigs of that
+    # pencil needs SuperLU of a 79,261-row complex matrix: over 4 minutes at
+    # n_blocks = 2 on a CPU sandbox, and 36.9 s at n_blocks = 1 on the card
+    # machine's host, a third of the phase's budget; the CPU parity test
+    # holds the method to the reference's eigs.)
+    t0 = time.time()
+    H, B = hill._host_hill(ctx, A, Mb, harmonics, om, HILL_BLOCKS, mask)
+    z = np.stack([p[1] for p in es.pairs], axis=1)
+    W = hill._to_harmonics(z, HILL_BLOCKS, n)
+    lam = np.array([p[0] for p in es.pairs])
+    resid = np.linalg.norm(H @ W - (B @ W) * lam, axis=0) / np.linalg.norm(W, axis=0)
+    worst = float((resid / (np.abs(lam) + 1.0)).max())
+    log(f"{what} 11d: the card's {len(lam)} Hill pairs in the reference's complex pencil "
+        f"({H.shape[0]} rows, {H.nnz} nonzeros, built on the host): true residual "
+        f"{worst:.2e} relative to |lambda| + 1 (1e-8); {time.time() - t0:.1f} s")
+    if not worst <= 1e-8:
+        raise RuntimeError(f"{what} 11d: residual {worst:.2e} in the reference's pencil")
+    del H, B, W
+
+    # the repair: a refinement that misses raises (the 11k pivot-free factor,
+    # its refinement cap forced to 1 GCR iteration, needs about 8)
+    Ar, Mr = LinearizedNavierStokesAssembler(w, ctx, SCM_RE, bcs_pert, mesh).assemble_eigensystem()
+    refused = None
+    t0 = time.time()
+    with env(LSAFW_PIVOT_MEM_GB="0"), attr(ShiftInvertOperator, "_CAP", 1), \
+            plain_loops_forbidden():
+        rep = EigenSolver(Ar, Mr, EigensolverConfig(num_eig=1, atol=1e-8, ncv=16))
+        rep.set_st_type(STType.SINVERT)
+        rep.set_target(SCM_SIGMA0)
+        try:
+            rep.solve()
+        except FactorUnusable as e:
+            refused = str(e)
+    outcome = "returned pairs" if refused is None else f"raised FactorUnusable: {refused}"
+    log(f"{what}: the repair, on the 11k baseflow's pivot-free factor with the refinement cap "
+        f"forced to 1 ({time.time() - t0:.2f} s): {outcome}")
+    if refused is None:
+        raise RuntimeError(f"{what}: an eigensolve whose refinement misses returned its pairs")
+    del rep, Ar, Mr
+
+    # K1/K2 and S on the phase's factors and matrices
+    hill_blu, cop = es.operator.device_op.blu, es.operator.device_op.Cop
+    kernels = band_kernels([(", HB1 K0 (phase 11b)", kept["11b"]),
+                            (", HB2 K0 (phase 11c)", kept["11c"])], errs, dev, only=("f32x1",),
+                           plain_reps=1)
+    kernels += band_kernels([(", the Hill pair (phase 11d)", hill_blu)], errs, dev, plain_reps=1)
+    K0 = kept["11c K0"]
+    kernels += spmv_timed(BCSRShiftedOp.from_csr(K0, K0, 0.0), K0, K0, dev,
+                          ", HB2's K0 (phase 11c)", modes=("real",))
+    kernels += spmv_timed(cop, Hp, Bp, dev, ", the Hill pair (phase 11d)",
+                          modes=("shifted", "mass"))
+    out = dict(stages=stages, kernels=kernels, res=res, hb1=hb1, hb2=hb2, hill=hl,
+               launches={k: sum(s_["launches"][k] for s_ in stages.values()) for k in counts()})
+    out["seconds"] = time.time() - t_phase
+    log(f"{what}: {out['seconds']:.1f} s in all (budget 120 s; the kernel checks and times "
+        f"included)")
     return out
 
 
@@ -3429,6 +3846,7 @@ def main() -> int:
     if "--kernels" in sys.argv[1:]:
         return 0
 
+    start_mesh_worker()
     forbid_host_lu()
     case = cylinder_case(dev)
     with plain_loops_forbidden():
@@ -3619,7 +4037,8 @@ def main() -> int:
     # phase 4, continued: K1/K2 on the production factors
     kernels += band_kernels([(", 175k phase 6", p6["op"].device_op.blu),
                              (", 175k phase 6b", p6b["op"].device_op.blu),
-                             (", 175k phase 6c", p6c["op"].device_op.blu)], errs, dev)
+                             (", 175k phase 6c", p6c["op"].device_op.blu)], errs, dev,
+                            plain_reps=1)
     mains = {"3": mp_launches, "3b": pf_launches, "3c": p3c_launches, "6": p6["launches"],
              "6b": p6b["launches"], "6c": p6c["launches"]}
     case6 = p6["case"]
@@ -3628,10 +4047,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     transient_factors: list = []
-    p7b = nonmodal_path(case6, "7b", dev, time_factors=transient_factors)
+    p7b = nonmodal_path(case6, "7b", dev, time_factors=transient_factors,
+                        horizon=(HORIZON / 2, CN_STEPS // 2))
     del p7b["stages"]
     # phase 4, continued: K1/K2 pivoted f32 on the 175k transient's real factor
-    kernels += band_kernels([(", 175k phase 7b", transient_factors[0])], errs, dev)
+    kernels += band_kernels([(", 175k phase 7b", transient_factors[0])], errs, dev, plain_reps=1)
     del transient_factors
     torch.cuda.empty_cache()
     log(f"phase 7: phases 7 and 7b took {p7['seconds'] + p7b['seconds']:.1f} s (budget 150 s)")
@@ -3639,7 +4059,7 @@ def main() -> int:
     q3_factors: list = []
     p8b = {"span": span_path(case6, p6d, "8b", dev, keep=q3_factors)}
     # phase 4, continued: K1/K2 on the 175k quasi-3D factor of beta = SPAN_BETA
-    kernels += band_kernels([(", 175k phase 8b quasi-3D", q3_factors[0])], errs, dev)
+    kernels += band_kernels([(", 175k phase 8b quasi-3D", q3_factors[0])], errs, dev, plain_reps=1)
     del q3_factors, p6d
     torch.cuda.empty_cache()
     p8b["wnl"] = wnl_path(case6, "8b", dev)
@@ -3659,6 +4079,9 @@ def main() -> int:
     log(f"phase 10: phases 10, 10b and 10c took "
         f"{sum(p['seconds'] for p in (p10, p10b, p10c)):.1f} s ({p10s} s; budget 250 s); the "
         f"cylinder's diagnostics L_r {p10cyl['L']:.6f}, C_d {p10cyl['cd']:.6f}")
+    torch.cuda.empty_cache()
+    p11 = scm_path(dev, errs)
+    kernels += p11.pop("kernels")
     timed = {e["_key"] for e in kernels}
     kernels += [e for key, e in random_entries.items() if key not in timed]
     kernels += wide_entries
@@ -3673,6 +4096,7 @@ def main() -> int:
                                    for k in ("span", "wnl")) if key else 0
         e["launches_phase9"] = p9["launches"][key] if key else 0
         e["launches_phase10"] = sum(p["launches"][key] for p in (p10, p10b, p10c)) if key else 0
+        e["launches_phase11"] = p11["launches"][key] if key else 0
     for e in kernels:
         log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
             f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
@@ -3680,7 +4104,8 @@ def main() -> int:
             f"{100 * e['bound_ms'] / e['ms']:.1f}% of bound, {e['launches']} launches "
             f"({e['launches_phase5']} in phase 5, {e['launches_phase6']} in phase 6, "
             f"{e['launches_phase7']} in phase 7, {e['launches_phase8']} in phase 8, "
-            f"{e['launches_phase9']} in phase 9, {e['launches_phase10']} in phase 10)")
+            f"{e['launches_phase9']} in phase 9, {e['launches_phase10']} in phase 10, "
+            f"{e['launches_phase11']} in phase 11)")
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
 
     log(name_power)

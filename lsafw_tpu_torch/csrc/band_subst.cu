@@ -931,6 +931,54 @@ int dispatch(int type, int bf16, const Args& a, void* stream, bool pivoted = fal
   }
 }
 
+// The choice ``launch`` makes for K1 (kernel 0) or K2 (kernel 1) at window
+// size ``window`` (B forward, S backward), made and kept without a launch.
+struct RoomArgs {
+  int kernel, window;
+  int64_t* out;  // cluster, ring tiles, shared-memory bytes
+};
+
+template <class Tr>
+int room_typed(const RoomArgs& a, bool pivoted) {
+  Choice ch = {nullptr, 0, a.window, 0, 0, 0};
+  cudaError_t err = cudaGetDevice(&ch.device);
+  if (err != cudaSuccess) return (int)err;
+  if (a.kernel == 0) {
+    if constexpr (std::is_same<Tr, typename Tr::Dense>::value) {
+      ch.fn = pivoted ? reinterpret_cast<const void*>(band_fwd_kernel<Tr, true>)
+                      : reinterpret_cast<const void*>(band_fwd_kernel<Tr, false>);
+    } else {
+      if (pivoted) return (int)cudaErrorInvalidValue;  // pivoted factors are never bf16
+      ch.fn = reinterpret_cast<const void*>(band_fwd_kernel<Tr, false>);
+    }
+    auto sizes = [&](int c, size_t& side, size_t& rest) {
+      fwd_sizes<Tr>(pivoted, a.window, c, side, rest);
+    };
+    if (!find_choice(ch)) {
+      err = choose<Tr>(sizes, ch);
+      if (err != cudaSuccess) return (int)err;
+      keep_choice(ch);
+    }
+  } else {
+    ch.fn = reinterpret_cast<const void*>(band_bwd_kernel<Tr>);
+    auto sizes = [&](int c, size_t& side, size_t& rest) { bwd_sizes<Tr>(a.window, c, side, rest); };
+    if (!find_choice(ch)) {
+      err = choose<typename Tr::Dense>(sizes, ch);
+      if (err != cudaSuccess) return (int)err;
+      keep_choice(ch);
+    }
+  }
+  a.out[0] = ch.c;
+  a.out[1] = ch.nt;
+  a.out[2] = (int64_t)ch.smem;
+  return 0;
+}
+
+template <class Tr>
+struct Room {
+  static int run(const RoomArgs& a, void*, bool pivoted) { return room_typed<Tr>(a, pivoted); }
+};
+
 template <class Tr>
 struct Fwd {
   static int run(const FwdArgs& a, void* stream, bool pivoted) { return fwd_typed<Tr>(pivoted, a, stream); }
@@ -953,6 +1001,17 @@ extern "C" void band_last_choice(int64_t* out) {
   out[1] = g_last.c;
   out[2] = g_last.nt;
   out[3] = (int64_t)g_last.smem;
+}
+
+// Whether K1 (kernel 0) or K2 (kernel 1) of ``type``/``bf16`` in the pivoted
+// mode or not finds room for window size ``window`` (B forward, S backward):
+// 0 with out[0..2] = cluster, ring tiles, shared-memory bytes, as the
+// launch will use them, or the CUDA error (9: no cluster fits).  It runs
+// ``choose`` without launching, so a plan can be refused before its factor
+// is built.
+extern "C" int band_room(int kernel, int type, int bf16, int pivoted, int window, int64_t* out) {
+  RoomArgs a = {kernel, window, out};
+  return dispatch<Room>(type, bf16, a, nullptr, pivoted != 0);
 }
 
 extern "C" int band_fwd(int type, int bf16, const void* band, const void* b, void* y,

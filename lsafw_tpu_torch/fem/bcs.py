@@ -22,6 +22,9 @@ from lsafw_tpu_torch.config import BoundaryConditionsConfig
 from lsafw_tpu_torch.fem.spaces import FunctionSpaces
 from lsafw_tpu_torch.meshing.mesh import Mesh
 from lsafw_tpu_torch.meshing.tags import facets_with_marker
+from lsafw_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 
 class BoundaryConditionType(Enum):
@@ -128,7 +131,31 @@ def define_bcs(
         else:
             raise AssertionError(f"Unhandled boundary condition type: {kind!r}")
 
+    free_p = decoupled_pressure_dofs(spaces, bcs)
+    if free_p.size:
+        logger.warning("%d pressure DOFs couple only to Dirichlet velocity DOFs (their rows and "
+                       "columns vanish after the Dirichlet elimination; pin them with pin_dofs): "
+                       "%s", free_p.size, free_p.tolist())
     return bcs
+
+
+def decoupled_pressure_dofs(spaces: FunctionSpaces, bcs: BoundaryConditions) -> np.ndarray:
+    """The pressure DOFs (not already Dirichlet) whose every coupling in the
+    mixed pattern is to a Dirichlet velocity DOF: a vertex whose cells have
+    all their velocity nodes on no-slip or inflow walls (a corner
+    tetrahedron of a distmesh3d mesh).  After the Dirichlet elimination
+    their rows and columns of the Stokes operator, of J and of A - sigma M
+    are zero: the pressure there is free, as an enclosed flow's constant
+    is, and each is pinned (:func:`pin_dofs`) as one pins that constant.
+    The mixed pattern couples the DOFs of each cell, so a pressure DOF is
+    coupled where one of its cells has a velocity DOF off the mask."""
+    nu, n = spaces.num_velocity_dofs, spaces.num_dofs
+    mask = np.asarray(bcs.dirichlet_mask, dtype=bool)
+    live_cells = ~mask[spaces.velocity.cell_dofs].all(axis=1)
+    coupled = np.zeros(n, dtype=bool)
+    coupled[nu + spaces.pressure.cell_dofs[live_cells].ravel()] = True
+    p = np.arange(nu, n)
+    return p[~coupled[p] & ~mask[p]]
 
 
 def pin_dofs(bcs: BoundaryConditions, dofs, values: float | np.ndarray = 0.0) -> None:

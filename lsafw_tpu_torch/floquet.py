@@ -58,7 +58,7 @@ from lsafw_tpu_torch.ops.bcsr import BCSROperator, BCSRShiftedOp, plan_for_patte
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
 from lsafw_tpu_torch.solver.band import BandPlan, factor_auto, pivoted_extra_bytes, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
-from lsafw_tpu_torch.solver.eigen import BandedSIOp, _refine, bcsr_budget
+from lsafw_tpu_torch.solver.eigen import BandedSIOp, bcsr_budget, refine_checked
 from lsafw_tpu_torch.solver.timestepping import momentum_mask
 from lsafw_tpu_torch.utils.logging import get_logger
 
@@ -298,11 +298,9 @@ class FloquetSolver:
         b = self._rhs(k, v)
         self.stats["steps"] += 1
         if self.method == "banded":
-            x, its, res = _refine(self._imp_op(k), b, tol=TOL, max_its=MAX_ITS[self.inexact])
+            x, its = refine_checked(self._imp_op(k), b, tol=TOL, max_its=MAX_ITS[self.inexact],
+                                    what=f"Floquet step {k}")
             self.stats["gcr_its"] += its
-            if not res <= TOL:
-                raise RuntimeError(f"Floquet step {k}: the refinement reached {res:.2e} in {its} "
-                                   f"iterations (tol {TOL:.0e})")
             return x
         bh = b.cpu().numpy()
         if self.inexact:

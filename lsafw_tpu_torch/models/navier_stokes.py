@@ -115,6 +115,28 @@ def ns_residual_elements(
     return torch.cat([r_v.reshape(r_v.shape[0], -1), r_p], dim=1)
 
 
+def convective_linearization_data(ctx: AssemblyContext, b: torch.Tensor) -> torch.Tensor:
+    """CSR data of C(b): the convection-only part of the linearized NS
+    operator about the mixed state ``b`` -- exactly
+    ``linearized_ns_elements(ctx, b, re) - linearized_ns_elements(ctx, 0, re)``
+    (convection is bilinear; viscous, pressure and divergence terms do not
+    depend on b), assembled without any Dirichlet masking.
+
+    C(b) v = -[(b . grad) v + (v . grad) b] tested against velocity test
+    functions.  By the symmetry of the convection form this one matrix
+    gives every coupling block of the coupled self-consistent
+    (harmonic-balance) Jacobian: d/dU [A(U) q] = C(q) and
+    d/dq {-1/2 [(q.grad)q]} = 1/2 C(q).  ``b`` is a real f64 vector."""
+    g = ctx.gdim
+    ub_el, _ = _split_local(ctx, torch.as_tensor(b, dtype=torch.float64, device=ctx.device))
+    conv = convection_scalar(ctx, ub_el)
+    sh = shear_tensor(ctx, ub_el)
+    nc = conv.shape[0]
+    vv = expand_vector_diag(-conv, g)
+    vv = vv - sh.permute(0, 1, 3, 2, 4).reshape(nc, ctx.nu_el * g, ctx.nu_el * g)
+    return scatter_entries(ctx, compose_mixed(ctx, vv=vv))
+
+
 # ---------------------------------------------------------------------------
 # Assemblers
 # ---------------------------------------------------------------------------

@@ -218,3 +218,69 @@ def spmv(A: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
         y = S @ torch.stack([x.real, x.imag], dim=1)
         return torch.complex(y[:, 0], y[:, 1])
     return S @ x
+
+
+# ---------------------------------------------------------------------------
+# Block matrices on a pattern built once
+# ---------------------------------------------------------------------------
+
+
+class BlockPattern:
+    """The pattern of a k x k block matrix whose nonzero blocks (``blocks``,
+    a boolean (k, k) array with a true diagonal) each carry the pattern
+    ``base`` (n x n), and the gather that fills its CSR data from the
+    blocks' data on ``base``.  Rows are block-row-major; within a row the
+    blocks' columns follow in block order, so each row is sorted."""
+
+    def __init__(self, base: SparsityPattern, blocks: np.ndarray) -> None:
+        blocks = np.asarray(blocks, dtype=bool)
+        k, n, nnz = blocks.shape[0], base.shape[0], base.nnz
+        if not blocks.diagonal().all():
+            raise ValueError("a block pattern needs every diagonal block")
+        self.base, self.blocks, self.k = base, blocks, k
+        self.order = [(I, J) for I in range(k) for J in range(k) if blocks[I, J]]
+        pos = {b: i for i, b in enumerate(self.order)}
+        rowlen = np.diff(base.indptr)
+        rid = base.row_ids.astype(np.int64)
+        s = np.arange(nnz, dtype=np.int64)
+        within = s - base.indptr[rid]
+        indptr = [np.zeros(1, dtype=np.int64)]
+        indices, src = [], []
+        start = 0
+        for I in range(k):
+            Js = np.flatnonzero(blocks[I])
+            ptr = start + np.concatenate([[0], np.cumsum(len(Js) * rowlen)])
+            ind = np.empty(len(Js) * nnz, dtype=np.int32)
+            sr = np.empty(len(Js) * nnz, dtype=np.int64)
+            for jpos, J in enumerate(Js):
+                at = ptr[rid] - start + jpos * rowlen[rid] + within
+                ind[at] = J * n + base.indices
+                sr[at] = pos[(I, J)] * nnz + s
+            indptr.append(ptr[1:])
+            indices.append(ind)
+            src.append(sr)
+            start = int(ptr[-1])
+        total = start
+        self.pattern = SparsityPattern(shape=(k * n, k * n), indptr=np.concatenate(indptr),
+                                       indices=np.concatenate(indices),
+                                       slots=np.arange(total, dtype=np.int32))
+        self._src = np.concatenate(src)
+        self._src_dev: dict = {}
+
+    def fill(self, data: dict) -> CSRMatrix:
+        """The block matrix from ``data``, a dict (I, J) -> the block's data
+        on ``base`` (a missing nonzero block is zero): one gather."""
+        ref = next(iter(data.values()))
+        zero = torch.zeros_like(ref)
+        stacked = torch.cat([data.get(b, zero) for b in self.order])
+        src = self._src_dev.get(ref.device)
+        if src is None:
+            src = self._src_dev[ref.device] = torch.as_tensor(self._src, device=ref.device)
+        return CSRMatrix(self.pattern, stacked[src])
+
+
+def rows_kept(mask: torch.Tensor, pattern: SparsityPattern, device) -> torch.Tensor:
+    """(nnz,) 1.0 on the entries of rows off ``mask``, 0.0 on masked rows:
+    the data form of diag(1 - mask) @ C."""
+    rows = pattern.on(device)["row_ids"].long()
+    return (~mask[rows]).to(torch.float64)

@@ -677,19 +677,31 @@ def factor_auto(plan: BandPlan, data_re: torch.Tensor, data_im: torch.Tensor | N
     memory fits ``LSAFW_PIVOT_MEM_GB`` (default 8), else pivot-free with
     saddle regularization of the zero diagonals.  Returns ``(lu,
     pivoted)``.  A ``real`` plan takes the real factors and refuses
-    complex data."""
+    complex data.  Before any factor work, K1/K2's room for the chosen
+    mode is checked (:func:`~lsafw_tpu_torch.solver.band_cuda.require_room`:
+    complex64 for a complex factor; float32 with one and two columns for
+    a real one, which takes a complex vector as two columns), so that a
+    mode the kernels cannot hold raises ``NoRoom`` before a factor that
+    may take tens of seconds is built."""
     budget = float(os.environ.get("LSAFW_PIVOT_MEM_GB", "8")) * 1e9
     if plan.real:
         if data_im is not None:
             raise ValueError("real band plan cannot factor complex data")
         band_bytes = plan.rows_total * plan.R * plan.nb * plan.nb * 4
-        if band_bytes + pivoted_extra_bytes(plan) <= budget:
+        pivoted = band_bytes + pivoted_extra_bytes(plan) <= budget
+        band_cuda.require_room("pivoted" if pivoted else "pivot_free", ("f32x1", "f32x2"), plan.B,
+                               plan.nb, bf16=not pivoted and plan.band_dtype == "bf16",
+                               device=data_re.device)
+        if pivoted:
             return RealPivotedBandedLU.factor(plan, data_re, delta=delta), True
         if diag_slots is not None:
             data_re = regularize_saddle_data(data_re, None, diag_slots)
         return RealBandedLU.factor(plan, data_re, delta=delta), False
     band_bytes = plan.rows_total * plan.R * plan.nb * plan.nb * 8
-    if band_bytes + pivoted_extra_bytes(plan) <= budget:
+    pivoted = band_bytes + pivoted_extra_bytes(plan) <= budget
+    band_cuda.require_room("pivoted" if pivoted else "pivot_free", ("c64",), plan.B, plan.nb,
+                           bf16=not pivoted and plan.band_dtype == "bf16", device=data_re.device)
+    if pivoted:
         return PivotedBandedLU.factor(plan, data_re, data_im, delta=delta), True
     if diag_slots is not None:
         data_re = regularize_saddle_data(data_re, data_im, diag_slots)

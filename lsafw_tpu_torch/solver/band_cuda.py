@@ -78,7 +78,8 @@ def _load(nb: int) -> ctypes.CDLL:
         lib.band_bwd.argtypes = [i32, i32, p, p, p, p, i64, i64, i32, i32, i32, p]
         lib.band_last_choice.argtypes = [p]
         lib.band_last_choice.restype = None
-        for f in (lib.band_fwd, lib.band_fwd_pivoted, lib.band_bwd, lib.band_nb):
+        lib.band_room.argtypes = [i32, i32, i32, i32, i32, p]
+        for f in (lib.band_fwd, lib.band_fwd_pivoted, lib.band_bwd, lib.band_nb, lib.band_room):
             f.restype = ctypes.c_int
         if lib.band_nb() != nb:
             raise RuntimeError(f"{build(nb).name} was built for nb = {lib.band_nb()}, not {nb}")
@@ -93,6 +94,104 @@ def last_choice(nb: int = 128) -> dict:
     out = (ctypes.c_int64 * 4)()
     _load(nb).band_last_choice(out)
     return dict(zip(("window", "cluster", "tiles", "smem"), (int(v) for v in out)))
+
+
+# ---------------------------------------------------------------------------
+# Room: the cluster a kernel takes for a window, checked before a factor
+# ---------------------------------------------------------------------------
+
+# ``csrc/band_subst.cu``'s shared-memory plan (kSmemMax, kMaxTiles,
+# kMaxCluster; Tr::Vec and Tr::Mat bytes per type and storage)
+SMEM_MAX, MAX_TILES, MAX_CLUSTER = 232448, 64, 16
+_VEC_BYTES = {"c64": 8, "f32x1": 4, "f32x2": 8}
+_MAT_BYTES = {("c64", False): 8, ("f32x1", False): 4, ("f32x2", False): 4,
+              ("c64", True): 4, ("f32x1", True): 2, ("f32x2", True): 2}
+
+
+class NoRoom(RuntimeError):
+    """K1 or K2 cannot hold a factor's window in a block's shared memory at
+    any cluster size: the plan is refused before its factor is built."""
+
+
+def _align128(n: int) -> int:
+    return (n + 127) & ~127
+
+
+def _layout_total(nt: int, tile: int, side: int, rest: int) -> int:
+    """``Layout(nt, tile, side, rest).total``: the mbarriers, the ring of nt
+    tiles, two side buffers, then the windows and partial sums."""
+    return _align128(8 * (nt + 3)) + _align128(nt * tile) + 2 * _align128(side) + rest
+
+
+def window(k: str, mode: str, B: int) -> int:
+    """The window size a kernel is launched with: B forward; backward B
+    pivot-free and 2B pivoted (U widens to 2B upper blocks)."""
+    return 2 * B if (k == "K2" and mode == "pivoted") else B
+
+
+def room(k: str, mode: str, kind: str, B: int, nb: int = 128, bf16: bool = False) -> dict | None:
+    """The cluster, ring tiles and shared-memory bytes a block of K1 or K2
+    (``k``) takes in ``mode`` and type ``kind`` for a factor of B
+    off-diagonal blocks at block size ``nb``: the largest cluster of 16, 8,
+    ..., 1 blocks whose windows and one ring tile fit 232,448 B, by the
+    formula ``choose`` in ``csrc/band_subst.cu`` applies before it asks the
+    card whether it can co-schedule the cluster (:func:`query_room` asks);
+    None where no cluster fits.  A pure function: it needs no card."""
+    v, w = _VEC_BYTES[kind], window(k, mode, B)
+    mat = _MAT_BYTES[(kind, bf16 and k == "K1")]  # K2's ring streams the f32/c64 Dinv tiles
+    c = MAX_CLUSTER
+    while c >= 1:
+        rc, rw = nb // c, w * nb // c
+        if k == "K2":
+            side, rest = nb * v, v * ((w + 1) * nb + rc * (w + 1))
+        elif mode == "pivoted":  # perm head, my perm tail, the fresh block; 2 windows, f[:nb], part
+            side = _align128(nb * 8) + _align128(rw * 8) + nb * v
+            rest = v * (2 * (w + 1) * nb + nb + rc + rw)
+        else:  # my b slice; the window ring, part
+            side, rest = rc * v, v * ((w + 1) * nb + rc * w)
+        tile = rc * nb * mat
+        fixed = _layout_total(0, tile, side, rest)
+        if fixed + 8 * MAX_TILES + tile <= SMEM_MAX:
+            nt = min((SMEM_MAX - fixed - 8 * MAX_TILES) // tile, MAX_TILES)
+            return dict(cluster=c, tiles=nt, smem=_layout_total(nt, tile, side, rest))
+        c //= 2
+    return None
+
+
+def query_room(k: str, mode: str, kind: str, B: int, nb: int = 128,
+               bf16: bool = False) -> dict | None:
+    """:func:`room` as the card answers it: the library's ``band_room``
+    runs the launch's own ``choose`` (the card's co-scheduling included)
+    without launching, and keeps the choice for the launches; None where
+    no cluster fits (CUDA error 9).  Needs the current CUDA device."""
+    out = (ctypes.c_int64 * 3)()
+    err = _load(nb).band_room(0 if k == "K1" else 1, _code(kind), int(bf16),
+                              int(mode == "pivoted"), window(k, mode, B), out)
+    if err == 9:  # cudaErrorInvalidConfiguration: no cluster fits
+        return None
+    raise_on(err, f"band_room ({k} {mode} {kind})")
+    return dict(zip(("cluster", "tiles", "smem"), (int(x) for x in out)))
+
+
+def require_room(mode: str, kinds: tuple, B: int, nb: int, *, bf16: bool = False,
+                 device=None) -> None:
+    """Raise :class:`NoRoom`, naming the kernel, mode, type, B and nb,
+    where K1 or K2 cannot take a factor of B off-diagonal blocks at block
+    size ``nb`` in ``mode`` for each right-hand-side type of ``kinds``:
+    on a CUDA ``device`` through :func:`query_room`, elsewhere by
+    :func:`room`'s formula (for the nb the kernels are built for; the plain
+    versions take any nb).  Called before any factor work."""
+    on_card = device is not None and torch.device(device).type == "cuda"
+    if not on_card and nb not in NBS:
+        return
+    for kind in kinds:
+        for k in ("K1", "K2"):
+            fit = (query_room if on_card else room)(k, mode, kind, B, nb, bf16)
+            if fit is None:
+                raise NoRoom(
+                    f"{k} {mode}{' bf16' if bf16 else ''} {kind} finds no room at nb = {nb}, "
+                    f"B = {B}: its window of {window(k, mode, B)} block rows and one ring tile "
+                    f"exceed a block's {SMEM_MAX} B of shared memory at every cluster size")
 
 
 def check_nb(nb: int) -> None:
@@ -410,9 +509,10 @@ def reset_launches() -> None:
 
 
 __all__ = [
-    "LAUNCHES", "NBS", "TYPES", "band_is_complex", "build", "bwd_substitute",
+    "LAUNCHES", "NBS", "NoRoom", "TYPES", "band_is_complex", "build", "bwd_substitute",
     "bwd_substitute_pivoted", "bwd_substitute_pivoted_plain", "bwd_substitute_plain",
     "check_nb", "compute_dtype", "fwd_substitute", "fwd_substitute_pivoted",
     "fwd_substitute_pivoted_plain", "fwd_substitute_plain", "last_choice", "launch_key", "narrow",
-    "reset_launches", "solve_banded", "solve_pivoted", "widen",
+    "query_room", "require_room", "reset_launches", "room", "solve_banded", "solve_pivoted",
+    "widen",
 ]

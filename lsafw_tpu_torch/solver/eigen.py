@@ -149,15 +149,29 @@ def banded_solve_raw(op: BandedSIOp, b: torch.Tensor, *, tol: float = 1e-9,
     premultiply) by truncated GCR(m) refinement, preconditioned by the
     band factor: each correction's image is orthogonalized against the
     last ``m`` kept images.  Complex in complex128; an f64 b at a real
-    shift stays f64 (the real factor's one-column substitution)."""
-    return _refine(op, b, tol=tol, max_its=max_its, m=m)[0]
+    shift stays f64 (the real factor's one-column substitution).  A
+    refinement that misses ``tol`` raises :class:`FactorUnusable`."""
+    return refine_checked(op, b, tol=tol, max_its=max_its, m=m)[0]
+
+
+def refine_checked(op: BandedSIOp, b: torch.Tensor, *, tol: float, max_its: int, m: int = 8,
+                   what: str = "banded solve") -> tuple[torch.Tensor, int]:
+    """:func:`_refine`'s (x, iterations), raising :class:`FactorUnusable`
+    with the relative residual and the iteration count where the last
+    residual misses ``tol``: no banded solve returns past its tolerance."""
+    x, its, res = _refine(op, b, tol=tol, max_its=max_its, m=m)
+    if not res <= tol:
+        raise FactorUnusable(f"{what}: the refinement reached {res:.2e} in {its} iterations "
+                             f"(tol {tol:.0e}, contraction of the factor too weak)")
+    return x, its
 
 
 def _refine(op: BandedSIOp, b: torch.Tensor, *, tol: float, max_its: int,
             m: int = 8) -> tuple[torch.Tensor, int, float]:
     """:func:`banded_solve_raw`'s GCR(m), returning (x, iterations, the
-    last relative residual norm it saw).  One host synchronisation per
-    iteration and one before the first."""
+    last relative residual norm it saw) without judging it (the callers
+    do: :func:`refine_checked`, the calibration's trial solve).  One host
+    synchronisation per iteration and one before the first."""
     x = op.blu.solve(b)
     r = b - _si_apply_C(op, x)
     bnorm, rn = torch.stack([torch.linalg.vector_norm(b), torch.linalg.vector_norm(r)]).tolist()
@@ -186,7 +200,7 @@ def _refine(op: BandedSIOp, b: torch.Tensor, *, tol: float, max_its: int,
 def banded_si_apply(op: BandedSIOp, v: torch.Tensor, *, tol: float = 1e-9,
                     max_its: int = 16) -> torch.Tensor:
     """y ~= (A - sigma M)^-1 (M v), or (A - sigma M)^-1 (A + nu M) v with
-    a Cayley antishift."""
+    a Cayley antishift; a refinement that misses ``tol`` raises."""
     return banded_solve_raw(op, _si_rhs(op, v), tol=tol, max_its=max_its)
 
 
@@ -217,7 +231,8 @@ def bcsr_budget(device: torch.device, held: int = 0) -> float:
 class FactorUnusable(RuntimeError):
     """The band factor at a shift is non-finite or preconditions too weakly
     (for instance a shift on an exact eigenvalue, where C is singular to
-    working precision)."""
+    working precision): refused by the calibration, or found out by a
+    refinement that misses its tolerance (:func:`refine_checked`)."""
 
 
 class ShiftInvertOperator:
@@ -237,7 +252,8 @@ class ShiftInvertOperator:
     it does so within ``_TRIAL_CAP`` iterations, with a cap of four times
     as many (at most 300).  A factor that is non-finite or fails both
     raises :class:`FactorUnusable` (the reference falls back to a host
-    LU; nothing here does).
+    LU; nothing here does), and so does every apply and raw solve whose
+    refinement misses ``inner_tol`` within the cap.
 
     ``method="lu"``: one host SuperLU of C = A - sigma M (A - sigma I
     where M is None), real at a real shift, as the reference's host path
@@ -618,31 +634,38 @@ class EigenSolver:
         cfg = self.config
         t0 = time.time()
         # a shift on an exact eigenvalue makes the factor numerically
-        # singular: the band factor's calibration refuses it, or the
-        # eigenvalues look right but the vectors are polluted (detected by
-        # the true residuals); either way the solve is retried once at an
-        # offset shift (where the reference, after its host-LU fallback,
-        # ends as well)
+        # singular: the band factor's calibration refuses it, a refinement
+        # misses its tolerance, or the eigenvalues look right but the
+        # vectors are polluted (detected by the true residuals); each way
+        # the solve is retried once at an offset shift (where the
+        # reference, after its host-LU fallback, ends as well), whose
+        # pairs are held to the same residual limit: a miss there raises
         offset = 1e-3 * (1.0 + abs(self._target))
+        limit = 10.0 * max(cfg.atol, 1e-12)
         try:
             op, result = self._run(self._target)
         except FactorUnusable as e:  # retried below, once the refused factor is freed
             logger.info("%s at the target; retrying with offset shift %.1e.", e, offset)
-            op = None
+            op = result = self.operator = self.result = None
+        if op is not None:
+            lam = op.back_transform(result.eigenvalues)
+            worst = self._worst_residual(lam, result)
+            if worst > limit:
+                logger.info("Shift-invert eigenvectors polluted (true residual %.2e); retrying "
+                            "with offset shift %.1e.", worst, offset)
+                # the polluted factor is freed before the retry's is made:
+                # two bands of a wide system do not fit the card side by side
+                op = result = self.operator = self.result = None
         if op is None:
             op, result = self._run(self._target + offset)
-        lam = op.back_transform(result.eigenvalues)
-        pairs = list(zip([complex(v) for v in lam], result.eigenvectors))
-        if op.sigma == self._target and (eigen_residuals(self.A, self.M, pairs)
-                                         / (np.abs(lam) + 1.0)
-                                         > 10.0 * max(cfg.atol, 1e-12)).any():
-            logger.info("Shift-invert eigenvectors polluted; retrying with offset shift %.1e.",
-                        offset)
-            # the polluted factor is freed before the retry's is made: two
-            # bands of a wide system do not fit the card side by side
-            op = result = self.operator = self.result = None
-            op, result = self._run(self._target + offset)
             lam = op.back_transform(result.eigenvalues)
+            worst = self._worst_residual(lam, result)
+            if worst > limit:
+                self.operator = self.result = None
+                raise FactorUnusable(
+                    f"eigenpairs at the offset shift {self._target + offset:.6g} miss atol: true "
+                    f"residual {worst:.2e} relative to |lambda| + 1 (limit {limit:.0e}); "
+                    f"{result.nconv} of {cfg.num_eig} converged")
         if not result.converged:
             logger.warning("Eigensolver returned %d converged of %d requested.",
                            result.nconv, cfg.num_eig)
@@ -650,6 +673,12 @@ class EigenSolver:
         pairs = list(zip([complex(v) for v in lam], result.eigenvectors))
         order = np.argsort(np.abs(lam - self._target))
         return [pairs[i] for i in order][: cfg.num_eig]
+
+    def _worst_residual(self, lam: np.ndarray, result: KrylovSchurResult) -> float:
+        """The largest true residual of the computed pairs, relative to
+        |lambda| + 1."""
+        pairs = list(zip([complex(v) for v in lam], result.eigenvectors))
+        return float((eigen_residuals(self.A, self.M, pairs) / (np.abs(lam) + 1.0)).max())
 
 
 def eigen_residuals(A: CSRMatrix, M: CSRMatrix | None,

@@ -29,8 +29,9 @@ real band factor (:func:`~lsafw_tpu_torch.solver.band.factor_auto`: on
 the card the panel-pivoted f32 factor, K1/K2's pivoted f32 one-column
 substitution) with f64 GCR refinement through S on the Newton matrix's
 own values (:class:`~lsafw_tpu_torch.solver.eigen.BandedSIOp` with
-M = None at sigma = 0; ``banded_solve_raw`` at tol 1e-11, at most 40
-iterations).  The reference fuses a step into one program; here a step
+M = None at sigma = 0; GCR to tol 1e-11 in at most 40 iterations, a
+miss raising :class:`~lsafw_tpu_torch.solver.eigen.FactorUnusable`).
+The reference fuses a step into one program; here a step
 is a Python loop of device calls whose only host synchronisations are
 the Newton stop test and the refinement's own.
 """
@@ -55,7 +56,7 @@ from lsafw_tpu_torch.ops.bcsr import operator_for_budget
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
 from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
-from lsafw_tpu_torch.solver.eigen import BandedSIOp, _refine
+from lsafw_tpu_torch.solver.eigen import BandedSIOp, refine_checked
 from lsafw_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -171,7 +172,8 @@ class UnsteadySolver:
     def _solve_with(self, factor, b: torch.Tensor) -> torch.Tensor:
         kind, fac = factor
         if kind == "banded":
-            x, its, _ = _refine(fac, b, tol=SOLVE_TOL, max_its=SOLVE_MAX_ITS)
+            x, its = refine_checked(fac, b, tol=SOLVE_TOL, max_its=SOLVE_MAX_ITS,
+                                    what="unsteady Newton solve")
             self.stats["gcr_its"] += its
             return x
         return torch.as_tensor(fac.solve(b.cpu().numpy()), device=b.device)

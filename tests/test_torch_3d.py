@@ -16,9 +16,16 @@ data and facet quantities rel 1e-12 (f64 in another summation order);
 baseflows 1e-10; eigenvalues 1e-8; ``tests/benchmark/test_nonmodal3d.py``'s
 resolvent and transient gains against the dense answers rel 1e-6 (the
 JAX package's 3D transient gate fails, so the dense answer is the
-reference).  Band plans are unpadded (``chunk=1``).
+reference).  The 3D step from ``config_files/3D/step`` at resolution 0.3
+(1,835 DOFs): its three pressure DOFs coupled to Dirichlet DOFs alone
+(``decoupled_pressure_dofs``; ``define_bcs`` names them and leaves its
+values as the JAX package's), and its pivot-free real factor at sigma = 0
+refused once its refinement misses.  Band plans are unpadded
+(``chunk=1``).
 """
 
+import dataclasses
+import logging
 from pathlib import Path
 
 import numpy as np
@@ -46,7 +53,7 @@ from lsafw_tpu_torch import config as tconfig
 from lsafw_tpu_torch.config import BoundaryConditionsConfig
 from lsafw_tpu_torch.fem import facets as tfacets
 from lsafw_tpu_torch.fem.assembly import AssemblyContext
-from lsafw_tpu_torch.fem.bcs import define_bcs, pin_dofs
+from lsafw_tpu_torch.fem.bcs import decoupled_pressure_dofs, define_bcs, pin_dofs
 from lsafw_tpu_torch.fem.spaces import define_spaces
 from lsafw_tpu_torch.meshing import geometries as tgeo
 from lsafw_tpu_torch.meshing import mesh as tmesh
@@ -56,7 +63,14 @@ from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
 from lsafw_tpu_torch.resolvent import ResolventSolver
 from lsafw_tpu_torch.solver import band as tband
 from lsafw_tpu_torch.solver import baseflow as tbaseflow
-from lsafw_tpu_torch.solver.eigen import EigenSolver, EigensolverConfig, STType, eigen_residuals
+from lsafw_tpu_torch.solver.eigen import (
+    EigenSolver,
+    EigensolverConfig,
+    FactorUnusable,
+    ShiftInvertOperator,
+    STType,
+    eigen_residuals,
+)
 from lsafw_tpu_torch.solver.timestepping import UnsteadySolver
 from lsafw_tpu_torch.transient import TransientGrowthSolver
 from tests.test_torch_fem import one_blas_thread  # noqa: F401
@@ -468,3 +482,77 @@ def test_membrane_on_tets_matches_jax_and_dense():
     assert _rel(got, ref) <= 1e-8
     assert abs(ref[0] - 3 * np.pi**2) <= 0.05 * 3 * np.pi**2
     assert type(es.operator.device_op.blu).__name__ == "RealPivotedBandedLU"
+
+
+# ---------------------------------------------------------------------------
+# The 3D step from config_files/3D/step at resolution 0.3 (1,835 DOFs)
+# ---------------------------------------------------------------------------
+
+
+def _step3d(cfg, mesh_fn, mark, spaces_fn, bcs_fn):
+    d = CONFIGS / "3D" / "step"
+    geo = dataclasses.replace(cfg.load_step_flow_config(d / "geometry.toml"), resolution=0.3)
+    mesh = mesh_fn(geo)
+    mark(mesh, cfg.load_facet_config(d / "facets.toml"))
+    spaces = spaces_fn(mesh)
+    return mesh, spaces, bcs_fn(mesh, spaces, cfg.load_bc_config(d / "bcs.toml"))
+
+
+@pytest.fixture(scope="module")
+def step3d():
+    """The coarse 3D step through both packages (host meshes and BCs) and
+    the port's context, the port's ``define_bcs`` warnings captured."""
+    handler = logging.Handler()
+    records: list = []
+    handler.emit = records.append
+    logger = logging.getLogger("lsafw_tpu_torch.fem.bcs")
+    logger.addHandler(handler)
+    try:
+        tm, tsp, tb = _step3d(tconfig, tgeo.step_flow_mesh, mark_boundary_facets, define_spaces,
+                              define_bcs)
+    finally:
+        logger.removeHandler(handler)
+    jm, jsp, jb = _step3d(jconfig, jgeo.step_flow_mesh, jmark, jdefine_spaces, jdefine_bcs)
+    return dict(tm=tm, tsp=tsp, tb=tb, jm=jm, jsp=jsp, jb=jb, records=records,
+                tctx=AssemblyContext.build(tsp, device="cpu"))
+
+
+def test_step3d_decoupled_pressure_dofs(step3d):
+    """The pressure DOFs whose every coupling is to a Dirichlet velocity DOF
+    (corner tetrahedra of the distmesh3d step): ``define_bcs`` names them
+    in a warning and leaves its mask and values as the JAX package's; each
+    one's row of the mixed pattern reaches Dirichlet velocity DOFs alone."""
+    tb, jb, tsp = step3d["tb"], step3d["jb"], step3d["tsp"]
+    _same_mesh(step3d["tm"], step3d["jm"])
+    assert np.array_equal(tb.dirichlet_mask, np.asarray(jb.dirichlet_mask))
+    assert np.array_equal(tb.dirichlet_values, np.asarray(jb.dirichlet_values))
+    free = decoupled_pressure_dofs(tsp, tb)
+    assert free.size == 3 and (free >= tsp.num_velocity_dofs).all()
+    assert any(str(free.tolist()) in r.getMessage() for r in step3d["records"])
+    pat, nu, mask = step3d["tctx"].pattern, tsp.num_velocity_dofs, tb.dirichlet_mask
+    rows, cols = pat.row_ids.astype(np.int64), pat.indices.astype(np.int64)
+    live = (rows >= nu) & (cols < nu) & ~mask[cols]
+    p = np.arange(nu, tsp.num_dofs)
+    assert np.array_equal(free, p[~np.isin(p, rows[live]) & ~mask[p]])
+
+
+def test_step3d_pivot_free_factor_refuses_a_missed_refinement(step3d, monkeypatch):
+    """The 3D step's pivot-free real factor at sigma = 0 (the saddle
+    regularization's; on a finer step its refinement missed and the
+    eigenvalues came back wrong, residual 1e-4): with its refinement capped
+    below what it needs, the eigensolve raises ``FactorUnusable`` at the
+    target and again at the offset shift, and returns no pairs."""
+    tm, tsp, tb = step3d["tm"], step3d["tsp"], step3d["tb"]
+    bcs = dataclasses.replace(tb, dirichlet_mask=tb.dirichlet_mask.copy(),
+                              dirichlet_values=tb.dirichlet_values.copy())
+    pin_dofs(bcs, decoupled_pressure_dofs(tsp, tb))
+    w = np.where(bcs.dirichlet_mask, bcs.dirichlet_values, 0.0)
+    A, M = LinearizedNavierStokesAssembler(w, step3d["tctx"], 50.0, bcs.homogeneous(),
+                                           tm).assemble_eigensystem()
+    monkeypatch.setenv("LSAFW_PIVOT_MEM_GB", "0")
+    monkeypatch.setattr(ShiftInvertOperator, "_CAP", 2)
+    es = EigenSolver(A, M, EigensolverConfig(num_eig=4, atol=1e-9, ncv=20))
+    es.set_st_type(STType.SINVERT)
+    es.set_target(0.0)
+    with pytest.raises(FactorUnusable, match="refinement reached"):
+        es.solve()

@@ -310,6 +310,42 @@ def test_unsupported_nb_raises_before_a_cuda_factor(system):
         tband.fill_band(plan, OnTheCard())
 
 
+def test_room_check_refuses_before_the_factor(monkeypatch):
+    """K1's pivoted complex64 mode has no room at nb = 256, B = 43 (its two
+    windows and one ring tile exceed a block's shared memory at every
+    cluster size): ``room`` (the launch's ``choose`` formula, a pure
+    function) refuses it and ``factor_auto`` raises ``NoRoom`` on the CPU
+    too, before any factor work, naming the mode, B and nb.  The formula
+    reproduces the ring tiles the card chose at the lid cube's B = 86
+    (``PERF.md``), and the pivot-free mode and K2 still fit there."""
+    assert band_cuda.room("K1", "pivoted", "c64", 43, 256) is None
+    assert band_cuda.room("K2", "pivoted", "c64", 43, 256) == dict(cluster=16, tiles=1,
+                                                                   smem=226304)
+    assert band_cuda.room("K1", "pivot_free", "c64", 43, 256)["cluster"] == 16
+    tiles = {(k, mode, kind): band_cuda.room(k, mode, kind, 86, 128)["tiles"]
+             for k in ("K1", "K2") for mode, kind in (("pivoted", "c64"), ("pivot_free", "c64"),
+                                                      ("pivoted", "f32x1"), ("pivoted", "f32x2"))}
+    assert [tiles[("K1", m, t)] for m, t in (("pivoted", "c64"), ("pivot_free", "c64"),
+                                             ("pivoted", "f32x1"), ("pivoted", "f32x2"))] == \
+        [3, 16, 30, 7]
+    assert [tiles[("K2", m, t)] for m, t in (("pivoted", "c64"), ("pivot_free", "c64"),
+                                             ("pivoted", "f32x1"), ("pivoted", "f32x2"))] == \
+        [5, 16, 33, 10]
+    # a pattern of bandwidth 43 x 256 - 1 in its own order: B = 43 at nb = 256
+    n, far = 12000, 43 * 256 - 1
+    rows = np.concatenate([np.arange(n), np.arange(n - far)])
+    cols = np.concatenate([np.arange(n), np.arange(far, n)])
+    csr = sp.csr_matrix((np.ones(rows.size), (rows, cols)), shape=(n, n))
+    csr.sort_indices()
+    plan = tband.BandPlan.build(csr, nb=256, chunk=1, perm=np.arange(n))
+    assert plan.B == 43 and not plan.real
+    monkeypatch.setenv("LSAFW_PIVOT_MEM_GB", "100")
+    data = torch.as_tensor(csr.data)
+    monkeypatch.setattr(tband, "fill_band", lambda *a, **k: pytest.fail("a band was filled"))
+    with pytest.raises(band_cuda.NoRoom, match=r"K1 pivoted c64 finds no room at nb = 256, B = 43"):
+        tband.factor_auto(plan, data, data)
+
+
 @pytest.fixture(scope="module", params=["complex", "real"])
 def bf16_factors(request, system):
     """Both packages' pivot-free factors on a bf16 plan at full width (a

@@ -17,8 +17,10 @@ from lsafw_tpu_torch.fem.bcs import BoundaryConditions
 from lsafw_tpu_torch.fem.spaces import define_spaces
 from lsafw_tpu_torch.meshing.mesh import unit_square
 from lsafw_tpu_torch.floquet import FloquetSolver
+from lsafw_tpu_torch.hill import hill_floquet
 from lsafw_tpu_torch.ops.sparse import CSRMatrix
 from lsafw_tpu_torch.resolvent import ResolventSolver
+from lsafw_tpu_torch.scm import SelfConsistentModel, scm_continuation
 from lsafw_tpu_torch.sensitivity import EigenSensitivitySolver
 from lsafw_tpu_torch.solver.eigen import krylov_schur
 from lsafw_tpu_torch.solver.timestepping import UnsteadySolver
@@ -50,7 +52,8 @@ def test_import_loads_no_jax_and_no_jax_package():
         "lsafw_tpu_torch.solver.baseflow, lsafw_tpu_torch.sensitivity, lsafw_tpu_torch.resolvent, "
         "lsafw_tpu_torch.transient, lsafw_tpu_torch.solver.eigen2, "
         "lsafw_tpu_torch.models.membrane, lsafw_tpu_torch.span, lsafw_tpu_torch.wnl, "
-        "lsafw_tpu_torch.solver.timestepping, lsafw_tpu_torch.floquet\n"
+        "lsafw_tpu_torch.solver.timestepping, lsafw_tpu_torch.floquet, lsafw_tpu_torch.scm, "
+        "lsafw_tpu_torch.hill\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -159,3 +162,28 @@ def test_span_and_wnl_refuse_the_cpu_by_default(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         spanwise_floquet(span, snaps, 0.1, 1.0)
     assert UnsteadySolver(ctx, mesh, bcs, 10.0, device="cpu").method == "banded"
+
+
+def test_scm_and_hill_refuse_the_cpu_by_default(monkeypatch):
+    """``SelfConsistentModel`` (so ``scm_continuation``) and ``hill_floquet``
+    default to the card: without one they raise unless ``device="cpu"`` is
+    passed; the model's solvers default to ``"banded"``, and Hill's method
+    takes ``"banded"`` or the host ``"lu"`` alone."""
+    spaces = define_spaces(unit_square(2))
+    ctx = AssemblyContext.build(spaces, device="cpu")
+    mesh = spaces.velocity.mesh
+    n = spaces.num_dofs
+    bcs = BoundaryConditions(num_dofs=n, dirichlet_mask=np.zeros(n, bool),
+                             dirichlet_values=np.zeros(n))
+    M = CSRMatrix(ctx.pattern, torch.ones(ctx.pattern.nnz, dtype=torch.float64))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SelfConsistentModel(ctx, mesh, bcs, bcs, 10.0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scm_continuation(ctx, mesh, bcs, bcs, [10.0], lambda re: np.zeros(n))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        hill_floquet(ctx, M, M, [np.zeros(n)], 1.0)
+    with pytest.raises(NotImplementedError, match="gmres"):
+        hill_floquet(ctx, M, M, [np.zeros(n)], 1.0, method="gmres", device="cpu")
+    model = SelfConsistentModel(ctx, mesh, bcs, bcs, 10.0, mass=M, device="cpu")
+    assert model.linear_solver == model.si_method == "banded"

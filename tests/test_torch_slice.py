@@ -477,6 +477,62 @@ def test_shift_on_an_exact_eigenvalue_retries_offset(monkeypatch):
     assert teigen.eigen_residuals(A, M, [(lam, x)])[0] <= 1e-10
 
 
+def test_refinement_miss_raises(cases, baseflows, port_system, monkeypatch):
+    """A weak factor whose refinement misses its tolerance raises
+    ``FactorUnusable`` (with the residual and the iteration count) from the
+    shift-invert apply, the raw solve and the unsteady Newton solve,
+    instead of returning the missed vector: the small cylinder's
+    pivot-free factor (contraction about 3e-3, about eight GCR iterations
+    to 1e-10) with its refinement capped at one iteration, and the theta
+    step's Newton solve capped at none."""
+    from lsafw_tpu_torch.solver import timestepping
+
+    A, M = port_system
+    monkeypatch.setenv("LSAFW_PIVOT_MEM_GB", "0")
+    _small_plans(monkeypatch)
+    op = teigen.ShiftInvertOperator(A, M, TARGET)
+    v = torch.as_tensor(np.random.default_rng(5).standard_normal(A.shape[0]) + 0j)
+    y = op.apply(v)  # at the calibrated cap the apply reaches its tolerance
+    assert bool(torch.isfinite(y).all()) and op.refine_its > 1 and not op.pivoted
+    op.refine_its = 1
+    with pytest.raises(teigen.FactorUnusable, match=r"reached .* in 1 iterations"):
+        op.apply(v)
+    with pytest.raises(teigen.FactorUnusable, match=r"reached .* in 1 iterations"):
+        op.solve_raw(v)
+    _, tc = cases
+    jw, _ = baseflows
+    us = timestepping.UnsteadySolver(tc["ctx"], tc["mesh"], tc["bcs_base"], RE, device="cpu")
+    q = torch.as_tensor(jw) + 1e-3
+    monkeypatch.setattr(timestepping, "SOLVE_MAX_ITS", 0)
+    with pytest.raises(teigen.FactorUnusable, match="unsteady Newton solve"):
+        us.step(q, dt=0.2)
+
+
+def test_offset_retry_missing_atol_raises(monkeypatch):
+    """Pairs whose true residuals miss ``atol`` at the target send the
+    eigensolver to the offset shift; if the offset's pairs miss as well,
+    it raises and returns nothing (the true residuals reported missed by
+    a stub)."""
+    A, M, _ = _block_pair()
+    target = complex(-0.3, 2.5)
+    _small_plans(monkeypatch)
+    es = teigen.EigenSolver(A, M, teigen.EigensolverConfig(num_eig=1, atol=1e-10, ncv=10))
+    es.set_st_type(teigen.STType.SINVERT)
+    es.set_target(target)
+    sigmas = []
+    residuals = teigen.eigen_residuals
+
+    def missed(A_, M_, pairs):
+        sigmas.append(es.operator.sigma)
+        return residuals(A_, M_, pairs) + 1e-3
+
+    monkeypatch.setattr(teigen, "eigen_residuals", missed)
+    with pytest.raises(teigen.FactorUnusable, match="miss atol"):
+        es.solve()
+    assert sigmas == [target, target + 1e-3 * (1 + abs(target))]
+    assert es.operator is None and es.result is None
+
+
 # ---------------------------------------------------------------------------
 # The bf16 -> f32 retry rung, and the TOML loaders
 # ---------------------------------------------------------------------------
