@@ -284,6 +284,32 @@ non-zero):
      pivot-free factor with its refinement cap forced to 1 must make the
      eigensolve raise ``FactorUnusable``; then K1/K2 and S on HB1's and
      HB2's K0 and on the Hill pair.
+  12. (after phase 5, on phase 3's objects; ``krylov_path``) the solver
+     menu, each solve a stage: 12a the inexact shift-invert on phase 3's
+     (A, M) at 0.74j, ``set_st_pc_type("gmres")`` then STPRECOND (GMRES(40)
+     on complex128 vectors, preconditioned by the pivoted complex64 band
+     factor of C): sigma within 1e-8 of phase 3's, residual 1e-8, no host
+     LU, K1/K2 pivoted c64 once per preconditioner apply (the GMRES steps,
+     cycles and solves of the operator's figures), G and S as in phase 3;
+     12b the velocity block of phase 3's last Jacobian (38,764 rows) with
+     GMRES, FGMRES, LGMRES, GCR, BiCG, BiCGStab, CGS and LSQR, each with
+     ILU(0) (on the converged Chow-Patel sweep count; GMRES and BiCGStab at
+     the reference's 8 sweeps logged first) and block-Jacobi(64): the true
+     residual <= 1e-8 wherever a solver reports convergence, GMRES + ILU
+     and BiCGStab + ILU converged; 12c the P2 membrane stiffness of
+     bench.py's 240 x 240 grid and of 120 x 120: CG with none, Jacobi,
+     block-Jacobi, SSOR, ILU, ICC, SA-AMG and p-MG, MINRES + Jacobi,
+     Chebyshev on power-iteration bounds (the lower one by inverse power
+     iteration through p-MG CG solves): true residuals <= 1e-8, AMG x 4
+     under plain CG and p-MG x 3 under Jacobi at both sizes, AMG's count
+     at 240 at most twice its count at 120, p-MG's within +6, p-MG one
+     K1/K2 pivoted f32 x1 pair per V-cycle; 12d the reference's 32 x 32
+     P2 membrane of the 2 x 4 rectangle: FILTER on K alone against
+     SINVERT's three smallest (rel 1e-8), SHIFT on (K, M) restricted to
+     the free DOFs (M^-1 a real band factor on the card; residuals <=
+     1e-8 (|lambda| + 1)), SHELL wrapping the SINVERT apply at 1.0 (its
+     five pairs equal SINVERT's within 1e-10); stage times logged,
+     phase 12's budget 60 s.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, one entry per kernel, mode, storage and type and per
@@ -292,7 +318,8 @@ main-path factor (``launches``: phases 3, 3b, 3c, 6, 6b and 6c;
 6 to 6c; ``launches_phase7``: the stages of phases 7 and 7b;
 ``launches_phase8``: the stages of phases 8 and 8b; ``launches_phase9``:
 the stages of phase 9; ``launches_phase10``: the stages of phases 10 to
-10c; ``launches_phase11``: the stages of phase 11; modes no main path
+10c; ``launches_phase11``: the stages of phase 11; ``launches_phase12``:
+the stages of phase 12; modes no main path
 runs carry phase 2's random factors, and the wide
 random factors have entries of their own), and
 ``{"ok": true, "device": {...}}``.
@@ -999,7 +1026,7 @@ _HOST_LU: dict = {}  # the port's host LU class, kept while forbid_host_lu() stu
 def forbid_host_lu() -> None:
     """Make every host LU of the port raise: the device path must not use it."""
     from lsafw_tpu_torch import floquet, sensitivity
-    from lsafw_tpu_torch.solver import baseflow, direct, eigen, newton, timestepping
+    from lsafw_tpu_torch.solver import baseflow, direct, eigen, newton, precond, timestepping
 
     def no_host_lu(*args, **kw):
         raise RuntimeError("host LU called on the device path")
@@ -1007,7 +1034,7 @@ def forbid_host_lu() -> None:
     _HOST_LU.setdefault("SparseLU", direct.SparseLU)
     for mod, name in ((direct, "SparseLU"), (direct, "direct_solve"), (newton, "SparseLU"),
                       (baseflow, "direct_solve"), (eigen, "SparseLU"), (sensitivity, "SparseLU"),
-                      (timestepping, "SparseLU"), (floquet, "SparseLU")):
+                      (timestepping, "SparseLU"), (floquet, "SparseLU"), (precond, "SparseLU")):
         setattr(mod, name, no_host_lu)
 
 
@@ -3781,6 +3808,436 @@ def scm_path(dev, errs: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the Krylov and preconditioner menu, the other spectral transforms
+# ---------------------------------------------------------------------------
+
+
+NONSYM_KSPS = ("gmres", "fgmres", "lgmres", "gcr", "bicg", "bcgs", "cgs", "lsqr")
+NONSYM_PCS = ("ilu", "bjacobi")
+NONSYM_MAXITER = 600
+SPD_PCS = ("none", "jacobi", "bjacobi", "sor", "ilu", "icc", "gamg", "pmg")
+MEMBRANE_NX = (120, 240)  # bench.py:132's 240 x 240 P2 membrane (231,361 DOFs) and its half
+SPD_MAXITER = 20000
+KSP_TOL = 1e-10
+MEMBRANE_32 = ((2.0, 4.0), 32)  # tests/benchmark/test_vibrating_membrane.py: 32 x 32 P2 on 2 x 4
+
+
+def synced(fn):
+    """(fn(), seconds), the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.time() - t0
+
+
+def true_residual(mv, b, x) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(b - mv(x)) / torch.linalg.vector_norm(b))
+
+
+def converged_sweeps(plan, A) -> tuple[int, float]:
+    """The Chow-Patel sweep count, doubled from the reference's 8, at which
+    one more sweep changes the ILU(0) values by under 1e-10 (relative), and
+    that change."""
+    import torch
+    from lsafw_tpu_torch.solver import ilu as tilu
+
+    sweeps, change = 8, 1.0
+    while change > 1e-10 and sweeps < 512:
+        sweeps *= 2
+        v1 = tilu.ilu0_factor_values(plan, A.data, sweeps=sweeps)
+        v2 = tilu.ilu0_factor_values(plan, A.data, sweeps=sweeps + 1)
+        change = float(torch.linalg.vector_norm(v2 - v1) / torch.linalg.vector_norm(v2))
+    return sweeps, change
+
+
+def gmres_si_path(mp: dict, stages: dict) -> None:
+    """12a: the inexact shift-invert on phase 3's (A, M) at 0.74j, first
+    ``set_st_pc_type("gmres")``, then STPRECOND: GMRES(40) on complex128
+    vectors preconditioned by the pivoted complex64 band factor of C.
+    Gates: sigma within 1e-8 of phase 3's, residual 1e-8, no host LU (it
+    raises), one K1 / K2 pivoted c64 launch per preconditioner apply (one
+    band solve per GMRES step, per cycle and per solve's M b: counted
+    against the operator's GMRES figures), G's permutes and S per matvec
+    as in phase 3."""
+    from lsafw_tpu_torch.solver.eigen import (
+        EigenSolver, EigensolverConfig, STType, eigen_residuals)
+
+    A, M = mp["A"], mp["M"]
+    for route in ("gmres", "precond"):
+        name = f"12a {route}"
+        with stage(name, stages):
+            es = EigenSolver(A, M, EigensolverConfig(num_eig=1, atol=1e-8, ncv=16))
+            if route == "gmres":
+                es.set_st_type(STType.SINVERT)
+                es.set_st_pc_type("gmres")
+            else:
+                es.set_st_type(STType.PRECOND)
+            es.set_target(TARGET)
+            pairs = es.solve()
+        st, op = stages[name], es.operator
+        f = op.figures()
+        sigma, resid = pairs[0][0], float(eigen_residuals(A, M, pairs)[0])
+        applies = f["gmres_its"] + f["gmres_cycles"] + f["gmres_solves"]
+        log(f"phase 12a: {route}: sigma = {sigma.real:+.12f}{sigma.imag:+.12f}j (phase 3: "
+            f"{abs(sigma - mp['sigma']):.1e} away), residual {resid:.2e}; {st['seconds']:.2f} s "
+            f"(factor {f['factor_s']:.2f} s, pivoted {f['pivoted']}); {f['applies']} shift-invert "
+            f"applies, GMRES {f['gmres_its']} steps in {f['gmres_cycles']} cycles: "
+            f"{f['gmres_its'] / max(f['gmres_solves'], 1):.2f} steps and "
+            f"{f['gmres_cycles'] / max(f['gmres_solves'], 1):.2f} cycles an apply, "
+            f"{applies} preconditioner applies; band solves {st['solves']}, original-order "
+            f"matvecs {st['matvecs']}; launches {nonzero(st['launches'])}; host LU calls 0 "
+            f"(every host LU raises)")
+        if op.method != "gmres" or not op.pivoted:
+            raise RuntimeError(f"phase {name}: method {op.method}, pivoted {op.pivoted}")
+        if abs(sigma - mp["sigma"]) > 1e-8 or not resid <= 1e-8:
+            raise RuntimeError(f"phase {name}: sigma {sigma} against phase 3's {mp['sigma']}, "
+                               f"residual {resid:.2e}")
+        gate_stage(f"phase {name}", st, "pivoted.c64", "PivotedBandedLU", "c128.c64", builds=1)
+        if st["solves"]["PivotedBandedLU"] != applies:
+            raise RuntimeError(f"phase {name}: {st['solves']} band solves for {applies} "
+                               f"preconditioner applies")
+
+
+def nonsym_menu(case, mp: dict, J, stages: dict) -> None:
+    """12b: the nonsymmetric menu on the velocity block of phase 3's last
+    Newton Jacobian (``extract_subblocks(J)["vv"]``): each Krylov type of
+    ``NONSYM_KSPS`` with ILU(0) (its Chow-Patel sweeps doubled from the
+    reference's 8 until a sweep changes the values by under 1e-10; GMRES
+    and BiCGStab at 8 sweeps logged first) and with block-Jacobi(64), to
+    1e-10 within 600 steps.  Gates: the true residual <= 1e-8 wherever a
+    solver reports convergence; GMRES + ILU and BiCGStab + ILU converge."""
+    import torch
+    from lsafw_tpu_torch.interop import csr_from_numpy
+    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.ops.sparse import pattern_csr, spmv
+    from lsafw_tpu_torch.solver import ilu as tilu
+    from lsafw_tpu_torch.solver.linear import solve
+    from lsafw_tpu_torch.solver.precond import apply_pc, block_jacobi_array
+
+    vv = LinearizedNavierStokesAssembler(mp["w"], case["ctx"], 47.0, case["bcs_pert"],
+                                         case["mesh"]).extract_subblocks(J)["vv"].tocsr()
+    vv.sort_indices()
+    A = csr_from_numpy(vv.indptr, vv.indices, vv.data, vv.shape, device=DEVICE)
+    At = A.transpose()
+    g = torch.Generator(device=A.device).manual_seed(12)
+    b = torch.randn(A.shape[0], generator=g, dtype=torch.float64, device=A.device)
+    mv = (lambda v: spmv(A, v))
+    t0 = time.time()
+    plan = tilu.ILU0Plan.build(pattern_csr(A.pattern))
+    t_plan = time.time() - t0
+    _, t_sweeps = synced(lambda: tilu.ilu0_factor_values(plan, A.data))
+    # the reference's default 8 Chow-Patel sweeps leave the fixed point
+    # unconverged on this block: logged, not gated; the menu then runs on
+    # the sweep count at which a sweep changes the values by < 1e-10
+    ilu8 = tilu.ilu0(A, plan=plan)
+    for ksp in ("gmres", "bcgs"):
+        res = solve(mv, b, ksp_type=ksp, tol=KSP_TOL, maxiter=NONSYM_MAXITER, M=ilu8)
+        log(f"phase 12b: {ksp} + ILU(0) at the reference's 8 sweeps: converged {res.converged}, "
+            f"{res.iterations} iterations, monitored residual {res.residual:.2e}, true residual "
+            f"{true_residual(mv, b, res.x):.2e}")
+    sweeps, change = converged_sweeps(plan, A)
+    _, t_conv = synced(lambda: tilu.ilu0_factor_values(plan, A.data, sweeps=sweeps))
+    ilu = tilu.ilu0(A, plan=plan, factor_sweeps=sweeps)
+    inv, t_bj = synced(lambda: block_jacobi_array(A, 64))
+    pcs = {"ilu": ilu, "bjacobi": lambda x: apply_pc("bjacobi", inv, x)}
+    log(f"phase 12b: the velocity block of phase 3's last Jacobian: {A.shape[0]} rows, "
+        f"{vv.nnz} nonzeros; ILU(0): plan {t_plan:.2f} s on the host ({plan.tr_e.size} "
+        f"triples), 8 sweeps {1e3 * t_sweeps:.2f} ms, {sweeps} sweeps (the last one's change "
+        f"{change:.1e}) {1e3 * t_conv:.2f} ms, one apply (12 CSR products) "
+        f"{cuda_ms(lambda: ilu(b), 10):.3f} ms; block-Jacobi(64): batched inverse "
+        f"{1e3 * t_bj:.2f} ms, one apply {cuda_ms(lambda: pcs['bjacobi'](b), 10):.3f} ms")
+    done = {}
+    for pc in NONSYM_PCS:
+        for ksp in NONSYM_KSPS:
+            name = f"12b {ksp}+{pc}"
+            with stage(name, stages):
+                res = solve(mv, b, ksp_type=ksp, tol=KSP_TOL, maxiter=NONSYM_MAXITER, M=pcs[pc],
+                            rmatvec=lambda v: spmv(At, v))
+            true = true_residual(mv, b, res.x)
+            done[(ksp, pc)] = res.converged
+            log(f"phase 12b: {ksp} + {pc}{' (unpreconditioned, as PETSc)' if ksp == 'lsqr' else ''}"
+                f": converged {res.converged}, {res.iterations} iterations"
+                f"{f' ({res.cycles} cycles)' if res.cycles else ''}, monitored residual "
+                f"{res.residual:.2e}, true residual {true:.2e}, {stages[name]['seconds']:.3f} s")
+            if res.converged and not true <= 1e-8:
+                raise RuntimeError(f"phase {name}: converged with a true residual {true:.2e}")
+    if not (done[("gmres", "ilu")] and done[("bcgs", "ilu")]):
+        raise RuntimeError(f"phase 12b: GMRES + ILU or BiCGStab + ILU did not converge: {done}")
+
+
+def spd_menu(stages: dict) -> dict:
+    """12c: the SPD menu on the P2 membrane stiffness of the JAX package's
+    bench grid (``MEMBRANE_NX``): CG with each PC of ``SPD_PCS`` (ILU(0)
+    and ICC(0), one factor, on the converged sweep count of
+    :func:`converged_sweeps`: at the reference's 8 sweeps the factor is not
+    symmetric enough for CG at 240 x 240), MINRES with Jacobi, Chebyshev
+    with power-iteration bounds, to 1e-10.  Gates:
+    true residual <= 1e-8 each; at each size AMG's iterations x 4 < plain
+    CG's and pMG's x 3 < Jacobi's; at 240 AMG's at most twice its count at
+    120 and pMG's within +6 of its count at 120; pMG one K1 / K2 pivoted
+    f32 x1 launch per V-cycle."""
+    import torch
+    from lsafw_tpu_torch.fem.spaces import make_scalar_space
+    from lsafw_tpu_torch.meshing.mesh import rectangle_mesh
+    from lsafw_tpu_torch.models.membrane import assemble_membrane_evp
+    from lsafw_tpu_torch.ops.sparse import pattern_csr, spmv
+    from lsafw_tpu_torch.solver import amg, ilu as tilu, pmg
+    from lsafw_tpu_torch.solver.linear import cg, chebyshev, minres
+    from lsafw_tpu_torch.solver.precond import block_jacobi, jacobi
+
+    its: dict = {}
+    for nx in MEMBRANE_NX:
+        mesh = rectangle_mesh((0.0, 0.0), (1.0, 1.0), nx, nx)
+        (K, _, mask), t_asm = synced(lambda: assemble_membrane_evp(mesh, device=DEVICE))
+        n = K.shape[0]
+        mask_t = torch.as_tensor(mask, device=K.device)
+        g = torch.Generator(device=K.device).manual_seed(nx)
+        b = torch.randn(n, generator=g, dtype=torch.float64, device=K.device)
+        b = torch.where(mask_t, torch.zeros_like(b), b)
+        mv = (lambda v, K=K: spmv(K, v))
+        log(f"phase 12c: nx = {nx}: {n} DOFs, {K.pattern.nnz} nonzeros, assembled in "
+            f"{t_asm:.2f} s")
+        ilu_plan = None
+        vcycles = {"n": 0}
+        for pc in SPD_PCS:
+            t0 = time.time()
+            with stage(f"12c nx={nx} {pc} build", stages):
+                if pc == "none":
+                    M = None
+                elif pc == "jacobi":
+                    M = jacobi(K)
+                elif pc == "bjacobi":
+                    M = block_jacobi(K, 64)
+                elif pc == "sor":
+                    M = tilu.ssor(K)
+                elif pc in ("ilu", "icc"):  # ICC(0) on an SPD matrix is the ILU(0) factor
+                    if ilu_plan is None:
+                        ilu_plan = tilu.ILU0Plan.build(pattern_csr(K.pattern))
+                        sweeps, change = converged_sweeps(ilu_plan, K)
+                    M = tilu.ilu0(K, plan=ilu_plan, factor_sweeps=sweeps)
+                elif pc == "gamg":
+                    M = amg.amg_preconditioner(K)
+                else:
+                    mg = pmg.build_pmg_pc(make_scalar_space(mesh, "p2"), K, mask)
+
+                    def M(r, mg=mg):
+                        vcycles["n"] += 1
+                        return mg.apply(r)
+            t_build = time.time() - t0
+            name = f"12c nx={nx} cg+{pc}"
+            vcycles["n"] = 0
+            with stage(name, stages):
+                res = cg(mv, b, tol=KSP_TOL, maxiter=SPD_MAXITER, M=M)
+            st = stages[name]
+            true = true_residual(mv, b, res.x)
+            its[(nx, pc)] = res.iterations
+            extra = ""
+            if pc == "gamg":
+                h = M.hierarchy
+                extra = (f", {len(h.levels) + 1} levels, coarsest {h.coarse_inv.shape[0]}, "
+                         f"one V-cycle {cuda_ms(lambda: M(b), 5):.3f} ms")
+            elif pc == "pmg":
+                extra = (f", coarse P1 {mg.coarse_matrix.shape[0]} rows on a "
+                         f"{type(mg.coarse).__name__} (B = {mg.coarse.B}), {vcycles['n']} "
+                         f"V-cycles, one V-cycle {cuda_ms(lambda: mg.apply(b), 5):.3f} ms")
+            elif pc in ("ilu", "icc", "sor", "bjacobi", "jacobi"):
+                extra = f", one apply {cuda_ms(lambda: M(b), 5):.3f} ms"
+                if pc in ("ilu", "icc"):
+                    extra += (f", {sweeps} Chow-Patel sweeps (the last one's change "
+                              f"{change:.1e}; {ilu_plan.tr_e.size} triples)")
+            log(f"phase 12c: nx = {nx}: CG + {pc}: converged {res.converged}, {res.iterations} "
+                f"iterations, true residual {true:.2e}, {st['seconds']:.3f} s; build "
+                f"{t_build:.3f} s{extra}")
+            if not (res.converged and true <= 1e-8):
+                raise RuntimeError(f"phase {name}: converged {res.converged}, true residual "
+                                   f"{true:.2e}")
+            if pc == "pmg":
+                gate_band_launches(f"phase {name}", st["launches"], "pivoted.f32x1",
+                                   vcycles["n"])
+                if not (st["launches"]["permute_in.f64.f32x1"]
+                        == st["launches"]["permute_out.f32x1.f64"] == vcycles["n"]):
+                    raise RuntimeError(f"phase {name}: permutes {nonzero(st['launches'])} for "
+                                       f"{vcycles['n']} V-cycles")
+        name = f"12c nx={nx} minres+jacobi"
+        with stage(name, stages):
+            res = minres(mv, b, tol=KSP_TOL, maxiter=SPD_MAXITER, M=jacobi(K))
+        true = true_residual(mv, b, res.x)
+        log(f"phase 12c: nx = {nx}: MINRES + jacobi: converged {res.converged}, "
+            f"{res.iterations} iterations, true residual {true:.2e}, "
+            f"{stages[name]['seconds']:.3f} s")
+        if not (res.converged and true <= 1e-8):
+            raise RuntimeError(f"phase {name}: converged {res.converged}, true {true:.2e}")
+        # Chebyshev's bounds: lmax by 30 power iterations on K (x 1.05); lmin
+        # by 12 inverse power iterations, each a pMG-preconditioned CG solve
+        # (x 0.95)
+        t0 = time.time()
+        v = b / torch.linalg.vector_norm(b)
+        for _ in range(30):
+            w = mv(v)
+            lmax = float(torch.linalg.vector_norm(w))
+            v = w / lmax
+        v = b / torch.linalg.vector_norm(b)
+        for _ in range(12):
+            w = cg(mv, v, tol=1e-10, maxiter=SPD_MAXITER, M=mg.apply).x
+            lmin = 1.0 / float(torch.linalg.vector_norm(w))
+            v = w * lmin
+        t_bounds = time.time() - t0
+        name = f"12c nx={nx} chebyshev"
+        with stage(name, stages):
+            res = chebyshev(mv, b, lmin=0.95 * lmin, lmax=1.05 * lmax, tol=KSP_TOL,
+                            maxiter=SPD_MAXITER)
+        true = true_residual(mv, b, res.x)
+        log(f"phase 12c: nx = {nx}: Chebyshev on [{0.95 * lmin:.4e}, {1.05 * lmax:.4e}] (bounds "
+            f"in {t_bounds:.2f} s): converged {res.converged}, {res.iterations} iterations, true "
+            f"residual {true:.2e}, {stages[name]['seconds']:.3f} s")
+        if not (res.converged and true <= 1e-8):
+            raise RuntimeError(f"phase {name}: converged {res.converged}, true {true:.2e}")
+        del K, mg, M
+    for nx in MEMBRANE_NX:
+        if not (4 * its[(nx, "gamg")] < its[(nx, "none")]
+                and 3 * its[(nx, "pmg")] < its[(nx, "jacobi")]):
+            raise RuntimeError(f"phase 12c: nx = {nx}: AMG x 4 against plain CG, pMG x 3 against "
+                               f"Jacobi: {its}")
+    lo, hi = MEMBRANE_NX
+    if not (its[(hi, "gamg")] <= 2 * its[(lo, "gamg")]
+            and its[(hi, "pmg")] <= its[(lo, "pmg")] + 6):
+        raise RuntimeError(f"phase 12c: AMG or pMG counts grow with the mesh: {its}")
+    log(f"phase 12c: iterations {({f'{nx} {pc}': k for (nx, pc), k in its.items()})}: AMG "
+        f"{its[(hi, 'gamg')]} at {hi} against {its[(lo, 'gamg')]} at {lo} (at most x 2) and "
+        f"plain CG's {its[(hi, 'none')]} (x 4 under it); pMG {its[(hi, 'pmg')]} against "
+        f"{its[(lo, 'pmg')]} (+6 at most) and Jacobi's {its[(hi, 'jacobi')]} (x 3 under it)")
+    return its
+
+
+def transforms_path(stages: dict) -> None:
+    """12d: the other transforms on the reference's membrane
+    (``MEMBRANE_32``): FILTER on K alone against SINVERT's three smallest
+    on the same K (rel 1e-8); SHIFT on (K, M) restricted to the free DOFs
+    (M is zero on its Dirichlet rows, and SHIFT needs M^-1): the three
+    largest, residuals <= 1e-8 (|lambda| + 1), M^-1 a real band factor on
+    the card (K1 / K2 pivoted f32 x2 once per band solve); SHELL wrapping
+    the SINVERT apply at 1.0: the same five pairs as SINVERT, 1e-10."""
+    import torch
+    from lsafw_tpu_torch.interop import csr_from_numpy
+    from lsafw_tpu_torch.meshing.mesh import rectangle_mesh
+    from lsafw_tpu_torch.models.membrane import assemble_membrane_evp
+    from lsafw_tpu_torch.ops.sparse import CSRMatrix
+    from lsafw_tpu_torch.solver.eigen import (
+        EigenSolver, EigensolverConfig, EpsWhich, ShiftInvertOperator, STType, eigen_residuals)
+
+    (a, bside), nx = MEMBRANE_32
+    K, M, mask = assemble_membrane_evp(rectangle_mesh((0.0, 0.0), (a, bside), nx, nx),
+                                       device=DEVICE)
+
+    def run(name, A, Mm, cfg, setup):
+        with stage(name, stages):
+            es = EigenSolver(A, Mm, cfg)
+            setup(es)
+            pairs = es.solve()
+        return pairs, es
+
+    cfg3 = EigensolverConfig(num_eig=3, atol=1e-10, ncv=20)
+
+    def si0(es):
+        es.set_st_type(STType.SINVERT)
+        es.set_target(0.0)
+
+    si, _ = run("12d sinvert K", K, None, cfg3, si0)
+    lam_si = np.sort([p[0].real for p in si])
+
+    def filt(es):
+        es.set_st_type(STType.FILTER)
+        es.set_target(float(2.0 * lam_si[-1]))
+        es.set_which_eigenpairs(EpsWhich.SMALLEST_REAL)
+        es.set_filter_degree(60)
+
+    fl, es_f = run("12d filter K", K, None, cfg3, filt)
+    lam_f = np.sort([p[0].real for p in fl])
+    rel = float(np.max(np.abs(lam_f - lam_si) / np.abs(lam_si)))
+    log(f"phase 12d: FILTER (degree 60, cutoff {2.0 * lam_si[-1]:.6e}) on K: {lam_f} against "
+        f"SINVERT's {lam_si}: rel {rel:.1e}; {stages['12d filter K']['seconds']:.2f} s, "
+        f"{es_f.operator.applies} filter applies ({60 * es_f.operator.applies} matvecs), "
+        f"launches {nonzero(stages['12d filter K']['launches'])}")
+    if not rel <= 1e-8:
+        raise RuntimeError(f"phase 12d: FILTER {lam_f} against SINVERT {lam_si}: rel {rel:.1e}")
+    free = np.flatnonzero(~mask)
+    Ks, Ms = K.to_scipy()[free][:, free].tocsr(), M.to_scipy()[free][:, free].tocsr()
+    Ks.sort_indices()
+    Ms.sort_indices()
+    Kf = csr_from_numpy(Ks.indptr, Ks.indices, Ks.data, Ks.shape, device=DEVICE)
+    Mf = CSRMatrix(Kf.pattern, torch.as_tensor(Ms.data, device=Kf.device))
+
+    def shift(es):
+        es.set_which_eigenpairs(EpsWhich.LARGEST_MAGNITUDE)
+
+    sh, es_s = run("12d shift", Kf, Mf, cfg3, shift)
+    lam_s = np.array([p[0] for p in sh])
+    res_s = eigen_residuals(Kf, Mf, sh) / (np.abs(lam_s) + 1.0)
+    st = stages["12d shift"]
+    f = es_s.operator.figures()
+    log(f"phase 12d: SHIFT on the free DOFs' (K, M) ({Kf.shape[0]} rows): the three largest "
+        f"{lam_s.real}, residuals / (|lambda| + 1) {res_s}; {st['seconds']:.2f} s, "
+        f"{f['applies']} applies, M's factor {f['factor_s']:.3f} s, contraction "
+        f"{f['rho']:.2e}, refinement cap {f['refine_its']}; band solves {st['solves']}, "
+        f"launches {nonzero(st['launches'])}")
+    if not (res_s <= 1e-8).all():
+        raise RuntimeError(f"phase 12d: SHIFT residuals {res_s}")
+    gate_eigen_stage("phase 12d shift", st, REAL_CLASSES, builds=2)
+    cfg5 = EigensolverConfig(num_eig=5, atol=1e-10, ncv=30)
+
+    def si1(es):
+        es.set_st_type(STType.SINVERT)
+        es.set_target(1.0)
+
+    si5, _ = run("12d sinvert", K, M, cfg5, si1)
+    op = ShiftInvertOperator(K, M, 1.0, inner_tol=1e-10)
+
+    def shell(es):
+        es.set_st_shell(op.apply, lambda t: op.back_transform(t))
+
+    sl, _ = run("12d shell", K, M, cfg5, shell)
+    lam_a = np.sort_complex(np.array([p[0] for p in si5]))
+    lam_b = np.sort_complex(np.array([p[0] for p in sl]))
+    diff = float(np.max(np.abs(lam_a - lam_b) / np.maximum(1.0, np.abs(lam_a))))
+    res_b = eigen_residuals(K, M, sl) / (np.abs(lam_b) + 1.0)
+    log(f"phase 12d: SHELL wrapping the SINVERT apply at 1.0: {lam_b.real} against SINVERT's "
+        f"{lam_a.real}: {diff:.1e}; residuals {res_b.max():.1e}; "
+        f"{stages['12d shell']['seconds']:.2f} s against {stages['12d sinvert']['seconds']:.2f} s")
+    if not (diff <= 1e-10 and (res_b <= 1e-8).all()):
+        raise RuntimeError(f"phase 12d: SHELL {lam_b} against SINVERT {lam_a}: {diff:.1e}")
+    for name in ("12d sinvert K", "12d sinvert", "12d shell"):
+        gate_eigen_stage(f"phase {name}", stages[name], REAL_CLASSES, builds=2)
+    st = stages["12d filter K"]
+    s_orig = sum(st["launches"][m + ".original"] for m in ("spmv_real", "spmv_complex"))
+    if st["solves"] or any(st["launches"][k] for k in st["launches"] if k.startswith("K")) \
+            or not s_orig == st["matvecs"] > 0:
+        raise RuntimeError(f"phase 12d filter: band solves {st['solves']}, {s_orig} S launches "
+                           f"for {st['matvecs']} matvecs: {nonzero(st['launches'])}")
+
+
+def krylov_path(case, mp: dict, J) -> dict:
+    """Phase 12 (after phase 5): 12a on phase 3's (A, M), 12b on its last
+    Jacobian, 12c and 12d on the membranes; each stage's launches read on
+    its own and summed."""
+    stages: dict = {}
+    t0 = time.time()
+    with plain_loops_forbidden():
+        gmres_si_path(mp, stages)
+        nonsym_menu(case, mp, J, stages)
+        spd_menu(stages)
+        transforms_path(stages)
+    seconds = time.time() - t0
+    launches = {k: sum(st["launches"][k] for st in stages.values()) for k in counts()}
+    log(f"phase 12: {seconds:.1f} s (budget 60 s); launches {nonzero(launches)}")
+    return dict(launches=launches, seconds=seconds, stages=stages)
+
+
 def main() -> int:
     import torch
 
@@ -3996,6 +4453,9 @@ def main() -> int:
         f"{mp['per_gcr']:.2f} of the port's kernels per GCR iteration")
 
     p5 = sensitivity_path(case, mp)
+    p12 = krylov_path(case, mp, p3c["J"])
+    del p12["stages"]
+    torch.cuda.empty_cache()
     mp_launches, pf_launches, p3c_launches = mp["launches"], pf["launches"], p3c["launches"]
     p3 = {k: mp[k] for k in ("w", "A", "M", "sigma")}  # phase 8's 2D base and answer
     del mp, pf, p3c, cop, cases, mg, p5["stages"]
@@ -4097,6 +4557,7 @@ def main() -> int:
         e["launches_phase9"] = p9["launches"][key] if key else 0
         e["launches_phase10"] = sum(p["launches"][key] for p in (p10, p10b, p10c)) if key else 0
         e["launches_phase11"] = p11["launches"][key] if key else 0
+        e["launches_phase12"] = p12["launches"][key] if key else 0
     for e in kernels:
         log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
             f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
@@ -4105,7 +4566,7 @@ def main() -> int:
             f"({e['launches_phase5']} in phase 5, {e['launches_phase6']} in phase 6, "
             f"{e['launches_phase7']} in phase 7, {e['launches_phase8']} in phase 8, "
             f"{e['launches_phase9']} in phase 9, {e['launches_phase10']} in phase 10, "
-            f"{e['launches_phase11']} in phase 11)")
+            f"{e['launches_phase11']} in phase 11, {e['launches_phase12']} in phase 12)")
     log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
 
     log(name_power)

@@ -60,17 +60,22 @@ class SparsityPattern:
         return out
 
     def on(self, device) -> dict[str, torch.Tensor]:
-        """int64 index tensors of the pattern on ``device`` (cached)."""
+        """int64 index tensors of the pattern on ``device`` (cached); a
+        pattern without a full diagonal (a rectangular transfer operator)
+        has no ``diag_slots``."""
         key = str(torch.device(device))
         hit = self._device.get(key)
         if hit is None:
             def t(a):
                 return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
 
-            hit = dict(
-                crow=t(self.indptr), col=t(self.indices), row_ids=t(self.row_ids),
-                slots=t(self.slots), diag_slots=t(self.diag_slots),
-            )
+            hit = dict(crow=t(self.indptr), col=t(self.indices), row_ids=t(self.row_ids),
+                       slots=t(self.slots))
+            if self.shape[0] == self.shape[1]:
+                try:
+                    hit["diag_slots"] = t(self.diag_slots)
+                except ValueError:  # no full diagonal
+                    pass
             self._device[key] = hit
         return hit
 
@@ -162,7 +167,10 @@ class CSRMatrix:
 
     def diagonal(self) -> torch.Tensor:
         """The stored diagonal (raises where the pattern lacks one)."""
-        return self.data[self.idx()["diag_slots"]]
+        ix = self.idx()
+        if "diag_slots" not in ix:
+            self.pattern.diag_slots  # raises: the pattern lacks a full diagonal
+        return self.data[ix["diag_slots"]]
 
     def transpose(self) -> "CSRMatrix":
         """A^T on a new pattern of its own (host transpose)."""

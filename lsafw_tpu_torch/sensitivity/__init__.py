@@ -20,10 +20,10 @@ Two choices differ from the reference:
 
 * ``si_method``: the default is ``"banded"``, the device shift-invert
   path (band factor and f64 refinement, through the CUDA kernels on the
-  card).  The reference's default ``"lu"`` (a host SuperLU of the
-  shifted operator, and a host ``SparseLU`` of J for du/dRe) runs when it
-  is asked for.
-* With ``"banded"`` the du/dRe solve ``J s = r`` runs on the device
+  card); ``"gmres"`` is the inexact shift-invert on the same factor.  The
+  reference's default ``"lu"`` (a host SuperLU of the shifted operator,
+  and a host ``SparseLU`` of J for du/dRe) runs when it is asked for.
+* With ``"banded"`` or ``"gmres"`` the du/dRe solve ``J s = r`` runs on the device
   through the banded route of the Newton steps (``solver/newton.py``
   ``banded_solve``: J's cached real band plan, the real pivoted factor
   and ``_banded_mr`` GCR), to ``tol`` where given, else
@@ -35,8 +35,11 @@ A target on an exact eigenvalue (the usual call, target = sigma) makes
 the band factor at the target singular to working precision; the
 eigensolver then retries at the offset shift 1e-3 (1 + |target|), on the
 card (``solver/eigen.py`` ``FactorUnusable``).  Without a target the
-direct mode needs a spectral transform other than shift-invert, which
-the port lacks (ROADMAP item 11): it raises.
+direct mode takes the reference's branch: the SHIFT transform (op =
+M^-1 A) and the pair with the largest real part.  On a Navier-Stokes
+pencil M is singular (its pressure block and Dirichlet rows are zero),
+so there it raises :class:`~lsafw_tpu_torch.solver.eigen.FactorUnusable`
+naming that reason, where the reference's host LU of M fails.
 """
 
 from __future__ import annotations
@@ -158,9 +161,9 @@ class EigenSensitivitySolver:
         device = resolve_device(device)
         if device.type != ctx.device.type:
             raise ValueError(f"device {device} is not the assembly context's {ctx.device}")
-        if si_method not in ("banded", "lu"):
+        if si_method not in ("banded", "lu", "gmres"):
             raise NotImplementedError(
-                f"si_method={si_method!r}: the ported methods are 'banded' and 'lu'")
+                f"si_method={si_method!r}: the methods are 'banded', 'gmres' and 'lu'")
         self._ctx = ctx
         self._mesh = mesh
         self._bcs = bcs
@@ -189,13 +192,16 @@ class EigenSensitivitySolver:
         self.wavemaker_cg: SolveResult | None = None
         logger.info("Initialized eigenvalue sensitivity solver for Re = %.2f", re)
 
-    def _eigensolve(self, A: CSRMatrix, M: CSRMatrix, atol: float, shift: complex,
+    def _eigensolve(self, A: CSRMatrix, M: CSRMatrix, atol: float, shift: complex | None,
                     stage: str) -> list:
+        """The eigenpairs of (A, M): shift-invert at ``shift``, or SHIFT (M^-1
+        A, the default selection) where it is None."""
         es = EigenSolver(A, M, EigensolverConfig(num_eig=self._max_modes, atol=atol,
                                                  max_it=self._max_it))
-        es.set_st_type(STType.SINVERT)
-        es.set_st_pc_type(self._si_method)
-        es.set_target(shift)
+        if shift is not None:
+            es.set_st_type(STType.SINVERT)
+            es.set_st_pc_type(self._si_method)
+            es.set_target(shift)
         pairs = es.solve()
         if not pairs:
             raise RuntimeError(f"No eigenpairs returned by the {stage} eigensolver.")
@@ -209,12 +215,11 @@ class EigenSensitivitySolver:
     # --- direct mode ---
     def solve_direct_mode(self, target: complex | None = None) -> tuple[complex, torch.Tensor]:
         target = target if target is not None else self._target
-        if target is None:
-            raise NotImplementedError(
-                "the direct mode without a target needs a spectral transform other than "
-                "shift-invert, which is not ported (ROADMAP item 11): pass a target")
         pairs = self._eigensolve(self._A, self._M, self._tol_direct, target, "direct")
-        sigma, v = min(pairs, key=lambda p: abs(p[0] - target))
+        if target is not None:
+            sigma, v = min(pairs, key=lambda p: abs(p[0] - target))
+        else:
+            sigma, v = max(pairs, key=lambda p: p[0].real)
         self._sigma, self._v = sigma, self._cvec(v)
         logger.info("Direct eigenpair: sigma = %.4e %+.4e j", sigma.real, sigma.imag)
         return sigma, self._v

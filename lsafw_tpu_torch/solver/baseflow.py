@@ -8,7 +8,11 @@ on the device band LU with f64 GCR refinement (one real band plan,
 shared by the Stokes operator and the Jacobians of the same pattern).
 A stalled banded Stokes solve on a bf16 band is retried once on a
 budget-clipped f32 plan (the pattern marked bf16-unstable, as Newton's
-rung does); a stalled f32 solve raises.  ``"lu"`` solves on the host."""
+rung does); a stalled f32 solve raises.  ``"lu"`` solves on the host.
+A Krylov name (``"gmres"``, ``"bcgs"``, ...) runs every Newton step, and
+the Stokes guess too, through that Krylov type with block-Jacobi(64) on
+the device (the reference's Stokes guess takes its host LU there; here a
+host LU runs only for ``"lu"``)."""
 
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from lsafw_tpu_torch.models.navier_stokes import (
 )
 from lsafw_tpu_torch.solver.direct import direct_solve
 from lsafw_tpu_torch.solver.band import mark_bf16_unstable, plan_for_csr
+from lsafw_tpu_torch.solver.linear import solve_csr
+from lsafw_tpu_torch.solver.precond import block_jacobi_array
 from lsafw_tpu_torch.solver.newton import NewtonResult, NewtonSolver, banded_solve, new_stats
 from lsafw_tpu_torch.utils.logging import get_logger, timed
 
@@ -59,6 +65,13 @@ class BaseFlowSolver:
             if not res.converged:
                 raise RuntimeError(f"banded Stokes solve stalled (relative residual "
                                    f"{res.residual:.2e})")
+            return res.x.cpu().numpy()
+        if linear_solver != "lu":
+            res = solve_csr(A, b, block_jacobi_array(A, 64), ksp_type=linear_solver,
+                            pc_kind="bjacobi", tol=1e-10, maxiter=5000)
+            if not res.converged:
+                logger.warning("Krylov %s Stokes solve stalled (rel res %.2e); Newton starts "
+                               "from its iterate", linear_solver, res.residual)
             return res.x.cpu().numpy()
         return direct_solve(A, b.cpu().numpy())
 

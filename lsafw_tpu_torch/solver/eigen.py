@@ -1,5 +1,4 @@
-"""Krylov-Schur eigensolver with the shift-invert and Cayley spectral
-transforms.
+"""Krylov-Schur eigensolver with the reference's spectral transforms.
 
 The Krylov basis lives on the device as a complex128 (ncv+1, n)
 tensor; orthogonalization is CGS2 as dense basis products.  The
@@ -12,10 +11,22 @@ C = A - sigma M and M applies run through the S kernel on the permuted
 CSR of (A, M) (``ops/bcsr.py`` ``BCSRShiftedOp``, sigma a kernel
 argument).  At a real shift a real f64 vector stays real throughout
 (the real factor's one-column substitution, S on an f64 x).  With
-``method="lu"`` (asked for only) one host SuperLU of C serves every
+``method="gmres"`` (the inexact shift-invert; STPRECOND forces it) the
+same factor preconditions restarted GMRES(40) on complex128 n-vectors
+to ``inner_tol`` (:func:`~lsafw_tpu_torch.solver.linear.gmres`): one
+band solve per GMRES step, one per solve for M b and one per cycle.
+With ``method="lu"`` (asked for only) one host SuperLU of C serves every
 solve, the vectors crossing to the host and back.  The (ncv x ncv)
 Hessenberg bookkeeping, sorted Schur restarts and Ritz extraction run
 on the host in numpy/scipy complex128.
+
+The other transforms: SHIFT (:class:`PlainOperator`, op v = M^-1 A v with
+A v through S and M^-1 a real band factor of M with the checked
+refinement; M must be invertible: a zero row of M, as the pressure block
+of a Navier-Stokes pencil has, raises :class:`FactorUnusable`), SHELL
+(:class:`ShellOperator`, the caller's apply and back-transform) and
+FILTER (:class:`ChebyshevFilterOperator`, a Chebyshev polynomial of a
+Hermitian A, eigenvalues as Rayleigh quotients).
 
 With M = None the operator is C = A - sigma I, at a real shift (the
 theta-stepper's and the Floquet trip's implicit matrices, at sigma = 0):
@@ -42,17 +53,41 @@ import scipy.sparse as sp
 import torch
 
 from lsafw_tpu_torch import resolve_device
-from lsafw_tpu_torch.ops.bcsr import BCSROperator, BCSRShiftedOp, plan_for_pattern
+from lsafw_tpu_torch.ops.bcsr import (
+    BCSROperator,
+    BCSRShiftedOp,
+    operator_for_budget,
+    plan_for_pattern,
+)
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
 from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
+from lsafw_tpu_torch.solver.linear import gmres
 from lsafw_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
 
+class EpsProblemType(Enum):
+    """Problem types (SLEPc's ``EPSProblemType``)."""
+
+    HEP = "hep"
+    NHEP = "nhep"
+    GHEP = "ghep"
+    GNHEP = "gnhep"
+    PGNHEP = "pgnhep"
+    GHIEP = "ghiep"
+
+    @property
+    def is_generalized(self) -> bool:
+        return self in (EpsProblemType.GHEP, EpsProblemType.GNHEP, EpsProblemType.PGNHEP,
+                        EpsProblemType.GHIEP)
+
+
 class STType(Enum):
-    """Spectral transforms; the port runs SINVERT and CAYLEY."""
+    """Spectral transforms: SINVERT and CAYLEY (the factor), PRECOND (the
+    inexact shift-invert, GMRES preconditioned by the factor), SHIFT
+    (no transform), FILTER (a Chebyshev filter) and SHELL (the caller's)."""
 
     SHIFT = "shift"
     SINVERT = "sinvert"
@@ -74,6 +109,7 @@ class EpsWhich(Enum):
 @dataclass
 class EigensolverConfig:
     num_eig: int = 5
+    problem_type: EpsProblemType = EpsProblemType.GNHEP
     atol: float = 1e-8
     max_it: int = 500
     ncv: int = 80
@@ -235,6 +271,45 @@ class FactorUnusable(RuntimeError):
     refinement that misses its tolerance (:func:`refine_checked`)."""
 
 
+def calibrate(op: BandedSIOp, n: int, inner_tol: float, *, real: bool, cap: int = 300,
+              trial_cap: int = 60) -> tuple[float, int, int | None]:
+    """(rho, refinement cap, trial GCR iterations or None) of the band
+    factor of ``op``: rho, the contraction of one refinement step on a
+    unit vector from a seed (real where ``real``), gives the Richardson
+    bound 2 log(tol) / log(rho) iterations, within ``cap``.  Where that
+    bound refuses, the refinement itself is run on the same vector, and
+    the factor is kept if it reaches ``inner_tol`` within ``trial_cap``
+    iterations, with a cap of four times as many.  A non-finite or
+    refused factor raises :class:`FactorUnusable`."""
+    rng = np.random.default_rng(11)
+    b0 = rng.standard_normal(n)
+    b0 /= np.linalg.norm(b0)
+    b0 = torch.as_tensor(b0, dtype=torch.float64 if real else torch.complex128,
+                         device=op.A.device)
+    x0 = op.blu.solve(b0)
+    rho = float(torch.linalg.vector_norm(b0 - _si_apply_C(op, x0)))
+    if not np.isfinite(rho):
+        raise FactorUnusable(f"band factor is not usable: calibration contraction {rho}")
+    rho_c = min(max(rho, 1e-14), 0.999)
+    needed = int(2 * np.ceil(np.log(inner_tol) / np.log(rho_c)))
+    trial_its = None
+    if needed <= cap:
+        refine_its = int(np.clip(needed, 4, cap))
+    else:
+        _, its, res = _refine(op, b0, tol=inner_tol, max_its=trial_cap)
+        if not res <= inner_tol:
+            raise FactorUnusable(
+                f"band factor preconditions too weakly: contraction {rho:.3e} needs "
+                f"~{needed} refinement iterations for tol {inner_tol:.0e} (cap {cap}), "
+                f"and a trial GCR solve reached {res:.1e} in {its}")
+        trial_its = its
+        refine_its = int(min(4 * max(its, 1), cap))
+    logger.info("Banded factor: contraction %.2e%s -> refinement cap %d for tol %.0e",
+                rho, "" if trial_its is None else f" (trial GCR solve: {trial_its} iterations)",
+                refine_its, inner_tol)
+    return rho, refine_its, trial_its
+
+
 class ShiftInvertOperator:
     """y = (A - sigma M)^-1 (M v) with real A, M and complex sigma, or with
     ``antishift`` nu the Cayley apply y = (A - sigma M)^-1 (A + nu M) v on
@@ -261,6 +336,13 @@ class ShiftInvertOperator:
     on the vector's device, cross to the host for the solve and come
     back.  It runs only when asked for.
 
+    ``method="gmres"``: the inexact shift-invert.  The same band factor of
+    C (``factor_auto``, not calibrated) preconditions restarted GMRES(40)
+    on complex128 n-vectors (the reference solves the equivalent real 2n
+    system) to ``inner_tol`` within ``inner_maxiter`` steps; a solve that
+    misses raises :class:`FactorUnusable`.  ``gmres_its`` and
+    ``gmres_cycles`` record each solve.
+
     ``elements`` (the reference's per-cell element matrices for
     matrix-free refinement matvecs) is accepted and ignored: S carries the
     refinement matvecs on the assembled CSR, and the element operator is
@@ -270,9 +352,9 @@ class ShiftInvertOperator:
     _TRIAL_CAP = 60
 
     def __init__(self, A: CSRMatrix, M: CSRMatrix | None, sigma: complex, *,
-                 method: str = "banded", inner_tol: float = 1e-10, elements=None,
-                 antishift: complex | None = None) -> None:
-        if method not in ("banded", "lu"):
+                 method: str = "banded", inner_tol: float = 1e-10, inner_maxiter: int = 2000,
+                 elements=None, antishift: complex | None = None) -> None:
+        if method not in ("banded", "lu", "gmres"):
             raise NotImplementedError(f"shift-invert method {method!r} is not ported")
         self.A, self.M = A, M
         self.sigma = complex(sigma)
@@ -280,11 +362,14 @@ class ShiftInvertOperator:
         self.method = method
         self._n = A.shape[0]
         self._inner_tol = inner_tol
+        self._inner_maxiter = inner_maxiter
         self.applies = 0
         self.pivoted = False
         self.device_op = None
         self.rho = self.refine_its = None
         self.trial_its = None  # GCR iterations of the trial solve, where one ran
+        self.gmres_its: list[int] = []  # per GMRES solve: its steps (method "gmres")
+        self.gmres_cycles: list[int] = []  # and its restart cycles
         t0 = time.time()
         if method == "lu":
             self._lu = SparseLU(self._host_C())
@@ -296,33 +381,11 @@ class ShiftInvertOperator:
                          if isinstance(t, torch.Tensor))
         self.device_op = BandedSIOp(A, M, blu, self.sigma, self._build_bcsr_ops(band_bytes),
                                     self.antishift)
-        rng = np.random.default_rng(11)
-        b0 = rng.standard_normal(self._n)
-        b0 /= np.linalg.norm(b0)
-        real = self.sigma.imag == 0.0
-        b0 = torch.as_tensor(b0, dtype=torch.float64 if real else torch.complex128,
-                             device=A.device)
-        x0 = blu.solve(b0)
-        rho = float(torch.linalg.vector_norm(b0 - _si_apply_C(self.device_op, x0)))
-        self.rho = rho
-        if not np.isfinite(rho):
-            raise FactorUnusable(f"band factor is not usable: calibration contraction {rho}")
-        rho_c = min(max(rho, 1e-14), 0.999)
-        needed = int(2 * np.ceil(np.log(inner_tol) / np.log(rho_c)))
-        if needed <= self._CAP:
-            self.refine_its = int(np.clip(needed, 4, self._CAP))
-        else:
-            _, its, res = _refine(self.device_op, b0, tol=inner_tol, max_its=self._TRIAL_CAP)
-            if not res <= inner_tol:
-                raise FactorUnusable(
-                    f"band factor preconditions too weakly: contraction {rho:.3e} needs "
-                    f"~{needed} refinement iterations for tol {inner_tol:.0e} (cap {self._CAP}), "
-                    f"and a trial GCR solve reached {res:.1e} in {its}")
-            self.trial_its = its
-            self.refine_its = int(min(4 * max(its, 1), self._CAP))
-        logger.info("Banded shift-invert: contraction %.2e%s -> refinement cap %d for tol %.0e",
-                    rho, "" if self.trial_its is None else
-                    f" (trial GCR solve: {self.trial_its} iterations)", self.refine_its, inner_tol)
+        if method == "gmres":  # GMRES judges the factor itself: no calibration
+            return
+        self.rho, self.refine_its, self.trial_its = calibrate(
+            self.device_op, self._n, inner_tol, real=self.sigma.imag == 0.0, cap=self._CAP,
+            trial_cap=self._TRIAL_CAP)
 
     def _host_C(self) -> sp.csc_matrix:
         """C = A - sigma M (A - sigma I without M) on the host: real at a
@@ -399,16 +462,35 @@ class ShiftInvertOperator:
 
     def figures(self) -> dict:
         """The operator's figures: factor seconds, contraction, trial GCR
-        iterations, refinement cap, applies, pivoted, fused matvecs."""
+        iterations, refinement cap, applies, pivoted, fused matvecs, and for
+        ``"gmres"`` the GMRES steps and cycles of all its solves."""
         return dict(factor_s=self.factor_seconds, rho=self.rho, trial_its=self.trial_its,
                     refine_its=self.refine_its, applies=self.applies, pivoted=self.pivoted,
-                    fused=self.device_op is not None and self.device_op.Cop is not None)
+                    fused=self.device_op is not None and self.device_op.Cop is not None,
+                    gmres_its=sum(self.gmres_its), gmres_cycles=sum(self.gmres_cycles),
+                    gmres_solves=len(self.gmres_its))
+
+    def _gmres_solve(self, b: torch.Tensor) -> torch.Tensor:
+        """C^-1 b by GMRES(40) on C = A - sigma M, preconditioned by the band
+        factor, to ``inner_tol``; a solve that misses it raises
+        :class:`FactorUnusable`."""
+        op = self.device_op
+        res = gmres(lambda x: _si_apply_C(op, x), b, tol=self._inner_tol, restart=40,
+                    maxiter=self._inner_maxiter, M=op.blu.solve)
+        self.gmres_its.append(res.iterations)
+        self.gmres_cycles.append(res.cycles)
+        if not res.converged:
+            raise FactorUnusable(f"GMRES shift-invert solve: {res.residual:.2e} after "
+                                 f"{res.iterations} iterations (tol {self._inner_tol:.0e})")
+        return res.x
 
     def apply(self, v: torch.Tensor) -> torch.Tensor:
         """One transformed apply: (A - sigma M)^-1 M v, or the Cayley apply."""
         self.applies += 1
         if self.method == "lu":
             return self._host_solve(self._csr_rhs(v))
+        if self.method == "gmres":
+            return self._gmres_solve(_si_rhs(self.device_op, v))
         return banded_si_apply(self.device_op, v, tol=self._inner_tol, max_its=self.refine_its)
 
     def solve_raw(self, b: torch.Tensor) -> torch.Tensor:
@@ -417,6 +499,8 @@ class ShiftInvertOperator:
         the non-modal analyses (:mod:`lsafw_tpu_torch.transient`)."""
         if self.method == "lu":
             return self._host_solve(b)
+        if self.method == "gmres":
+            return self._gmres_solve(b)
         return banded_solve_raw(self.device_op, b, tol=self._inner_tol, max_its=self.refine_its)
 
     def back_transform(self, theta: np.ndarray) -> np.ndarray:
@@ -427,6 +511,141 @@ class ShiftInvertOperator:
             den = np.where(np.abs(den) < 1e-300, 1e-300, den)
             return (self.sigma * theta + self.antishift) / den
         return self.sigma + 1.0 / theta
+
+
+def _matvec_of(A: CSRMatrix):
+    """x -> A x through S (the permuted-CSR operator, original order) where
+    its values fit ``LSAFW_BCSR_MEM_GB``, else the CSR product."""
+    op = operator_for_budget(A)
+    return op.matvec if op is not None else (lambda x: spmv(A, x))
+
+
+def zero_rows(M: CSRMatrix) -> int:
+    """The number of rows of M without a nonzero value."""
+    rows = M.idx()["row_ids"]
+    mag = torch.zeros(M.shape[0], dtype=torch.float64, device=M.device).index_add_(
+        0, rows, M.data.abs())
+    return int((mag == 0).sum())
+
+
+class PlainOperator:
+    """op v = A v, or M^-1 A v: the SHIFT transform (no spectral transform).
+
+    A v runs through S.  M^-1 is a real band factor of M on M's device
+    (``factor_auto`` on its own real plan, without the saddle
+    regularization) with the checked refinement of the shift-invert
+    operator (:func:`calibrate`, :func:`refine_checked`): a refused factor,
+    or a refinement that misses ``inner_tol``, raises
+    :class:`FactorUnusable`.  An M with a zero row is singular and raises
+    before any factor work (the reference's host LU of M raises there as
+    well).  No host LU runs."""
+
+    _CAP = 300
+    _TRIAL_CAP = 60
+
+    def __init__(self, A: CSRMatrix, M: CSRMatrix | None = None, *,
+                 inner_tol: float = 1e-10) -> None:
+        self.A, self.M = A, M
+        self._A = _matvec_of(A)
+        self._inner_tol = inner_tol
+        self.applies = 0
+        self.mop = None
+        self.rho = self.refine_its = self.trial_its = None
+        self.factor_seconds = 0.0
+        if M is None:
+            return
+        nz = zero_rows(M)
+        if nz:
+            raise FactorUnusable(
+                f"SHIFT needs M^-1, and M is singular: {nz} of its {M.shape[0]} rows are zero "
+                f"(a Navier-Stokes pencil's pressure block and Dirichlet rows); use SINVERT")
+        t0 = time.time()
+        blu, _ = factor_auto(plan_for_csr(M, real=True), M.data)
+        self.factor_seconds = time.time() - t0
+        self.mop = BandedSIOp(M, None, blu, 0j, operator_for_budget(M))
+        self.rho, self.refine_its, self.trial_its = calibrate(
+            self.mop, M.shape[0], inner_tol, real=True, cap=self._CAP, trial_cap=self._TRIAL_CAP)
+
+    def figures(self) -> dict:
+        """M's factor seconds, contraction, trial GCR iterations, refinement
+        cap, and the applies."""
+        return dict(factor_s=self.factor_seconds, rho=self.rho, trial_its=self.trial_its,
+                    refine_its=self.refine_its, applies=self.applies)
+
+    def apply(self, v: torch.Tensor) -> torch.Tensor:
+        self.applies += 1
+        w = self._A(v)
+        if self.mop is None:
+            return w
+        return refine_checked(self.mop, w, tol=self._inner_tol, max_its=self.refine_its,
+                              what="M^-1 solve")[0]
+
+    def back_transform(self, theta: np.ndarray) -> np.ndarray:
+        return theta
+
+
+class ShellOperator:
+    """The SHELL transform: the caller's apply (a complex128 tensor in and
+    out) and its eigenvalue back-transform (identity when None)."""
+
+    def __init__(self, apply_fn, back_fn=None) -> None:
+        self._apply = apply_fn
+        self._back = back_fn or (lambda t: t)
+        self.applies = 0
+
+    def apply(self, v: torch.Tensor) -> torch.Tensor:
+        self.applies += 1
+        return self._apply(v)
+
+    def back_transform(self, theta: np.ndarray) -> np.ndarray:
+        return np.asarray([self._back(t) for t in np.asarray(theta)])
+
+
+class ChebyshevFilterOperator:
+    """The FILTER transform: the degree-d Chebyshev polynomial T_d(g(A)) of
+    a Hermitian A, the unwanted window affinely mapped onto [-1, 1] by g,
+    so that the wanted eigenvalues (below ``cutoff``, or above it with
+    ``smallest=False``) are amplified without a factor.  The spectral
+    bound comes from ``bound_its`` power iterations from a seed (times
+    1.05); the apply is the three-term recurrence, d matvecs through S.
+    Its Ritz values carry no eigenvalue: the caller takes Rayleigh
+    quotients.  Standard problems only (M = None)."""
+
+    def __init__(self, A: CSRMatrix, cutoff: float, *, degree: int = 30, smallest: bool = True,
+                 bound_its: int = 30) -> None:
+        self.A = A
+        self.degree = int(degree)
+        self._A = _matvec_of(A)
+        self.applies = 0
+        v = torch.as_tensor(np.random.default_rng(5).standard_normal(A.shape[0]),
+                            device=A.device)
+        lam_max = 0.0
+        for _ in range(bound_its):
+            w = self._A(v)
+            lam_max = float(torch.linalg.vector_norm(w))
+            v = w / lam_max
+        lam_max *= 1.05
+        lo, hi = (float(cutoff), lam_max) if smallest else (-lam_max, float(cutoff))
+        self.lam_max = lam_max
+        self._e = (hi + lo) / 2.0
+        self._c = (hi - lo) / 2.0
+
+    def apply(self, v: torch.Tensor) -> torch.Tensor:
+        """T_d(g(A)) v (no normalization: the operator stays linear)."""
+        self.applies += 1
+        e, c = self._e, self._c
+
+        def g(x):
+            return (self._A(x) - e * x) / c
+
+        t0, t1 = v, g(v)
+        for _ in range(self.degree - 1):
+            t0, t1 = t1, 2.0 * g(t1) - t0
+        return t1
+
+    def back_transform(self, theta: np.ndarray) -> np.ndarray:
+        raise RuntimeError("filter Ritz values carry no eigenvalue information; use Rayleigh "
+                           "quotients (EigenSolver does)")
 
 
 # ---------------------------------------------------------------------------
@@ -571,25 +790,40 @@ def krylov_schur(
 
 
 class EigenSolver:
-    """Generalized eigensolver front-end over (A, M); the port runs the
-    shift-invert and Cayley transforms.  The st_pc defaults to
-    ``"banded"``, the device band factor (the reference defaults to its
+    """Generalized eigensolver front-end over (A, M).  The st_pc defaults
+    to ``"banded"``, the device band factor (the reference defaults to its
     host ``"lu"``, which runs here only when ``set_st_pc_type("lu")`` asks
-    for it)."""
+    for it); any other st_pc name selects the inexact GMRES shift-invert,
+    as in the reference.  ``check_hermitian`` logs a warning where A or M
+    is not numerically symmetric."""
 
     def __init__(self, A: CSRMatrix, M: CSRMatrix | None,
-                 config: EigensolverConfig | None = None) -> None:
+                 config: EigensolverConfig | None = None, *,
+                 check_hermitian: bool = False) -> None:
         if A.shape[0] != A.shape[1]:
             raise ValueError("A must be square.")
         if M is not None and M.shape != A.shape:
             raise ValueError("A and M must have matching shapes.")
         self.A, self.M = A, M
         self.config = config or EigensolverConfig()
+        if check_hermitian:
+            self._warn_if_not_hermitian()
         self._st_type = STType.SHIFT
         self._target: complex | None = None
         self._antishift: complex | None = None
+        self._which = EpsWhich.LARGEST_MAGNITUDE
         self._si_method = "banded"
+        self._filter_degree = 30
+        self._shell: tuple | None = None
         self._v0: np.ndarray | None = None
+
+    def _warn_if_not_hermitian(self) -> None:
+        for name, mat in (("A", self.A), ("M", self.M)):
+            if mat is None:
+                continue
+            s = mat.to_scipy()
+            if abs(s - s.T).max() > 1e-10:
+                logger.warning("Operator %s is not numerically symmetric/Hermitian.", name)
 
     def set_st_type(self, st: STType | str) -> None:
         self._st_type = STType(st) if isinstance(st, str) else st
@@ -602,9 +836,25 @@ class EigenSolver:
         ``ST.setCayleyAntishift``); it defaults to the target."""
         self._antishift = complex(nu)
 
+    def set_st_shell(self, apply, back_transform=None) -> None:
+        """The SHELL transform: ``apply(v)`` maps a complex128 tensor to the
+        transformed operator's image, ``back_transform(theta)`` maps its
+        eigenvalues back (identity when omitted).  Sets ``STType.SHELL``."""
+        self._shell = (apply, back_transform or (lambda t: t))
+        self._st_type = STType.SHELL
+
+    def set_which_eigenpairs(self, which: EpsWhich | str) -> None:
+        """The selection of SHIFT, SHELL and FILTER (the shift-invert
+        transforms take the largest theta, the pairs nearest the target)."""
+        self._which = EpsWhich(which) if isinstance(which, str) else which
+
     def set_st_pc_type(self, pc) -> None:
         name = getattr(pc, "value", str(pc)).lower()
         self._si_method = name if name in ("lu", "banded") else "gmres"
+
+    def set_filter_degree(self, degree: int) -> None:
+        """The Chebyshev filter's degree (FILTER)."""
+        self._filter_degree = int(degree)
 
     def set_initial_vector(self, v0: np.ndarray) -> None:
         self._v0 = np.asarray(v0, dtype=np.complex128).copy()
@@ -615,7 +865,8 @@ class EigenSolver:
         nu = None
         if self._st_type is STType.CAYLEY:  # SLEPc: the antishift defaults to the shift
             nu = self._antishift if self._antishift is not None else target
-        op = ShiftInvertOperator(self.A, self.M, target, method=self._si_method,
+        method = "gmres" if self._st_type is STType.PRECOND else self._si_method
+        op = ShiftInvertOperator(self.A, self.M, target, method=method,
                                  inner_tol=min(cfg.atol * 1e-2, 1e-10), antishift=nu)
         result = krylov_schur(
             op.apply, n, nev=cfg.num_eig, ncv=min(cfg.ncv, n),
@@ -625,14 +876,66 @@ class EigenSolver:
         self.operator, self.result = op, result
         return op, result
 
+    def _solve_plain(self, t0: float) -> list[tuple[complex, np.ndarray]]:
+        """SHIFT (:class:`PlainOperator`) and SHELL: Krylov-Schur on the
+        operator with the chosen selection; pairs in selection order."""
+        cfg = self.config
+        n = self.A.shape[0]
+        if self._st_type is STType.SHELL:
+            op = ShellOperator(*self._shell)
+        else:
+            op = PlainOperator(self.A, self.M, inner_tol=min(cfg.atol * 1e-2, 1e-10))
+        result = krylov_schur(op.apply, n, nev=cfg.num_eig, ncv=min(cfg.ncv, n),
+                              which=self._which, target=self._target, tol=cfg.atol,
+                              max_restarts=cfg.max_it, v0=self._v0, device=self.A.device)
+        self.operator, self.result = op, result
+        if not result.converged:
+            logger.warning("Eigensolver returned %d converged of %d requested.", result.nconv,
+                           cfg.num_eig)
+        lam = op.back_transform(result.eigenvalues)
+        logger.info("Eigensolve completed in %.2f s.", time.time() - t0)
+        return list(zip([complex(v) for v in lam], result.eigenvectors))[: cfg.num_eig]
+
+    def _solve_filtered(self, t0: float) -> list[tuple[complex, np.ndarray]]:
+        """FILTER: Krylov-Schur on the Chebyshev-filtered A, eigenvalues as
+        Rayleigh quotients of the converged vectors; the target is the
+        window's cutoff.  Hermitian standard problems only."""
+        if self.M is not None:
+            raise ValueError("FILTER supports standard Hermitian problems; generalized pairs "
+                             "go through SINVERT/CAYLEY.")
+        cfg = self.config
+        n = self.A.shape[0]
+        smallest = self._which in (EpsWhich.SMALLEST_REAL, EpsWhich.SMALLEST_MAGNITUDE,
+                                   EpsWhich.LARGEST_MAGNITUDE)  # the default: the lowest window
+        op = ChebyshevFilterOperator(self.A, float(np.real(self._target)),
+                                     degree=self._filter_degree, smallest=smallest)
+        result = krylov_schur(op.apply, n, nev=cfg.num_eig, ncv=min(cfg.ncv, n),
+                              which=EpsWhich.LARGEST_MAGNITUDE, tol=cfg.atol,
+                              max_restarts=cfg.max_it, device=self.A.device)
+        self.operator, self.result = op, result
+        X = torch.as_tensor(np.ascontiguousarray(result.eigenvectors), device=self.A.device)
+        X = (X / torch.linalg.vector_norm(X, dim=1, keepdim=True)).contiguous()
+        AX = torch.stack([op._A(x) for x in X])
+        lam = (X.conj() * AX).sum(dim=1).cpu().numpy()
+        pairs = [(complex(l), x) for l, x in zip(lam, X.cpu().numpy())]
+        pairs.sort(key=lambda p: p[0].real if smallest else -p[0].real)
+        logger.info("Filtered eigensolve completed in %.2f s.", time.time() - t0)
+        return pairs[: cfg.num_eig]
+
     def solve(self) -> list[tuple[complex, np.ndarray]]:
-        """Eigenpairs nearest the target, nearest first."""
-        if self._st_type not in (STType.SINVERT, STType.CAYLEY):
-            raise NotImplementedError(f"spectral transform {self._st_type.name} is not ported")
-        if self._target is None:
+        """Eigenpairs: nearest the target, nearest first (SINVERT, CAYLEY,
+        PRECOND); in the selection's order (SHIFT, SHELL); lowest (or
+        highest) Rayleigh quotient first (FILTER)."""
+        if self._st_type is STType.SHELL and self._shell is None:
+            raise ValueError("SHELL requires set_st_shell(apply, back_transform).")
+        if self._st_type not in (STType.SHIFT, STType.SHELL) and self._target is None:
             raise ValueError(f"{self._st_type.name} requires a target (set_target).")
         cfg = self.config
         t0 = time.time()
+        if self._st_type is STType.FILTER:
+            return self._solve_filtered(t0)
+        if self._st_type in (STType.SHIFT, STType.SHELL):
+            return self._solve_plain(t0)
         # a shift on an exact eigenvalue makes the factor numerically
         # singular: the band factor's calibration refuses it, a refinement
         # misses its tolerance, or the eigenvalues look right but the

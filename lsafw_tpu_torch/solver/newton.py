@@ -17,6 +17,12 @@ Residual and Jacobian are assembled on the device.  Inner solves:
   and the step is solved again on a budget-clipped f32 plan; a failure
   there, or on an f32 band, raises.
 * ``linear_solver="lu"``: host SuperLU.
+* any other name: that Krylov type of :mod:`~lsafw_tpu_torch.solver.linear`
+  (``"gmres"``, ``"bcgs"``, ...) on the device through
+  :func:`~lsafw_tpu_torch.solver.linear.solve_csr`, preconditioned by
+  block-Jacobi over 64 x 64 diagonal blocks, to ``linear_tol`` within
+  5000 iterations; a stalled solve is logged and its iterate taken, as the
+  reference does.
 """
 
 from __future__ import annotations
@@ -32,7 +38,8 @@ from lsafw_tpu_torch.ops.bcsr import operator_for_budget
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
 from lsafw_tpu_torch.solver.band import factor_auto, mark_bf16_unstable, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
-from lsafw_tpu_torch.solver.linear import SolveResult
+from lsafw_tpu_torch.solver.linear import KSPType, SolveResult, solve_csr
+from lsafw_tpu_torch.solver.precond import block_jacobi_array
 from lsafw_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -146,8 +153,8 @@ class NewtonResult:
 
 
 class NewtonSolver:
-    """Newton with adjustable damping; inner solves ``"banded"`` (device)
-    or ``"lu"`` (host)."""
+    """Newton with adjustable damping; inner solves ``"banded"`` (device),
+    ``"lu"`` (host) or a Krylov type (device, block-Jacobi)."""
 
     def __init__(
         self,
@@ -159,8 +166,7 @@ class NewtonSolver:
         stats: dict | None = None,
     ) -> None:
         if linear_solver not in ("lu", "banded"):
-            raise NotImplementedError(
-                f"linear_solver={linear_solver!r}: only 'banded' and 'lu' are ported")
+            KSPType.from_string(linear_solver)  # an unknown name raises here
         self._asm = assembler
         self._damping = damping
         self._linear_solver = linear_solver
@@ -192,6 +198,16 @@ class NewtonSolver:
                 f"{res.iterations} refinement iterations")
         return x
 
+    def _krylov_solve(self, J: CSRMatrix, b: torch.Tensor, it: int) -> torch.Tensor:
+        """The Krylov inner solve: block-Jacobi(64) and ``solve_csr``."""
+        res = solve_csr(J, b, block_jacobi_array(J, 64), ksp_type=self._linear_solver,
+                        pc_kind="bjacobi", tol=self._linear_tol, maxiter=5000)
+        self.stats["krylov_its"] = self.stats.get("krylov_its", 0) + res.iterations
+        if not res.converged:
+            logger.warning("Inner %s solve stalled (res=%.2e) at Newton it %d",
+                           self._linear_solver, res.residual, it)
+        return res.x
+
     def solve(self, w0, re: float, *, max_it: int = 50, tol: float = 1e-6) -> NewtonResult:
         """Iterate to the steady state (divergence -> warning + partial
         result instead of raising)."""
@@ -213,8 +229,10 @@ class NewtonSolver:
             J = asm.jacobian(w, re)
             if self._linear_solver == "banded":
                 dw = self._banded_solve(J, -F)
-            else:
+            elif self._linear_solver == "lu":
                 dw = torch.as_tensor(SparseLU(J).solve(-F.cpu().numpy()), device=w.device)
+            else:
+                dw = self._krylov_solve(J, -F, it)
             if not bool(torch.isfinite(dw).all()):
                 logger.warning("Newton update is not finite; aborting at it %d", it)
                 break

@@ -22,7 +22,17 @@ from lsafw_tpu_torch.ops.sparse import CSRMatrix
 from lsafw_tpu_torch.resolvent import ResolventSolver
 from lsafw_tpu_torch.scm import SelfConsistentModel, scm_continuation
 from lsafw_tpu_torch.sensitivity import EigenSensitivitySolver
-from lsafw_tpu_torch.solver.eigen import krylov_schur
+from lsafw_tpu_torch.models.navier_stokes import StationaryNavierStokesAssembler
+from lsafw_tpu_torch.solver import eigen as teigen
+from lsafw_tpu_torch.solver.eigen import (
+    EigenSolver,
+    EigensolverConfig,
+    FactorUnusable,
+    STType,
+    krylov_schur,
+)
+from lsafw_tpu_torch.solver.newton import NewtonSolver
+from lsafw_tpu_torch.solver.precond import make_preconditioner
 from lsafw_tpu_torch.solver.timestepping import UnsteadySolver
 from lsafw_tpu_torch.span import SpanwiseStability, spanwise_floquet
 from lsafw_tpu_torch.transient import TransientGrowthSolver
@@ -53,13 +63,16 @@ def test_import_loads_no_jax_and_no_jax_package():
         "lsafw_tpu_torch.transient, lsafw_tpu_torch.solver.eigen2, "
         "lsafw_tpu_torch.models.membrane, lsafw_tpu_torch.span, lsafw_tpu_torch.wnl, "
         "lsafw_tpu_torch.solver.timestepping, lsafw_tpu_torch.floquet, lsafw_tpu_torch.scm, "
-        "lsafw_tpu_torch.hill\n"
+        "lsafw_tpu_torch.hill, lsafw_tpu_torch.solver.ilu, lsafw_tpu_torch.solver.amg, "
+        "lsafw_tpu_torch.solver.pmg\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=PKG.parent, check=True, timeout=120).stdout.split()
     assert "lsafw_tpu_torch.solver.band_cuda" in out
-    assert {"lsafw_tpu_torch.solver.linear", "lsafw_tpu_torch.solver.precond"} <= set(out)
+    assert {"lsafw_tpu_torch.solver.linear", "lsafw_tpu_torch.solver.precond",
+            "lsafw_tpu_torch.solver.ilu", "lsafw_tpu_torch.solver.amg",
+            "lsafw_tpu_torch.solver.pmg"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -96,7 +109,10 @@ def test_default_device_entry_points_refuse_the_cpu(monkeypatch):
 def test_sensitivity_refuses_the_cpu_by_default(monkeypatch):
     """``EigenSensitivitySolver`` defaults to the card: without one it
     raises unless ``device="cpu"`` is passed; the reference's host-LU
-    ``si_method`` runs when asked for, and other methods raise."""
+    ``si_method`` runs when asked for, the inexact ``"gmres"`` is taken,
+    other methods raise; without a target the direct mode takes SHIFT,
+    which on this Navier-Stokes pencil (M zero on the pressure block)
+    raises ``FactorUnusable`` naming the singular M."""
     spaces = define_spaces(unit_square(2))
     ctx = AssemblyContext.build(spaces, device="cpu")
     n = spaces.num_dofs
@@ -106,12 +122,62 @@ def test_sensitivity_refuses_the_cpu_by_default(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EigenSensitivitySolver(*args)
+    assert EigenSensitivitySolver(*args, si_method="gmres", device="cpu")._si_method == "gmres"
     with pytest.raises(NotImplementedError, match="banded"):
-        EigenSensitivitySolver(*args, si_method="gmres", device="cpu")
+        EigenSensitivitySolver(*args, si_method="arnoldi", device="cpu")
     assert EigenSensitivitySolver(*args, si_method="lu", device="cpu")._si_method == "lu"
     solver = EigenSensitivitySolver(*args, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
+    with pytest.raises(FactorUnusable, match="M is singular"):
         solver.solve_direct_mode()
+
+
+def test_krylov_newton_and_transforms_are_taken(monkeypatch):
+    """The Krylov ``linear_solver`` names of the Newton solver and the
+    SHIFT, SHELL, FILTER and PRECOND transforms run; an unknown solver or
+    PC name raises.  Host LU stays off: SHIFT's M^-1 is a band factor."""
+    spaces = define_spaces(unit_square(2))
+    ctx = AssemblyContext.build(spaces, device="cpu")
+    n = spaces.num_dofs
+    bcs = BoundaryConditions(num_dofs=n, dirichlet_mask=np.zeros(n, bool),
+                             dirichlet_values=np.zeros(n))
+    asm = StationaryNavierStokesAssembler(ctx, spaces.velocity.mesh, bcs)
+    for name in ("gmres", "bcgs", "fgmres"):
+        assert NewtonSolver(asm, linear_solver=name)._linear_solver == name
+    with pytest.raises(ValueError):
+        NewtonSolver(asm, linear_solver="cholmod")
+    with pytest.raises(ValueError):
+        make_preconditioner(CSRMatrix(ctx.pattern, torch.ones(ctx.pattern.nnz,
+                                                              dtype=torch.float64)), "mumps")
+    monkeypatch.setattr(teigen, "SparseLU", None)
+    d = np.arange(1.0, 9.0)
+    A = _diag(d)
+    M = CSRMatrix(A.pattern, torch.full((8,), 2.0, dtype=torch.float64))
+    for st in (STType.SHIFT, STType.SHELL, STType.FILTER, STType.PRECOND):
+        es = EigenSolver(A, None if st is STType.FILTER else M,
+                         EigensolverConfig(num_eig=1, atol=1e-10, ncv=6))
+        es.set_st_type(st)
+        if st is STType.SHELL:
+            es.set_st_shell(lambda v: A.data[:8] * v)
+        if st is STType.FILTER:
+            es.set_target(2.5)
+            es.set_filter_degree(20)
+        if st is STType.PRECOND:
+            es.set_target(4.2)
+        lam = es.solve()[0][0]
+        want = {STType.SHIFT: 4.0, STType.SHELL: 8.0, STType.FILTER: 1.0,
+                STType.PRECOND: 4.0}[st]
+        assert abs(lam - want) < 1e-8, (st, lam)
+    with pytest.raises(ValueError, match="SHELL requires"):
+        es = EigenSolver(A, M)
+        es.set_st_type(STType.SHELL)
+        es.solve()
+
+
+def _diag(d) -> CSRMatrix:
+    n = len(d)
+    from lsafw_tpu_torch.interop import csr_from_numpy
+
+    return csr_from_numpy(np.arange(n + 1), np.arange(n), d, (n, n), device="cpu")
 
 
 def test_nonmodal_solvers_refuse_the_cpu_by_default(monkeypatch):
