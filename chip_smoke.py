@@ -234,7 +234,8 @@ non-zero):
      under its own budgets (``CUBE_ENV``: the real pivoted Newton factor,
      31.71 GB, and the pivoted complex64 eigen factor, 63.33 GB, each band
      at full width in f32): the banded Newton baseflow at Re = 100 (ramped,
-     3 steps, tol 1e-9), the eigensystem and four pairs nearest -0.2+0.3j
+     2 steps, a depth cut from the test's 3; tol 1e-9), the eigensystem
+     and four pairs nearest -0.2+0.3j
      (ncv 24), each a stage, with the test's gates (four pairs, every
      sigma_r < 0, residuals <= 1e-8, at least two complex modes paired with
      their conjugates within 1e-6) and phase 3's launch gates in the
@@ -294,11 +295,14 @@ non-zero):
      12b the velocity block of phase 3's last Jacobian (38,764 rows) with
      GMRES, FGMRES, LGMRES, GCR, BiCG, BiCGStab, CGS and LSQR, each with
      ILU(0) (on the converged Chow-Patel sweep count; GMRES and BiCGStab at
-     the reference's 8 sweeps logged first) and block-Jacobi(64): the true
-     residual <= 1e-8 wherever a solver reports convergence, GMRES + ILU
-     and BiCGStab + ILU converged; 12c the P2 membrane stiffness of
-     bench.py's 240 x 240 grid and of 120 x 120: CG with none, Jacobi,
-     block-Jacobi, SSOR, ILU, ICC, SA-AMG and p-MG, MINRES + Jacobi,
+     the reference's 8 sweeps logged first; the 8 sweeps bit-identical on
+     a second run) and block-Jacobi(64), their products through S: the
+     true residual <= 1e-8 wherever a solver reports convergence, GMRES +
+     ILU and BiCGStab + ILU converged; 12c the P2 membrane stiffness of
+     bench.py's 240 x 240 grid and of 120 x 120, its products through S:
+     CG with none, Jacobi, block-Jacobi, SSOR, ILU, ICC (CG + ILU at the
+     reference's 8 sweeps logged first, within 2,000 iterations), SA-AMG
+     and p-MG, MINRES + Jacobi,
      Chebyshev on power-iteration bounds (the lower one by inverse power
      iteration through p-MG CG solves): true residuals <= 1e-8, AMG x 4
      under plain CG and p-MG x 3 under Jacobi at both sizes, AMG's count
@@ -309,7 +313,9 @@ non-zero):
      the free DOFs (M^-1 a real band factor on the card; residuals <=
      1e-8 (|lambda| + 1)), SHELL wrapping the SINVERT apply at 1.0 (its
      five pairs equal SINVERT's within 1e-10); stage times logged,
-     phase 12's budget 60 s.
+     phase 12's budget 60 s; then G's permutes and K1/K2 on p-MG's coarse
+     P1 factor at 240 x 240 and on 12d's SINVERT / SHELL and SHIFT M
+     factors, held to their plain versions and timed.
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, one entry per kernel, mode, storage and type and per
@@ -2860,6 +2866,9 @@ WIDE_MODES = (("pivot_free", False), ("pivot_free", True), ("pivoted", False), (
 S3D_ROW_LENS = (60, 131)  # nonzeros a row: 95 on average, as the cube's 20,448,316 / 216,024
 # tests/benchmark/test_cavity3d.py at examples/cube.py's 20^3 (BASELINE.md:20)
 CUBE_N, CUBE_RE, CUBE_TARGET, CUBE_NEV, CUBE_NCV = 20, 100.0, -0.2 + 0.3j, 4, 24
+# the baseflow's ramp: 2 steps (examples/cube.py's), a depth cut from
+# test_cavity3d.py's 3 for the script's budget
+CUBE_RAMP = 2
 # the phase's own budgets: the real pivoted Newton factor (21.29 GB band and
 # 10.41 GB of pivoted extras, 31.71 GB) and the pivoted complex64 eigen factor
 # (42.58 GB band and 20.75 GB of extras, 63.33 GB), each band at full width in
@@ -3155,7 +3164,7 @@ def cube_case(device, n: int) -> dict:
 
 def cube_path(dev, errs: dict) -> dict:
     """Phase 10: the lid-driven cube at Re = 100 on ``unit_cube(CUBE_N)``
-    under ``CUBE_ENV``: the banded Newton baseflow (ramped, 3 steps, tol
+    under ``CUBE_ENV``: the banded Newton baseflow (ramped, ``CUBE_RAMP`` steps, tol
     1e-9; real pivoted f32 factors), the eigensystem and ``CUBE_NEV`` pairs
     nearest ``CUBE_TARGET`` (ncv ``CUBE_NCV``; the pivoted complex64
     factor), each a stage, with test_cavity3d.py's gates; then K1/K2 on a
@@ -3179,7 +3188,7 @@ def cube_path(dev, errs: dict) -> dict:
         with plain_loops_forbidden(), last_newton_factor() as last:
             with stage("baseflow", stages):
                 solver = BaseFlowSolver(ctx, mesh, case["bcs_base"], re=CUBE_RE)
-                w = solver.solve(ramp=True, steps=3, tol=1e-9, linear_solver="banded")
+                w = solver.solve(ramp=True, steps=CUBE_RAMP, tol=1e-9, linear_solver="banded")
         log_stage(f"{what}: baseflow", stages["baseflow"])
         gate_baseflow(f"{what} baseflow", solver, stages["baseflow"])
         above = stages["baseflow"]["peak_gb"] - stages["baseflow"]["resident_gb"]
@@ -3815,10 +3824,11 @@ def scm_path(dev, errs: dict) -> dict:
 
 NONSYM_KSPS = ("gmres", "fgmres", "lgmres", "gcr", "bicg", "bcgs", "cgs", "lsqr")
 NONSYM_PCS = ("ilu", "bjacobi")
-NONSYM_MAXITER = 600
+NONSYM_MAXITER = 1000
 SPD_PCS = ("none", "jacobi", "bjacobi", "sor", "ilu", "icc", "gamg", "pmg")
 MEMBRANE_NX = (120, 240)  # bench.py:132's 240 x 240 P2 membrane (231,361 DOFs) and its half
 SPD_MAXITER = 20000
+ILU8_MAXITER = 2000  # the logged CG + ILU(0) at 8 sweeps: about 3x what the converged factor needs
 KSP_TOL = 1e-10
 MEMBRANE_32 = ((2.0, 4.0), 32)  # tests/benchmark/test_vibrating_membrane.py: 32 x 32 P2 on 2 x 4
 
@@ -3915,7 +3925,8 @@ def nonsym_menu(case, mp: dict, J, stages: dict) -> None:
     import torch
     from lsafw_tpu_torch.interop import csr_from_numpy
     from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
-    from lsafw_tpu_torch.ops.sparse import pattern_csr, spmv
+    from lsafw_tpu_torch.ops.bcsr import matvec_of
+    from lsafw_tpu_torch.ops.sparse import pattern_csr
     from lsafw_tpu_torch.solver import ilu as tilu
     from lsafw_tpu_torch.solver.linear import solve
     from lsafw_tpu_torch.solver.precond import apply_pc, block_jacobi_array
@@ -3927,11 +3938,13 @@ def nonsym_menu(case, mp: dict, J, stages: dict) -> None:
     At = A.transpose()
     g = torch.Generator(device=A.device).manual_seed(12)
     b = torch.randn(A.shape[0], generator=g, dtype=torch.float64, device=A.device)
-    mv = (lambda v: spmv(A, v))
+    mv, rmv = matvec_of(A), matvec_of(At)
     t0 = time.time()
     plan = tilu.ILU0Plan.build(pattern_csr(A.pattern))
     t_plan = time.time() - t0
-    _, t_sweeps = synced(lambda: tilu.ilu0_factor_values(plan, A.data))
+    v8, t_sweeps = synced(lambda: tilu.ilu0_factor_values(plan, A.data))
+    if not torch.equal(v8, tilu.ilu0_factor_values(plan, A.data)):
+        raise RuntimeError("phase 12b: two runs of the 8 Chow-Patel sweeps gave different values")
     # the reference's default 8 Chow-Patel sweeps leave the fixed point
     # unconverged on this block: logged, not gated; the menu then runs on
     # the sweep count at which a sweep changes the values by < 1e-10
@@ -3947,9 +3960,10 @@ def nonsym_menu(case, mp: dict, J, stages: dict) -> None:
     inv, t_bj = synced(lambda: block_jacobi_array(A, 64))
     pcs = {"ilu": ilu, "bjacobi": lambda x: apply_pc("bjacobi", inv, x)}
     log(f"phase 12b: the velocity block of phase 3's last Jacobian: {A.shape[0]} rows, "
-        f"{vv.nnz} nonzeros; ILU(0): plan {t_plan:.2f} s on the host ({plan.tr_e.size} "
-        f"triples), 8 sweeps {1e3 * t_sweeps:.2f} ms, {sweeps} sweeps (the last one's change "
-        f"{change:.1e}) {1e3 * t_conv:.2f} ms, one apply (12 CSR products) "
+        f"{vv.nnz} nonzeros; ILU(0): plan {t_plan:.2f} s on the host ({plan.tr_p.size} "
+        f"triples), 8 sweeps {1e3 * t_sweeps:.2f} ms (bit-identical on a second run), "
+        f"{sweeps} sweeps (the last one's change "
+        f"{change:.1e}) {1e3 * t_conv:.2f} ms, one apply (12 S products) "
         f"{cuda_ms(lambda: ilu(b), 10):.3f} ms; block-Jacobi(64): batched inverse "
         f"{1e3 * t_bj:.2f} ms, one apply {cuda_ms(lambda: pcs['bjacobi'](b), 10):.3f} ms")
     done = {}
@@ -3958,7 +3972,7 @@ def nonsym_menu(case, mp: dict, J, stages: dict) -> None:
             name = f"12b {ksp}+{pc}"
             with stage(name, stages):
                 res = solve(mv, b, ksp_type=ksp, tol=KSP_TOL, maxiter=NONSYM_MAXITER, M=pcs[pc],
-                            rmatvec=lambda v: spmv(At, v))
+                            rmatvec=rmv)
             true = true_residual(mv, b, res.x)
             done[(ksp, pc)] = res.converged
             log(f"phase 12b: {ksp} + {pc}{' (unpreconditioned, as PETSc)' if ksp == 'lsqr' else ''}"
@@ -3971,7 +3985,7 @@ def nonsym_menu(case, mp: dict, J, stages: dict) -> None:
         raise RuntimeError(f"phase 12b: GMRES + ILU or BiCGStab + ILU did not converge: {done}")
 
 
-def spd_menu(stages: dict) -> dict:
+def spd_menu(stages: dict) -> tuple[dict, object]:
     """12c: the SPD menu on the P2 membrane stiffness of the JAX package's
     bench grid (``MEMBRANE_NX``): CG with each PC of ``SPD_PCS`` (ILU(0)
     and ICC(0), one factor, on the converged sweep count of
@@ -3981,14 +3995,17 @@ def spd_menu(stages: dict) -> dict:
     true residual <= 1e-8 each; at each size AMG's iterations x 4 < plain
     CG's and pMG's x 3 < Jacobi's; at 240 AMG's at most twice its count at
     120 and pMG's within +6 of its count at 120; pMG one K1 / K2 pivoted
-    f32 x1 launch per V-cycle."""
+    f32 x1 launch per V-cycle.  Returns the iteration counts and the pMG
+    preconditioner at nx = 240 (its coarse factor's kernels are checked
+    after the phase)."""
     import torch
     from lsafw_tpu_torch.fem.spaces import make_scalar_space
     from lsafw_tpu_torch.meshing.mesh import rectangle_mesh
     from lsafw_tpu_torch.models.membrane import assemble_membrane_evp
-    from lsafw_tpu_torch.ops.sparse import pattern_csr, spmv
+    from lsafw_tpu_torch.ops.bcsr import matvec_of
+    from lsafw_tpu_torch.ops.sparse import pattern_csr
     from lsafw_tpu_torch.solver import amg, ilu as tilu, pmg
-    from lsafw_tpu_torch.solver.linear import cg, chebyshev, minres
+    from lsafw_tpu_torch.solver.linear import cg, chebyshev, minres, power_norm
     from lsafw_tpu_torch.solver.precond import block_jacobi, jacobi
 
     its: dict = {}
@@ -4000,7 +4017,7 @@ def spd_menu(stages: dict) -> dict:
         g = torch.Generator(device=K.device).manual_seed(nx)
         b = torch.randn(n, generator=g, dtype=torch.float64, device=K.device)
         b = torch.where(mask_t, torch.zeros_like(b), b)
-        mv = (lambda v, K=K: spmv(K, v))
+        mv = matvec_of(K)
         log(f"phase 12c: nx = {nx}: {n} DOFs, {K.pattern.nnz} nonzeros, assembled in "
             f"{t_asm:.2f} s")
         ilu_plan = None
@@ -4019,6 +4036,12 @@ def spd_menu(stages: dict) -> dict:
                 elif pc in ("ilu", "icc"):  # ICC(0) on an SPD matrix is the ILU(0) factor
                     if ilu_plan is None:
                         ilu_plan = tilu.ILU0Plan.build(pattern_csr(K.pattern))
+                        res8 = cg(mv, b, tol=KSP_TOL, maxiter=ILU8_MAXITER,
+                                  M=tilu.ilu0(K, plan=ilu_plan))
+                        log(f"phase 12c: nx = {nx}: CG + ILU(0) at the reference's 8 sweeps: "
+                            f"converged {res8.converged}, {res8.iterations} iterations, "
+                            f"monitored residual {res8.residual:.2e}, true residual "
+                            f"{true_residual(mv, b, res8.x):.2e} (logged, not gated)")
                         sweeps, change = converged_sweeps(ilu_plan, K)
                     M = tilu.ilu0(K, plan=ilu_plan, factor_sweeps=sweeps)
                 elif pc == "gamg":
@@ -4050,7 +4073,7 @@ def spd_menu(stages: dict) -> dict:
                 extra = f", one apply {cuda_ms(lambda: M(b), 5):.3f} ms"
                 if pc in ("ilu", "icc"):
                     extra += (f", {sweeps} Chow-Patel sweeps (the last one's change "
-                              f"{change:.1e}; {ilu_plan.tr_e.size} triples)")
+                              f"{change:.1e}; {ilu_plan.tr_p.size} triples)")
             log(f"phase 12c: nx = {nx}: CG + {pc}: converged {res.converged}, {res.iterations} "
                 f"iterations, true residual {true:.2e}, {st['seconds']:.3f} s; build "
                 f"{t_build:.3f} s{extra}")
@@ -4077,16 +4100,9 @@ def spd_menu(stages: dict) -> dict:
         # by 12 inverse power iterations, each a pMG-preconditioned CG solve
         # (x 0.95)
         t0 = time.time()
-        v = b / torch.linalg.vector_norm(b)
-        for _ in range(30):
-            w = mv(v)
-            lmax = float(torch.linalg.vector_norm(w))
-            v = w / lmax
-        v = b / torch.linalg.vector_norm(b)
-        for _ in range(12):
-            w = cg(mv, v, tol=1e-10, maxiter=SPD_MAXITER, M=mg.apply).x
-            lmin = 1.0 / float(torch.linalg.vector_norm(w))
-            v = w * lmin
+        lmax = power_norm(mv, b, 30)
+        lmin = 1.0 / power_norm(
+            lambda v, mg=mg: cg(mv, v, tol=1e-10, maxiter=SPD_MAXITER, M=mg.apply).x, b, 12)
         t_bounds = time.time() - t0
         name = f"12c nx={nx} chebyshev"
         with stage(name, stages):
@@ -4098,7 +4114,7 @@ def spd_menu(stages: dict) -> dict:
             f"residual {true:.2e}, {stages[name]['seconds']:.3f} s")
         if not (res.converged and true <= 1e-8):
             raise RuntimeError(f"phase {name}: converged {res.converged}, true {true:.2e}")
-        del K, mg, M
+        del K, M
     for nx in MEMBRANE_NX:
         if not (4 * its[(nx, "gamg")] < its[(nx, "none")]
                 and 3 * its[(nx, "pmg")] < its[(nx, "jacobi")]):
@@ -4112,17 +4128,19 @@ def spd_menu(stages: dict) -> dict:
         f"{its[(hi, 'gamg')]} at {hi} against {its[(lo, 'gamg')]} at {lo} (at most x 2) and "
         f"plain CG's {its[(hi, 'none')]} (x 4 under it); pMG {its[(hi, 'pmg')]} against "
         f"{its[(lo, 'pmg')]} (+6 at most) and Jacobi's {its[(hi, 'jacobi')]} (x 3 under it)")
-    return its
+    return its, mg
 
 
-def transforms_path(stages: dict) -> None:
+def transforms_path(stages: dict) -> list:
     """12d: the other transforms on the reference's membrane
     (``MEMBRANE_32``): FILTER on K alone against SINVERT's three smallest
     on the same K (rel 1e-8); SHIFT on (K, M) restricted to the free DOFs
     (M is zero on its Dirichlet rows, and SHIFT needs M^-1): the three
     largest, residuals <= 1e-8 (|lambda| + 1), M^-1 a real band factor on
     the card (K1 / K2 pivoted f32 x2 once per band solve); SHELL wrapping
-    the SINVERT apply at 1.0: the same five pairs as SINVERT, 1e-10."""
+    the SINVERT apply at 1.0: the same five pairs as SINVERT, 1e-10.
+    Returns (label, band factor) of SINVERT at 1.0 (SHELL's factor) and
+    of SHIFT's M."""
     import torch
     from lsafw_tpu_torch.interop import csr_from_numpy
     from lsafw_tpu_torch.meshing.mesh import rectangle_mesh
@@ -4195,7 +4213,7 @@ def transforms_path(stages: dict) -> None:
         es.set_st_type(STType.SINVERT)
         es.set_target(1.0)
 
-    si5, _ = run("12d sinvert", K, M, cfg5, si1)
+    si5, es_i = run("12d sinvert", K, M, cfg5, si1)
     op = ShiftInvertOperator(K, M, 1.0, inner_tol=1e-10)
 
     def shell(es):
@@ -4219,23 +4237,52 @@ def transforms_path(stages: dict) -> None:
             or not s_orig == st["matvecs"] > 0:
         raise RuntimeError(f"phase 12d filter: band solves {st['solves']}, {s_orig} S launches "
                            f"for {st['matvecs']} matvecs: {nonzero(st['launches'])}")
+    return [(", 32x32 membrane SINVERT / SHELL (phase 12d)", es_i.operator.device_op.blu),
+            (", 32x32 membrane SHIFT's M (phase 12d)", es_s.operator.mop.blu)]
 
 
-def krylov_path(case, mp: dict, J) -> dict:
+def factor_kernels(factors: list, errs: dict, dev) -> list:
+    """G's permute forms in the real types on each (label, real band
+    factor) pair's permutation, then K1/K2 on the factor
+    (:func:`band_kernels`, one call of each plain loop): each held
+    against its plain version.  Returns the kernels-line entries."""
+    import torch
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+
+    real = {(f, t) for f in ("in", "out") for t in sc.PERMUTES[f] if "f32" in t}
+    for label, f in factors:
+        n = f.iperm.numel()
+        g = torch.Generator(device=dev).manual_seed(12)
+        br = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+        bc = torch.complex(torch.randn(n, generator=g, device=dev, dtype=torch.float64),
+                           torch.randn(n, generator=g, device=dev, dtype=torch.float64))
+        check_permutes(permute_cases(br, bc, f.perm, f.iperm, f.nb, real),
+                       f"on the permutation of{label.split(',', 1)[1]}")
+    return band_kernels(factors, errs, dev, plain_reps=1)
+
+
+def krylov_path(case, mp: dict, J, errs: dict, dev) -> dict:
     """Phase 12 (after phase 5): 12a on phase 3's (A, M), 12b on its last
     Jacobian, 12c and 12d on the membranes; each stage's launches read on
-    its own and summed."""
+    its own and summed.  Then G and K1/K2 on the phase's own factors
+    (pMG's coarse P1 factor at nx = 240, 12d's SINVERT / SHELL and SHIFT
+    M factors), each against its plain version."""
     stages: dict = {}
     t0 = time.time()
     with plain_loops_forbidden():
         gmres_si_path(mp, stages)
         nonsym_menu(case, mp, J, stages)
-        spd_menu(stages)
-        transforms_path(stages)
+        _, mg = spd_menu(stages)
+        factors = transforms_path(stages)
     seconds = time.time() - t0
     launches = {k: sum(st["launches"][k] for st in stages.values()) for k in counts()}
     log(f"phase 12: {seconds:.1f} s (budget 60 s); launches {nonzero(launches)}")
-    return dict(launches=launches, seconds=seconds, stages=stages)
+    t0 = time.time()
+    coarse = (f", pMG's coarse P1 at nx = {MEMBRANE_NX[-1]} (phase 12c)", mg.coarse)
+    kernels = factor_kernels([coarse] + factors, errs, dev)
+    log(f"phase 12: G and K1/K2 on the phase's factors, checked and timed in "
+        f"{time.time() - t0:.1f} s")
+    return dict(launches=launches, seconds=seconds, stages=stages, kernels=kernels)
 
 
 def main() -> int:
@@ -4453,7 +4500,8 @@ def main() -> int:
         f"{mp['per_gcr']:.2f} of the port's kernels per GCR iteration")
 
     p5 = sensitivity_path(case, mp)
-    p12 = krylov_path(case, mp, p3c["J"])
+    p12 = krylov_path(case, mp, p3c["J"], errs, dev)
+    kernels += p12.pop("kernels")
     del p12["stages"]
     torch.cuda.empty_cache()
     mp_launches, pf_launches, p3c_launches = mp["launches"], pf["launches"], p3c["launches"]

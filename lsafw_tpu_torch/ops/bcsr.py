@@ -38,7 +38,7 @@ import scipy.sparse as sp
 import torch
 
 from lsafw_tpu_torch.ops import spmv_cuda
-from lsafw_tpu_torch.ops.sparse import pattern_csr, per_pattern
+from lsafw_tpu_torch.ops.sparse import pattern_csr, per_pattern, spmv
 from lsafw_tpu_torch.solver.band import pattern_permutation, rcm_permutation
 from lsafw_tpu_torch.utils.logging import get_logger
 
@@ -219,3 +219,11 @@ def operator_for_budget(A) -> BCSROperator | None:
                     need / 1e9)
         return None
     return BCSROperator.from_csr(A, plan)
+
+
+def matvec_of(A):
+    """x -> A x for a square CSR ``A``: one S launch in the original order
+    on :func:`operator_for_budget`'s operator, or the CSR product where
+    that is over budget."""
+    op = operator_for_budget(A)
+    return op.matvec if op is not None else (lambda x: spmv(A, x))

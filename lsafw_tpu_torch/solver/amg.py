@@ -6,9 +6,11 @@ host with scipy, as the reference builds it (strength graph, greedy
 aggregation, piecewise-constant tentative prolongator, one Jacobi
 smoothing pass, Galerkin coarse operators, recursively; a dense
 pseudo-inverse on the coarsest level).  The V-cycle runs on the device:
-damped-Jacobi smoothing, CSR residual and transfer products
-(:func:`~lsafw_tpu_torch.ops.sparse.spmv`; P and R are rectangular) and
-one dense product with the coarse inverse.
+damped-Jacobi smoothing and residuals with each level's operator through
+S (:func:`~lsafw_tpu_torch.ops.bcsr.matvec_of`), the transfer products
+with P and R, which are rectangular, as CSR products
+(:func:`~lsafw_tpu_torch.ops.sparse.spmv`), and one dense product with
+the coarse inverse.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import scipy.sparse as sp
 import torch
 
 from lsafw_tpu_torch.interop import csr_from_numpy
+from lsafw_tpu_torch.ops.bcsr import matvec_of
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
 from lsafw_tpu_torch.utils.logging import get_logger
 
@@ -93,6 +96,7 @@ class AMGLevel:
     P: CSRMatrix  # prolongation from the next coarser level
     R: CSRMatrix  # restriction to it, P^T
     dinv: torch.Tensor  # the damped-Jacobi smoother's inverse diagonal
+    mv: object  # x -> A x through S
 
 
 @dataclass(eq=False)
@@ -129,7 +133,7 @@ def build_amg(A: CSRMatrix, *, theta: float = 0.08, coarse_size: int = 200,
         Sc = sp.csr_matrix(R @ S @ P)
         Sc.sort_indices()
         levels.append(AMGLevel(A=Af, P=_on_device(P, dev), R=_on_device(R, dev),
-                               dinv=torch.as_tensor(1.0 / d, device=dev)))
+                               dinv=torch.as_tensor(1.0 / d, device=dev), mv=matvec_of(Af)))
         S = Sc
         Af = _on_device(S, dev)
     logger.info("SA-AMG: %d levels, coarsest n=%d (finest n=%d)", len(levels) + 1, S.shape[0],
@@ -144,7 +148,7 @@ def _vcycle(h: AMGHierarchy, r: torch.Tensor) -> torch.Tensor:
 
     def smooth(lv: AMGLevel, b, x):
         for _ in range(h.smooth_steps):
-            x = x + h.omega * lv.dinv * (b - spmv(lv.A, x))
+            x = x + h.omega * lv.dinv * (b - lv.mv(x))
         return x
 
     def cycle(level: int, b):
@@ -152,7 +156,7 @@ def _vcycle(h: AMGHierarchy, r: torch.Tensor) -> torch.Tensor:
             return h.coarse_inv.to(b.dtype) @ b
         lv = h.levels[level]
         x = smooth(lv, b, torch.zeros_like(b))
-        rc = spmv(lv.R, b - spmv(lv.A, x))
+        rc = spmv(lv.R, b - lv.mv(x))
         x = x + spmv(lv.P, cycle(level + 1, rc))
         return smooth(lv, b, x)
 

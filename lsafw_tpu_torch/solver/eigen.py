@@ -56,13 +56,14 @@ from lsafw_tpu_torch import resolve_device
 from lsafw_tpu_torch.ops.bcsr import (
     BCSROperator,
     BCSRShiftedOp,
+    matvec_of,
     operator_for_budget,
     plan_for_pattern,
 )
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
 from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
-from lsafw_tpu_torch.solver.linear import gmres
+from lsafw_tpu_torch.solver.linear import gmres, power_norm
 from lsafw_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -264,6 +265,11 @@ def bcsr_budget(device: torch.device, held: int = 0) -> float:
                _free_device_bytes(device, held) - 3.5e9)
 
 
+# the refinement's iteration cap, and the trial GCR's where the Richardson
+# bound refuses (:func:`calibrate`)
+REFINE_CAP, TRIAL_CAP = 300, 60
+
+
 class FactorUnusable(RuntimeError):
     """The band factor at a shift is non-finite or preconditions too weakly
     (for instance a shift on an exact eigenvalue, where C is singular to
@@ -271,8 +277,8 @@ class FactorUnusable(RuntimeError):
     refinement that misses its tolerance (:func:`refine_checked`)."""
 
 
-def calibrate(op: BandedSIOp, n: int, inner_tol: float, *, real: bool, cap: int = 300,
-              trial_cap: int = 60) -> tuple[float, int, int | None]:
+def calibrate(op: BandedSIOp, n: int, inner_tol: float, *, real: bool, cap: int = REFINE_CAP,
+              trial_cap: int = TRIAL_CAP) -> tuple[float, int, int | None]:
     """(rho, refinement cap, trial GCR iterations or None) of the band
     factor of ``op``: rho, the contraction of one refinement step on a
     unit vector from a seed (real where ``real``), gives the Richardson
@@ -348,8 +354,8 @@ class ShiftInvertOperator:
     refinement matvecs on the assembled CSR, and the element operator is
     not ported."""
 
-    _CAP = 300
-    _TRIAL_CAP = 60
+    _CAP = REFINE_CAP
+    _TRIAL_CAP = TRIAL_CAP
 
     def __init__(self, A: CSRMatrix, M: CSRMatrix | None, sigma: complex, *,
                  method: str = "banded", inner_tol: float = 1e-10, inner_maxiter: int = 2000,
@@ -513,13 +519,6 @@ class ShiftInvertOperator:
         return self.sigma + 1.0 / theta
 
 
-def _matvec_of(A: CSRMatrix):
-    """x -> A x through S (the permuted-CSR operator, original order) where
-    its values fit ``LSAFW_BCSR_MEM_GB``, else the CSR product."""
-    op = operator_for_budget(A)
-    return op.matvec if op is not None else (lambda x: spmv(A, x))
-
-
 def zero_rows(M: CSRMatrix) -> int:
     """The number of rows of M without a nonzero value."""
     rows = M.idx()["row_ids"]
@@ -540,13 +539,13 @@ class PlainOperator:
     before any factor work (the reference's host LU of M raises there as
     well).  No host LU runs."""
 
-    _CAP = 300
-    _TRIAL_CAP = 60
+    _CAP = REFINE_CAP
+    _TRIAL_CAP = TRIAL_CAP
 
     def __init__(self, A: CSRMatrix, M: CSRMatrix | None = None, *,
                  inner_tol: float = 1e-10) -> None:
         self.A, self.M = A, M
-        self._A = _matvec_of(A)
+        self._A = matvec_of(A)
         self._inner_tol = inner_tol
         self.applies = 0
         self.mop = None
@@ -615,16 +614,11 @@ class ChebyshevFilterOperator:
                  bound_its: int = 30) -> None:
         self.A = A
         self.degree = int(degree)
-        self._A = _matvec_of(A)
+        self._A = matvec_of(A)
         self.applies = 0
         v = torch.as_tensor(np.random.default_rng(5).standard_normal(A.shape[0]),
                             device=A.device)
-        lam_max = 0.0
-        for _ in range(bound_its):
-            w = self._A(v)
-            lam_max = float(torch.linalg.vector_norm(w))
-            v = w / lam_max
-        lam_max *= 1.05
+        lam_max = 1.05 * power_norm(self._A, v, bound_its)
         lo, hi = (float(cutoff), lam_max) if smallest else (-lam_max, float(cutoff))
         self.lam_max = lam_max
         self._e = (hi + lo) / 2.0

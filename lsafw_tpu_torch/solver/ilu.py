@@ -6,13 +6,15 @@ SOR roles):
 * the factor is the Chow-Patel fixed-point ILU(0) (SIAM J. Sci. Comput.
   37(2), 2015): every nonzero's equation (LU)_ij = a_ij on the pattern
   is relaxed at once; a sweep is one gather of the products l_ik u_kj
-  over the pattern-intersection triples (i, k, j) and one ``index_add_``
-  onto their target slots.  The triples are enumerated on the host once
-  per pattern (:meth:`ILU0Plan.build`); the sweeps run on the values'
-  device.
+  over the pattern-intersection triples (i, k, j) and one segmented sum
+  over the runs of triples that share a target slot (sorted at plan
+  time; no atomics, so the same values give the same factor on every
+  run).  The triples are enumerated on the host once per pattern
+  (:meth:`ILU0Plan.build`); the sweeps run on the values' device.
 * the triangular applies are Jacobi sweeps: L y = r with unit lower L
-  iterates y <- r - L_strict y, a CSR product per sweep, truncated to a
-  fixed count.
+  iterates y <- r - L_strict y, one S product per sweep
+  (:func:`~lsafw_tpu_torch.ops.bcsr.matvec_of`; L and U share A's
+  pattern and its plan), truncated to a fixed count.
 
 ICC(0) on an SPD matrix is the same factor.  SSOR takes L, U and D from
 A itself.  Zero diagonals (the pressure block of a saddle-point
@@ -27,7 +29,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from lsafw_tpu_torch.ops.sparse import CSRMatrix, pattern_csr, spmv
+from lsafw_tpu_torch.ops.bcsr import matvec_of
+from lsafw_tpu_torch.ops.sparse import CSRMatrix, pattern_csr
 
 
 @dataclass(eq=False)
@@ -38,6 +41,7 @@ class ILU0Plan:
     n: int
     nnz: int
     tr_e: np.ndarray  # (ntr,) target slot of each intersection triple, sorted
+    tr_len: np.ndarray  # (nnz,) the number of triples of each target slot
     tr_p: np.ndarray  # (ntr,) slot of l_ik
     tr_q: np.ndarray  # (ntr,) slot of u_kj
     is_lower: np.ndarray  # (nnz,) bool: strictly-lower slot
@@ -95,7 +99,8 @@ class ILU0Plan:
             e_tr, p_tr, q_tr = pos[keep], p_all[keep], q_all[keep]
             order = np.argsort(e_tr, kind="stable")
             e_tr, p_tr, q_tr = e_tr[order], p_tr[order], q_tr[order]
-        return cls(n=n, nnz=nnz, tr_e=e_tr, tr_p=p_tr, tr_q=q_tr, is_lower=lower,
+        return cls(n=n, nnz=nnz, tr_e=e_tr, tr_len=np.bincount(e_tr, minlength=nnz),
+                   tr_p=p_tr, tr_q=q_tr, is_lower=lower,
                    diag_of_col=dpos[cols], diag_slots=dpos)
 
     def on(self, device) -> dict[str, torch.Tensor]:
@@ -104,7 +109,7 @@ class ILU0Plan:
         hit = self._device.get(key)
         if hit is None:
             hit = {k: torch.as_tensor(getattr(self, k), device=device)
-                   for k in ("tr_e", "tr_p", "tr_q", "is_lower", "diag_of_col", "diag_slots")}
+                   for k in ("tr_len", "tr_p", "tr_q", "is_lower", "diag_of_col", "diag_slots")}
             self._device[key] = hit
         return hit
 
@@ -112,14 +117,16 @@ class ILU0Plan:
 def ilu0_factor_values(plan: ILU0Plan, a: torch.Tensor, *, sweeps: int = 8) -> torch.Tensor:
     """Chow-Patel fixed-point sweeps on the values' device.  Returns the
     factor in the CSR slot layout: strictly lower slots hold l_ij (unit
-    diagonal implicit), diagonal and upper slots u_ij."""
+    diagonal implicit), diagonal and upper slots u_ij.  Each sweep sums a
+    slot's products in the plan's order (a segmented sum, no atomics)."""
     ix = plan.on(a.device)
     a = a.clone()
     d = a[ix["diag_slots"]]
     a[ix["diag_slots"]] = torch.where(d.abs() > 0, d, torch.ones_like(d))
     vals = a
     for _ in range(sweeps):
-        s = torch.zeros_like(a).index_add_(0, ix["tr_e"], vals[ix["tr_p"]] * vals[ix["tr_q"]])
+        s = torch.segment_reduce(vals[ix["tr_p"]] * vals[ix["tr_q"]], "sum",
+                                 lengths=ix["tr_len"], unsafe=True)
         new = a - s
         ujj = vals[ix["diag_of_col"]]
         ujj = torch.where(ujj.abs() > 1e-300, ujj, torch.ones_like(ujj))
@@ -127,16 +134,16 @@ def ilu0_factor_values(plan: ILU0Plan, a: torch.Tensor, *, sweeps: int = 8) -> t
     return vals
 
 
-def _tri_apply(L: CSRMatrix, U: CSRMatrix, dinv: torch.Tensor, r: torch.Tensor, *,
-               sweeps: int) -> torch.Tensor:
-    """x ~= U^-1 L^-1 r by fixed Jacobi triangular sweeps (L unit lower,
-    held strictly; U strictly upper with ``dinv`` = 1 / diag(U))."""
+def _tri_apply(L, U, dinv: torch.Tensor, r: torch.Tensor, *, sweeps: int) -> torch.Tensor:
+    """x ~= U^-1 L^-1 r by fixed Jacobi triangular sweeps (the products
+    ``L`` with the unit lower factor, held strictly, and ``U`` with the
+    strictly upper one; ``dinv`` = 1 / diag(U))."""
     y = r
     for _ in range(sweeps):
-        y = r - spmv(L, y)
+        y = r - L(y)
     x = dinv * y
     for _ in range(sweeps):
-        x = dinv * (y - spmv(U, x))
+        x = dinv * (y - U(x))
     return x
 
 
@@ -152,7 +159,7 @@ def ilu0(A: CSRMatrix, *, factor_sweeps: int = 8, apply_sweeps: int = 6,
     uvals = torch.where(ix["is_lower"], zero, fvals)
     dinv = 1.0 / fvals[ix["diag_slots"]]
     uvals[ix["diag_slots"]] = 0.0
-    L, U = CSRMatrix(A.pattern, lvals), CSRMatrix(A.pattern, uvals)
+    L, U = matvec_of(CSRMatrix(A.pattern, lvals)), matvec_of(CSRMatrix(A.pattern, uvals))
 
     def apply(r):
         return _tri_apply(L, U, dinv, r, sweeps=apply_sweeps)
@@ -167,8 +174,8 @@ def ssor(A: CSRMatrix, *, omega: float = 1.0, sweeps: int = 6):
     ix = A.idx()
     rows, cols = ix["row_ids"], ix["col"]
     zero = torch.zeros_like(A.data)
-    L = CSRMatrix(A.pattern, torch.where(cols < rows, A.data, zero))
-    U = CSRMatrix(A.pattern, torch.where(cols > rows, A.data, zero))
+    L = matvec_of(CSRMatrix(A.pattern, torch.where(cols < rows, A.data, zero)))
+    U = matvec_of(CSRMatrix(A.pattern, torch.where(cols > rows, A.data, zero)))
     d = A.diagonal()
     d = torch.where(d.abs() > 0, d, torch.ones_like(d))
     w = float(omega)
@@ -177,11 +184,11 @@ def ssor(A: CSRMatrix, *, omega: float = 1.0, sweeps: int = 6):
     def apply(r):
         y = dws_inv * r
         for _ in range(sweeps):
-            y = dws_inv * (r - spmv(L, y))
+            y = dws_inv * (r - L(y))
         y = ((2.0 - w) / w) * d * y
         x = dws_inv * y
         for _ in range(sweeps):
-            x = dws_inv * (y - spmv(U, x))
+            x = dws_inv * (y - U(x))
         return x
 
     return apply

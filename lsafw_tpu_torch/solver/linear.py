@@ -80,6 +80,18 @@ def _result(x, k, res, tol, **kw) -> SolveResult:
     return SolveResult(x, int(k), float(res), bool(res <= tol), **kw)
 
 
+def power_norm(matvec: Matvec, v: torch.Tensor, its: int) -> float:
+    """||A v|| after ``its`` normalised power iterations from ``v``: the
+    largest eigenvalue's magnitude of a Hermitian A, from below."""
+    v = v / torch.linalg.vector_norm(v)
+    lam = 0.0
+    for _ in range(its):
+        w = matvec(v)
+        lam = float(torch.linalg.vector_norm(w))
+        v = w / lam
+    return lam
+
+
 # ---------------------------------------------------------------------------
 # CG
 # ---------------------------------------------------------------------------
@@ -670,14 +682,14 @@ def solve_csr(A, b: torch.Tensor, pc_arr: torch.Tensor | None = None, *,
     """Sparse solve of the CSRMatrix ``A`` with a preconditioner given as
     (``pc_kind``, ``pc_arr``) (:func:`~lsafw_tpu_torch.solver.precond.apply_pc`:
     ``"none"``, ``"jacobi"``, ``"bjacobi"``); BiCG and LSQR take A's
-    transpose."""
-    from lsafw_tpu_torch.ops.sparse import spmv
+    transpose.  The products with A (and A^T) run through S
+    (:func:`~lsafw_tpu_torch.ops.bcsr.matvec_of`)."""
+    from lsafw_tpu_torch.ops.bcsr import matvec_of
     from lsafw_tpu_torch.solver.precond import apply_pc
 
     M = None if pc_kind == "none" else (lambda x: apply_pc(pc_kind, pc_arr, x))
     rmatvec = None
     if KSPType.from_string(ksp_type) in (KSPType.BICG, KSPType.LSQR):
-        At = A.transpose()
-        rmatvec = lambda v: spmv(At, v)  # noqa: E731
-    return solve(lambda v: spmv(A, v), b, ksp_type=ksp_type, tol=tol, maxiter=maxiter,
+        rmatvec = matvec_of(A.transpose())
+    return solve(matvec_of(A), b, ksp_type=ksp_type, tol=tol, maxiter=maxiter,
                  restart=restart, M=M, rmatvec=rmatvec)

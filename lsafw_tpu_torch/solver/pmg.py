@@ -13,7 +13,8 @@ for general simplicial meshes): a two-level V-cycle.
   :func:`~lsafw_tpu_torch.solver.band.factor_auto`, a real factor): each
   V-cycle's coarse solve is one band solve, on the card one K1 / K2
   launch pair with G's permute-in and permute-out.
-* Smoothing is damped Jacobi with the fine CSR matvec.
+* Smoothing is damped Jacobi, its fine products through S
+  (:func:`~lsafw_tpu_torch.ops.bcsr.matvec_of`).
 
 The band's nb defaults to 128 (the card's kernels are built for 128 and
 256; the reference's default is 64).
@@ -29,7 +30,8 @@ import torch
 
 from lsafw_tpu_torch.fem.elements import ElementFamily
 from lsafw_tpu_torch.interop import csr_from_numpy
-from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
+from lsafw_tpu_torch.ops.bcsr import matvec_of
+from lsafw_tpu_torch.ops.sparse import CSRMatrix
 from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
 from lsafw_tpu_torch.utils.logging import get_logger
 
@@ -42,6 +44,7 @@ class PMGPreconditioner:
     P1 coarse solve, nodal transfers."""
 
     fine: CSRMatrix
+    fine_mv: object  # x -> fine x through S
     inv_diag: torch.Tensor  # (n2,) fine Jacobi inverse diagonal
     e0: torch.Tensor  # (ne,) each edge's first vertex
     e1: torch.Tensor  # (ne,) and its second
@@ -70,14 +73,14 @@ class PMGPreconditioner:
 
     def _smooth(self, x, b):
         for _ in range(self.smooth_steps):
-            x = x + self.omega * self.inv_diag * (b - spmv(self.fine, x))
+            x = x + self.omega * self.inv_diag * (b - self.fine_mv(x))
         return x
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """One V-cycle approximating fine^-1 r."""
         zero = torch.zeros((), dtype=r.dtype, device=r.device)
         x = self._smooth(torch.zeros_like(r), r)
-        res = r - spmv(self.fine, x)
+        res = r - self.fine_mv(x)
         r1 = torch.where(self.bc1, zero, self.restrict(torch.where(self.bc2, zero, res)))
         e = torch.where(self.bc1, zero, self.coarse.solve(r1))
         x = x + torch.where(self.bc2, zero, self.prolong(e))
@@ -133,7 +136,7 @@ def build_pmg_pc(space2, A2: CSRMatrix, bc_mask2: np.ndarray, *, omega: float = 
     inv_diag = torch.where(d.abs() > 0, 1.0 / torch.where(d == 0, torch.ones_like(d), d),
                            torch.ones_like(d))
     return PMGPreconditioner(
-        fine=A2, inv_diag=inv_diag, e0=torch.as_tensor(e0, device=dev),
+        fine=A2, fine_mv=matvec_of(A2), inv_diag=inv_diag, e0=torch.as_tensor(e0, device=dev),
         e1=torch.as_tensor(e1, device=dev), bc2=torch.as_tensor(bc2, device=dev),
         bc1=torch.as_tensor(bc1, device=dev), coarse=lu, coarse_matrix=A1, nv=nv, bs=bs,
         omega=omega, smooth_steps=smooth_steps)

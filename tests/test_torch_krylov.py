@@ -268,6 +268,71 @@ def test_ilu0_factor_values_match_jax(ns):
     assert np.abs(tv - jv).max() <= 1e-12 * np.abs(jv).max()
 
 
+def test_ilu0_sweep_is_a_segmented_sum(ns):
+    """``tr_len`` counts each slot's run of triples in ``tr_e``; one sweep
+    equals the scatter-add of the same products onto their slots (rel
+    1e-14), and eight sweeps are bit-identical on a second call."""
+    _, _, A, _, _, _ = ns
+    plan = tilu.ILU0Plan.build(sp.csr_matrix(
+        (np.ones(A.pattern.nnz), A.pattern.indices, A.pattern.indptr), shape=A.shape))
+    assert np.array_equal(plan.tr_len, np.bincount(plan.tr_e, minlength=plan.nnz))
+    a = A.data.clone()
+    d = a[plan.diag_slots]
+    a[plan.diag_slots] = torch.where(d.abs() > 0, d, torch.ones_like(d))
+    tr_e, tr_p, tr_q = (torch.as_tensor(getattr(plan, k)) for k in ("tr_e", "tr_p", "tr_q"))
+    new = a - torch.zeros_like(a).index_add_(0, tr_e, a[tr_p] * a[tr_q])
+    ujj = a[plan.diag_of_col]
+    ujj = torch.where(ujj.abs() > 1e-300, ujj, torch.ones_like(ujj))
+    ref = torch.where(torch.as_tensor(plan.is_lower), new / ujj, new)
+    got = tilu.ilu0_factor_values(plan, A.data, sweeps=1)
+    assert float((got - ref).abs().max()) <= 1e-14 * float(ref.abs().max())
+    assert torch.equal(tilu.ilu0_factor_values(plan, A.data),
+                       tilu.ilu0_factor_values(plan, A.data))
+
+
+def test_square_products_go_through_s(ns, monkeypatch):
+    """ILU(0), SSOR, ``solve_csr`` (A and A^T), the AMG levels' smoothing
+    and residuals and the pMG fine operator apply their square operators
+    through S (``spmv_cuda.csr_spmv``); the CSR product serves AMG's
+    rectangular transfers alone."""
+    from lsafw_tpu_torch.ops import bcsr, spmv_cuda
+    from lsafw_tpu_torch.solver.linear import solve_csr
+
+    calls = {"S": 0, "csr": []}
+    csr_spmv = spmv_cuda.csr_spmv
+
+    def s_counted(*args, **kw):
+        calls["S"] += 1
+        return csr_spmv(*args, **kw)
+
+    def csr_counted(M, x):
+        calls["csr"].append(M.shape)
+        return M.torch_csr() @ x
+
+    monkeypatch.setattr(spmv_cuda, "csr_spmv", s_counted)
+    for mod in (bcsr, tamg):
+        monkeypatch.setattr(mod, "spmv", csr_counted)
+    _, _, A, _, _, _ = ns
+    b = torch.as_tensor(np.random.default_rng(3).standard_normal(A.shape[0]))
+    tilu.ilu0(A, apply_sweeps=2)(b)
+    tilu.ssor(A, sweeps=2)(b)
+    assert calls["S"] == 8  # two sweeps with L and two with U, each
+    res = solve_csr(A, b, ksp_type="bicg", maxiter=3)
+    assert calls["S"] >= 8 + 2 * res.iterations and not calls["csr"]
+    S = ref_amg._laplacian_2d(24)
+    h = tamg.build_amg(_port_csr(S), coarse_size=100)
+    calls["S"] = 0
+    tamg._vcycle(h, torch.as_tensor(np.random.default_rng(4).standard_normal(S.shape[0])))
+    assert calls["S"] == 5 * len(h.levels)  # 2 + 2 smoothing steps and 1 residual a level
+    assert calls["csr"] and all(m != n for m, n in calls["csr"])
+    mesh = rectangle_mesh((0.0, 0.0), (1.0, 1.0), 4, 4)
+    K, _, mask = assemble_membrane_evp(mesh, device="cpu")
+    pc = tpmg.build_pmg_pc(make_scalar_space(mesh, "p2"), K, mask, nb=128)
+    calls["S"] = 0
+    pc.apply(torch.as_tensor(np.where(mask, 0.0, 1.0)))
+    assert calls["S"] == 2 * pc.smooth_steps + 1
+
+
 def _same(a: sp.spmatrix, b: sp.spmatrix) -> bool:
     a, b = sp.csr_matrix(a), sp.csr_matrix(b)
     return a.shape == b.shape and (abs(a - b).max() == 0 if (a.nnz or b.nnz) else True)
