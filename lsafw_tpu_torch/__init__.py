@@ -19,7 +19,12 @@ Stuart-Landau expansion at the Hopf point with its forced solves on
 the band factors (``wnl``).  The same path runs on tetrahedral meshes
 (``meshing.mesh.box_mesh``, ``unit_cube``; ``meshing.geometries``'
 ``distmesh3d``, the 3D cylinder and the backward-facing step in 2D and
-3D) with 3D facet integrals.  It imports nothing of the JAX package.
+3D) with 3D facet integrals.  The structured path (stencil operators,
+multigrid V-cycles, LOBPCG: ``ops.stencil``, ``solver.multigrid``,
+``solver.power``), the element operator (``ops.elementop``) and the
+nested two-grid eigen refinement (``solver.eigen.nested_eigenpair``)
+run on the same kernels wherever they gather, solve a band or multiply
+a CSR.  It imports nothing of the JAX package.
 ``solver/direct.py`` keeps host SuperLU for
 ``linear_solver="lu"`` and the shift-invert ``method="lu"``, which run
 only when asked for.

@@ -142,7 +142,10 @@ class ResolventSolver(_EnergyPair):
         method: the shift-invert method, ``"banded"`` (the device band
             factor; the default) or ``"lu"`` (a host SuperLU, asked for
             only; the reference's default).
-        elements: accepted and ignored, as by ``ShiftInvertOperator``.
+        elements: optional ``(cell_dofs, A_el, M_el, bc_mask)``, the
+            element matrices of (A, M): the direct operator takes them as
+            its refinement matvecs where the fused S operator does not fit
+            (``ShiftInvertOperator``'s ``elements``); the adjoint has none.
         device: the device A and M live on; the default ``"cuda"``
             raises without a usable GPU unless ``"cpu"`` is passed.
 
@@ -154,12 +157,14 @@ class ResolventSolver(_EnergyPair):
     def __init__(self, A: CSRMatrix, M: CSRMatrix, num_velocity_dofs: int, dirichlet_mask, *,
                  method: str = "banded", elements=None, device="cuda") -> None:
         super().__init__(A, M, num_velocity_dofs, dirichlet_mask, method, device)
+        self._elements = elements
 
     def _si_pair(self, sigma: complex):
         """(direct, adjoint) shift-invert operators for C = sigma M - A
         (harmonic forcing: sigma = i omega; pseudospectra: any z)."""
         sigma = complex(sigma)
-        si1 = ShiftInvertOperator(self.A, self.M, sigma, method=self.method)
+        si1 = ShiftInvertOperator(self.A, self.M, sigma, method=self.method,
+                                  elements=self._elements)
         si2 = ShiftInvertOperator(self._At, self._Mt, np.conj(sigma), method=self.method)
         return si1, si2
 

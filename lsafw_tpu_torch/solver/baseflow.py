@@ -30,7 +30,7 @@ from lsafw_tpu_torch.models.navier_stokes import (
 from lsafw_tpu_torch.solver.direct import direct_solve
 from lsafw_tpu_torch.solver.band import mark_bf16_unstable, plan_for_csr
 from lsafw_tpu_torch.solver.linear import solve_csr
-from lsafw_tpu_torch.solver.precond import block_jacobi_array
+from lsafw_tpu_torch.solver.precond import block_jacobi
 from lsafw_tpu_torch.solver.newton import NewtonResult, NewtonSolver, banded_solve, new_stats
 from lsafw_tpu_torch.utils.logging import get_logger, timed
 
@@ -67,8 +67,8 @@ class BaseFlowSolver:
                                    f"{res.residual:.2e})")
             return res.x.cpu().numpy()
         if linear_solver != "lu":
-            res = solve_csr(A, b, block_jacobi_array(A, 64), ksp_type=linear_solver,
-                            pc_kind="bjacobi", tol=1e-10, maxiter=5000)
+            res = solve_csr(A, b, M=block_jacobi(A, 64), ksp_type=linear_solver, tol=1e-10,
+                            maxiter=5000)
             if not res.converged:
                 logger.warning("Krylov %s Stokes solve stalled (rel res %.2e); Newton starts "
                                "from its iterate", linear_solver, res.residual)

@@ -41,6 +41,7 @@ lambda = sigma + 1/theta; Cayley: lambda = (sigma theta + nu)/(theta - 1).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from dataclasses import dataclass
@@ -53,6 +54,7 @@ import scipy.sparse as sp
 import torch
 
 from lsafw_tpu_torch import resolve_device
+from lsafw_tpu_torch.ops import spmv_cuda
 from lsafw_tpu_torch.ops.bcsr import (
     BCSROperator,
     BCSRShiftedOp,
@@ -137,6 +139,7 @@ class BandedSIOp:
     sigma: complex
     Cop: BCSRShiftedOp | BCSROperator | None = None
     nu: complex | None = None
+    Mop: object | None = None  # an element M operator beside an element Cop
 
 
 def _coef(z: complex, x: torch.Tensor):
@@ -146,20 +149,26 @@ def _coef(z: complex, x: torch.Tensor):
 
 
 def _si_apply_C(op: BandedSIOp, x: torch.Tensor) -> torch.Tensor:
-    """(A - sigma M) x; A x - sigma x where M is None."""
+    """(A - sigma M) x; A x - sigma x where M is None.  Where ``op.Cop`` is
+    None and the preconditioner holds the C apply (a multiplicative
+    :class:`TwoGridSIPC`), that one serves."""
     if op.M is None:
         Ax = op.Cop.matvec(x) if op.Cop is not None else spmv(op.A, x)
         return Ax - op.sigma.real * x if op.sigma != 0 else Ax
-    if op.Cop is not None:
-        return op.Cop.matvec_pair(x)
+    Cop = op.Cop if op.Cop is not None else getattr(op.blu, "Cop", None)
+    if Cop is not None:
+        return Cop.matvec_pair(x)
     return spmv(op.A, x) - _coef(op.sigma, x) * spmv(op.M, x)
 
 
 def _si_apply_M(op: BandedSIOp, x: torch.Tensor) -> torch.Tensor:
-    """M x, from Cop's storage where there is a Cop (x where M is None)."""
+    """M x: the element M operator where there is one, else from Cop's
+    storage where there is a fused Cop (x where M is None)."""
     if op.M is None:
         return x
-    if op.Cop is not None:
+    if op.Mop is not None:
+        return op.Mop.matvec_pair(x)
+    if op.Cop is not None and hasattr(op.Cop, "mass_pair"):
         return op.Cop.mass_pair(x)
     return spmv(op.M, x)
 
@@ -172,53 +181,90 @@ def _si_rhs(op: BandedSIOp, v: torch.Tensor) -> torch.Tensor:
         return _si_apply_M(op, v)
     if op.M is None:
         Cv, Mv = _si_apply_C(op, v), v
-    elif op.Cop is not None:
+    elif isinstance(op.Cop, BCSRShiftedOp):
         Cv, Mv = op.Cop.matvec_pair(v, mass=True)
+    elif op.Cop is not None or op.Mop is not None:
+        Cv, Mv = _si_apply_C(op, v), _si_apply_M(op, v)
     else:
         Mv = spmv(op.M, v)
         Cv = spmv(op.A, v) - _coef(op.sigma, v) * Mv
     return Cv + _coef(op.sigma + op.nu, Cv) * Mv
 
 
-def banded_solve_raw(op: BandedSIOp, b: torch.Tensor, *, tol: float = 1e-9,
-                     max_its: int = 16, m: int = 8) -> torch.Tensor:
+def banded_solve_raw(op: BandedSIOp | None, b: torch.Tensor, *, tol: float = 1e-9,
+                     max_its: int = 16, m: int = 8, proj=None, x0_zero: bool = False,
+                     apply_fn=None, pc_fn=None) -> torch.Tensor:
     """x ~= (A - sigma M)^-1 b for a raw right-hand side (no M
     premultiply) by truncated GCR(m) refinement, preconditioned by the
     band factor: each correction's image is orthogonalized against the
     last ``m`` kept images.  Complex in complex128; an f64 b at a real
     shift stays f64 (the real factor's one-column substitution).  A
-    refinement that misses ``tol`` raises :class:`FactorUnusable`."""
-    return refine_checked(op, b, tol=tol, max_its=max_its, m=m)[0]
+    refinement that misses ``tol`` raises :class:`FactorUnusable`.
+    ``proj``, ``x0_zero``, ``apply_fn`` and ``pc_fn`` are :func:`_refine`'s."""
+    return refine_checked(op, b, tol=tol, max_its=max_its, m=m, proj=proj, x0_zero=x0_zero,
+                          apply_fn=apply_fn, pc_fn=pc_fn)[0]
 
 
-def refine_checked(op: BandedSIOp, b: torch.Tensor, *, tol: float, max_its: int, m: int = 8,
-                   what: str = "banded solve") -> tuple[torch.Tensor, int]:
+def refine_checked(op: BandedSIOp | None, b: torch.Tensor, *, tol: float, max_its: int,
+                   m: int = 8, what: str = "banded solve", **options) -> tuple[torch.Tensor, int]:
     """:func:`_refine`'s (x, iterations), raising :class:`FactorUnusable`
     with the relative residual and the iteration count where the last
-    residual misses ``tol``: no banded solve returns past its tolerance."""
-    x, its, res = _refine(op, b, tol=tol, max_its=max_its, m=m)
+    residual misses ``tol``: no banded solve returns past its tolerance.
+    The one exception is the inexact correction solves of the nested
+    refinement (:func:`nested_eigenpair`, :class:`TwoGridSIPC`), whose
+    ``inner_tol`` is a target: they call :func:`_refine` unjudged."""
+    x, its, res = _refine(op, b, tol=tol, max_its=max_its, m=m, **options)
     if not res <= tol:
         raise FactorUnusable(f"{what}: the refinement reached {res:.2e} in {its} iterations "
                              f"(tol {tol:.0e}, contraction of the factor too weak)")
     return x, its
 
 
-def _refine(op: BandedSIOp, b: torch.Tensor, *, tol: float, max_its: int,
-            m: int = 8) -> tuple[torch.Tensor, int, float]:
+def _projections(proj):
+    """The Jacobi-Davidson projections of ``proj`` = (v, M v), v
+    M-normalised: on the right d - v (v^H M d) (M symmetric: (M v)^H d),
+    on the left w - M v (v^H w); identities where ``proj`` is None."""
+    if proj is None:
+        return (lambda d: d), (lambda w: w)
+    v, Mv = proj
+    return (lambda d: d - torch.vdot(Mv, d) * v), (lambda w: w - torch.vdot(v, w) * Mv)
+
+
+def _refine(op: BandedSIOp | None, b: torch.Tensor, *, tol: float, max_its: int, m: int = 8,
+            proj=None, x0_zero: bool = False, apply_fn=None,
+            pc_fn=None) -> tuple[torch.Tensor, int, float]:
     """:func:`banded_solve_raw`'s GCR(m), returning (x, iterations, the
     last relative residual norm it saw) without judging it (the callers
-    do: :func:`refine_checked`, the calibration's trial solve).  One host
-    synchronisation per iteration and one before the first."""
-    x = op.blu.solve(b)
-    r = b - _si_apply_C(op, x)
+    do: :func:`refine_checked`, the calibration's trial solve, and the
+    nested refinement, whose solves are inexact by design).  One host
+    synchronisation per iteration and one before the first.
+
+    ``proj`` = (v, M v), v M-normalised: solve the Jacobi-Davidson
+    projected system (I - M v v^H) C (I - v v^H M), with the search
+    directions right-projected after the preconditioner and the images
+    left-projected (without it an exact solve of C t = r returns t = v
+    and the nested correction annihilates).  ``x0_zero``: start from x = 0
+    (a weak preconditioner's first apply can leave ||C x0 - b|| > ||b||,
+    which GCR, monotone only from its start, does not undo).
+    ``apply_fn`` / ``pc_fn``: the operator and the preconditioner in place
+    of ``op``'s C and band factor (``op`` may then be None): the Galerkin
+    coarse apply of :class:`TwoGridSIPC`."""
+    applyC = apply_fn if apply_fn is not None else (lambda x: _si_apply_C(op, x))
+    pcsolve = pc_fn if pc_fn is not None else op.blu.solve
+    right, left = _projections(proj)
+    if x0_zero:
+        x, r = torch.zeros_like(b), b
+    else:
+        x = right(pcsolve(b))
+        r = b - left(applyC(x))
     bnorm, rn = torch.stack([torch.linalg.vector_norm(b), torch.linalg.vector_norm(r)]).tolist()
     floor = max(bnorm, 1e-300)
     D = torch.zeros((m, b.shape[0]), dtype=b.dtype, device=b.device)
     CD = torch.zeros_like(D)
     k = 0
     while k < max_its and np.isfinite(rn) and rn > tol * floor:
-        d = op.blu.solve(r)
-        Cd = _si_apply_C(op, d)
+        d = right(pcsolve(r))
+        Cd = left(applyC(d))
         beta = CD.conj() @ Cd  # complex CGS against the kept images
         Cd = Cd - CD.T @ beta
         d = d - D.T @ beta
@@ -239,6 +285,318 @@ def banded_si_apply(op: BandedSIOp, v: torch.Tensor, *, tol: float = 1e-9,
     """y ~= (A - sigma M)^-1 (M v), or (A - sigma M)^-1 (A + nu M) v with
     a Cayley antishift; a refinement that misses ``tol`` raises."""
     return banded_solve_raw(op, _si_rhs(op, v), tol=tol, max_its=max_its)
+
+
+# ---------------------------------------------------------------------------
+# Nested (two-grid) eigen refinement
+# ---------------------------------------------------------------------------
+
+
+def _with_sigma(op: BandedSIOp, sigma: complex) -> BandedSIOp:
+    """The shift-invert state retargeted at a new shift.  A fused S
+    operator takes the shift as an argument; an element C operator bakes
+    the shift into its values and cannot be retargeted, so it is dropped
+    and the C apply falls back to the CSR pair (or to the preconditioner's
+    C).  A multiplicative :class:`TwoGridSIPC` holds the one C apply
+    inside the preconditioner; it is retargeted there.  Both an ``op.Cop``
+    and a retargetable ``op.blu.Cop`` is refused (the reference retargets
+    only the first and leaves the second at a stale shift)."""
+    sigma = complex(sigma)
+    Cop = op.Cop
+    if Cop is not None:
+        Cop = dataclasses.replace(Cop, sigma=sigma) if hasattr(Cop, "sigma") else None
+    blu = op.blu
+    bcop = getattr(blu, "Cop", None)
+    if bcop is not None and hasattr(bcop, "sigma"):
+        if op.Cop is not None:
+            raise AssertionError("_with_sigma: op.Cop and the preconditioner's Cop are both "
+                                 "set; the preconditioner's would keep a stale shift")
+        blu = dataclasses.replace(blu, Cop=dataclasses.replace(bcop, sigma=sigma))
+    return dataclasses.replace(op, sigma=sigma, Cop=Cop, blu=blu)
+
+
+@dataclass(eq=False)
+class DiagSIPC:
+    """Regularized complex Jacobi of C = A - sigma M: a memory-free fine
+    term for :class:`TwoGridSIPC` (a pure coarse-grid preconditioner keeps
+    GCR's search directions in range(P) and cannot converge; Jacobi spans
+    the whole space)."""
+
+    inv: torch.Tensor  # (n,) complex128
+
+    @classmethod
+    def from_pair(cls, A: CSRMatrix, M: CSRMatrix, sigma: complex, *,
+                  press_reg: float = 1.0) -> "DiagSIPC":
+        """``press_reg``: the magnitude, in units of the RMS diagonal, put on
+        the zero diagonals of saddle rows.  The reference's default is 1.0
+        (a Jacobi inverse of 1e-3 would amplify pressure residuals a
+        thousandfold, which neither the M-normalisation nor the
+        Jacobi-Davidson projection can see on the zero pressure block of M);
+        the port keeps it."""
+        ds = A.idx()["diag_slots"]
+        sigma = complex(sigma)
+        dre = A.data[ds] - sigma.real * M.data[ds]
+        dim = (-sigma.imag) * M.data[ds]
+        mag2 = dre * dre + dim * dim
+        scale = torch.sqrt(torch.clamp(mag2.mean(), min=1e-300))
+        bad = mag2 < (1e-10 * scale) ** 2
+        dre = torch.where(bad, -press_reg * scale, dre)
+        mag2 = torch.where(bad, (press_reg * scale) ** 2, mag2)
+        return cls(torch.complex(dre / mag2, -dim / mag2))
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        return self.inv * b
+
+
+def ell_of_csr(S, *, device="cuda") -> tuple[torch.Tensor, torch.Tensor]:
+    """Padded-ELL (data f64, columns int32) of a scipy CSR ``S`` on
+    ``device`` (the P of :class:`TwoGridSIPC`)."""
+    device = resolve_device(device)
+    S = sp.csr_matrix(S)
+    S.sort_indices()
+    n = S.shape[0]
+    cnt = np.diff(S.indptr)
+    w = max(1, int(cnt.max()) if cnt.size else 1)
+    r = np.repeat(np.arange(n, dtype=np.int64), cnt)
+    p = np.arange(S.nnz, dtype=np.int64) - np.repeat(S.indptr[:-1].astype(np.int64), cnt)
+    cols = np.zeros((n, w), np.int32)
+    dat = np.zeros((n, w))
+    cols[r, p] = S.indices
+    dat[r, p] = S.data
+    return torch.as_tensor(dat, device=device), torch.as_tensor(cols, device=device)
+
+
+def galerkin_pair(P, A: CSRMatrix, M: CSRMatrix) -> tuple[CSRMatrix, CSRMatrix]:
+    """The Galerkin coarse pair (P^T A P, P^T M P) of a scipy prolongation
+    ``P`` as CSRMatrices on one shared pattern, on A's device: the union
+    of the two products' patterns and the diagonal.  The union is built
+    from indicator patterns, so an entry where the two products cancel
+    exactly keeps its slot (the reference forms it from Ag + Mg, where such
+    an entry drops out and its values land in the wrong slots)."""
+    from lsafw_tpu_torch.interop import csr_from_numpy
+
+    P = sp.csr_matrix(P)
+    Ag = (P.T @ (A.to_scipy() @ P)).tocsr()
+    Mg = (P.T @ (M.to_scipy() @ P)).tocsr()
+    n, ncol = Ag.shape
+
+    def ones(S):
+        S = S.tocsr()
+        return sp.csr_matrix((np.ones(S.nnz), S.indices, S.indptr), shape=S.shape)
+
+    U = (ones(Ag) + ones(Mg) + sp.identity(n, format="csr")).tocsr()
+    U.sort_indices()
+    keyU = np.repeat(np.arange(n, dtype=np.int64), np.diff(U.indptr)) * ncol + U.indices
+
+    def put(S):
+        S = S.tocsr()
+        S.sort_indices()
+        keyS = np.repeat(np.arange(n, dtype=np.int64), np.diff(S.indptr)) * ncol + S.indices
+        out = np.zeros(U.nnz)
+        out[np.searchsorted(keyU, keyS)] = S.data
+        return out
+
+    A_g = csr_from_numpy(U.indptr, U.indices, put(Ag), U.shape, device=A.device)
+    return A_g, CSRMatrix(A_g.pattern, torch.as_tensor(put(Mg), device=A.device))
+
+
+@dataclass(eq=False)
+class TwoGridSIPC:
+    """Two-grid preconditioner of the shift-invert inner solves past the
+    exact-factor memory wall: a coarse shift-invert correction through the
+    prolongation P (``P_data``/``P_cols``, padded ELL over the fine rows;
+    the restriction is P^T as a segmented sum through the same ELL) and a
+    fine term (``fine_blu``: a budget-truncated band factor, a
+    :class:`DiagSIPC`, or None):
+
+        additive (``Cop`` None):   z = P C_c^-1 R r + fine^-1 r
+        multiplicative (``Cop``):  z = P C_c^-1 R r, then ``smooth_steps``
+                                   of z += omega fine^-1 (r - C z)
+
+    ``coarse_op`` is a :class:`BandedSIOp` on the coarse mesh (its exact
+    band factor and its own C), or a bare band factor of the Galerkin pair
+    (:func:`galerkin_pair`), in which case the coarse GCR applies the
+    Galerkin operator as the sandwich P^T C P through ``Cop`` at the fixed
+    shift ``sig0`` and preconditions by that factor; without a ``Cop`` it
+    has no operator and raises ``ValueError``.  ``cproj`` = (x_c, M x_c)
+    deflates the coarse solve against the coarse eigenvector
+    (:meth:`coarse_deflation`).  Duck-typed as a band factor (``solve``):
+    ``BandedSIOp(blu=TwoGridSIPC(...))`` serves :func:`nested_eigenpair`.
+    The coarse solve is an inexact GCR to ``coarse_tol`` within
+    ``coarse_its`` and is not judged."""
+
+    coarse_op: object
+    fine_blu: object
+    P_data: torch.Tensor  # (nf, wp) f64
+    P_cols: torch.Tensor  # (nf, wp) int -> coarse indices
+    Cop: object | None = None
+    cproj: tuple | None = None
+    sig0: complex | None = None  # the fixed shift of the Galerkin sandwich
+    nc: int = 0
+    coarse_tol: float = 1e-6
+    coarse_its: int = 20
+    smooth_steps: int = 1
+    omega: float = 1.0
+    # P's gather index (int32) and P^T's fixed-order segmented sum, made once
+    # (``dataclasses.replace`` carries them over)
+    _cols32: torch.Tensor | None = None
+    _psum: object = None
+
+    def __post_init__(self) -> None:
+        if not hasattr(self.coarse_op, "blu") and self.Cop is None:
+            raise ValueError("TwoGridSIPC: a bare band factor as the coarse operator needs the "
+                             "fine C apply (Cop=...) for the Galerkin sandwich P^T C P")
+        if self._psum is None:
+            from lsafw_tpu_torch.ops.elementop import SegmentSum
+
+            self._cols32 = self.P_cols.to(torch.int32).contiguous()
+            self._psum = SegmentSum.build(self.P_cols, self.nc)
+
+    @staticmethod
+    def coarse_deflation(x_c, M_c: CSRMatrix) -> tuple[torch.Tensor, torch.Tensor]:
+        """``cproj`` from the coarse eigenvector and the coarse mass matrix,
+        on M_c's device: the coarse solve runs deflated against its own
+        eigenpair.  C_c is factored near its eigenvalue, so an undeflated
+        solve amplifies the x_c direction by 1/|sigma - lambda_c|, and what
+        it amplifies is the interpolation error of P x_c."""
+        x_c = np.asarray(x_c, dtype=np.complex128)
+        Mx = M_c.to_scipy() @ x_c
+        nrm = np.sqrt(max(np.real(np.vdot(x_c, Mx)), 1e-300))
+        return (torch.as_tensor(x_c / nrm, device=M_c.device),
+                torch.as_tensor(Mx / nrm, device=M_c.device))
+
+    def _restrict(self, v: torch.Tensor) -> torch.Tensor:
+        return self._psum(self.P_data * v[:, None])
+
+    def _prolong(self, v: torch.Tensor) -> torch.Tensor:
+        return (self.P_data * spmv_cuda.gather(v.contiguous(), self._cols32)).sum(1)
+
+    def _coarse_apply(self, z: torch.Tensor) -> torch.Tensor:
+        """G z = P^T (C (P z)), the Galerkin coarse operator as a sandwich
+        through the fine C, held at the fixed shift ``sig0`` (as theta
+        converges, G(theta) would become singular)."""
+        Cop = self.Cop
+        if self.sig0 is not None and hasattr(Cop, "sigma"):
+            Cop = dataclasses.replace(Cop, sigma=complex(self.sig0))
+        return self._restrict(Cop.matvec_pair(self._prolong(z)))
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        rc = self._restrict(b)
+        if hasattr(self.coarse_op, "blu"):
+            zc = _refine(self.coarse_op, rc, tol=self.coarse_tol, max_its=self.coarse_its,
+                         proj=self.cproj)[0]
+        else:
+            zc = _refine(None, rc, tol=self.coarse_tol, max_its=self.coarse_its,
+                         proj=self.cproj, apply_fn=self._coarse_apply,
+                         pc_fn=self.coarse_op.solve)[0]
+        z = self._prolong(zc)
+        if self.fine_blu is None:
+            return z
+        if self.Cop is None:
+            return z + self.fine_blu.solve(b)
+        for _ in range(self.smooth_steps):
+            z = z + self.omega * self.fine_blu.solve(b - self.Cop.matvec_pair(z))
+        return z
+
+
+def _nested_prepare(op: BandedSIOp, v: torch.Tensor, theta: complex):
+    """M-normalise v, form r = (A - theta M) v, take the Rayleigh update
+    where the residual is already small (rel < 0.1: a rough guess's
+    high-mode noise dominates v^H A v, and the caller's shift is the
+    better one until the corrections have smoothed v), and return (v, M v,
+    r, theta, rel) with rel = |r| / sqrt(|r|^2 + |theta|^2 |M v|^2)."""
+    Mv = _si_apply_M(op, v)
+    nrm = torch.sqrt(torch.clamp(torch.vdot(v, Mv).real, min=1e-300))
+    v, Mv = v / nrm, Mv / nrm
+    r = _si_apply_C(_with_sigma(op, theta), v)
+    rn0, mn = torch.stack([torch.linalg.vector_norm(r), torch.linalg.vector_norm(Mv)]).tolist()
+    rel0 = rn0 / max(np.sqrt(rn0 ** 2 + abs(theta) ** 2 * mn ** 2), 1e-300)
+    if rel0 < 0.1:
+        d = torch.vdot(v, r)
+        theta = theta + complex(d)
+        r = r - d * Mv
+    rn = float(torch.linalg.vector_norm(r))
+    rel = rn / max(np.sqrt(rn ** 2 + abs(theta) ** 2 * mn ** 2), 1e-300)
+    return v, Mv, r, theta, rel
+
+
+def _nested_correct(op: BandedSIOp, v, Mv, r, theta: complex, *, inner_tol: float,
+                    inner_its: int, m: int):
+    """The Jacobi-Davidson correction: the projected system against the
+    shrinking residual, solved inexactly (unjudged :func:`_refine` from
+    zero).  Returns (t, the achieved projected linear residual, |t|)."""
+    opt = _with_sigma(op, theta)
+    t = _refine(opt, r, tol=inner_tol, max_its=inner_its, m=m, proj=(v, Mv), x0_zero=True)[0]
+    Ct = _si_apply_C(opt, t)
+    Ct = Ct - torch.vdot(v, Ct) * Mv
+    lin, rn, tn = torch.stack([torch.linalg.vector_norm(r - Ct), torch.linalg.vector_norm(r),
+                               torch.linalg.vector_norm(t)]).tolist()
+    return t, lin / max(rn, 1e-300), tn
+
+
+def nested_eigenpair(op: BandedSIOp, v0: np.ndarray, sigma0: complex, *, tol: float = 1e-8,
+                     max_outer: int = 20, inner_tol: float = 1e-3, inner_its: int = 300,
+                     m: int = 8, bc_mask: np.ndarray | None = None,
+                     resid_op: BandedSIOp | None = None):
+    """Refine an eigenpair guess (typically interpolated from a coarser
+    mesh) to solver grade with inexact correction solves: the reference's
+    eigen path past the exact-factor memory wall.
+
+    Each outer step updates the Rayleigh quotient, forms r = (A - theta M)
+    v and solves the Jacobi-Davidson correction equation C(theta) t = r by
+    GCR preconditioned by ``op.blu`` (a band factor made once at a nearby
+    shift, a truncated band, a :class:`TwoGridSIPC`), the operator applied
+    at theta.  These solves are inexact by design (``inner_tol`` is a
+    target) and do not raise: they are the one exception to the rule that
+    no banded solve returns past its tolerance.  The outer loop judges them
+    through the true residual: a correction is accepted at the largest
+    damping in {1, 1/4, 1/16, 1/64} that lowers the relative residual, and
+    where none does the loop stops with the best iterate (a stalled
+    refinement returns, as the reference's does).
+
+    ``bc_mask`` zeroes the guess on the Dirichlet rows.  ``resid_op``: the
+    operator of the once-per-outer residual (the reference evaluates it in
+    f64 where ``op`` carries f32-grade matvecs; S is f64, so it may be
+    ``op`` itself).  The guess and the operators share ``op.A``'s device.
+
+    Returns ``(theta, v, rel, n_outer)``: v a complex numpy vector of unit
+    norm and rel the relative residual |r| / sqrt(|r|^2 + |theta|^2 |M v|^2)
+    of the returned pair."""
+    rop = op if resid_op is None else resid_op
+    v0 = np.asarray(v0, dtype=np.complex128)
+    if bc_mask is not None:
+        v0 = np.where(np.asarray(bc_mask), 0.0, v0)
+    v = torch.as_tensor(v0, device=op.A.device)
+    prep = _nested_prepare(rop, v, complex(sigma0))
+    rel = prep[-1]
+    if not np.isfinite(rel):
+        raise FloatingPointError("nested refinement diverged")
+    it = 0
+    for it in range(1, max_outer + 1):
+        v, Mv, r, theta, _ = prep
+        logger.info("nested_eigenpair: outer %d rel resid %.2e theta %.6f%+.6fj", it, rel,
+                    theta.real, theta.imag)
+        if rel < tol:
+            break
+        t, lin, tnorm = _nested_correct(op, v, Mv, r, theta, inner_tol=inner_tol,
+                                        inner_its=inner_its, m=m)
+        logger.info("nested_eigenpair: inner solve rel %.2e, |t| %.2e", lin, tnorm)
+        damp, accepted = 1.0, False
+        for _ in range(4):
+            cand = _nested_prepare(rop, v - damp * t, theta)
+            if np.isfinite(cand[-1]) and cand[-1] < rel:
+                prep, rel, accepted = cand, cand[-1], True
+                break
+            logger.info("nested_eigenpair: correction rejected at damp %.3g (rel %.2e -> %.2e)",
+                        damp, rel, cand[-1])
+            damp *= 0.25
+        if not accepted:
+            logger.warning("nested_eigenpair: no damp improved the residual at outer %d (rel "
+                           "%.2e); stopping with the best iterate", it, rel)
+            break
+    v, theta = prep[0], prep[3]
+    v = v.cpu().numpy()
+    return theta, v / np.linalg.norm(v), rel, it
 
 
 def _free_device_bytes(device: torch.device, held: int) -> float:
@@ -349,10 +707,14 @@ class ShiftInvertOperator:
     misses raises :class:`FactorUnusable`.  ``gmres_its`` and
     ``gmres_cycles`` record each solve.
 
-    ``elements`` (the reference's per-cell element matrices for
-    matrix-free refinement matvecs) is accepted and ignored: S carries the
-    refinement matvecs on the assembled CSR, and the element operator is
-    not ported."""
+    ``elements``: optional ``(cell_dofs, A_el, M_el, bc_mask)``, the
+    per-cell element matrices of (A, M).  Where the fused operator's
+    values do not fit :func:`bcsr_budget`, the banded and GMRES methods
+    take the element operators of :mod:`~lsafw_tpu_torch.ops.elementop`
+    as their refinement matvecs (C = A - sigma M as a
+    :class:`~lsafw_tpu_torch.ops.elementop.CElementOperator`, M as an
+    :class:`~lsafw_tpu_torch.ops.elementop.ElementOperator`), as the
+    reference does; without them the CSR pair applies them."""
 
     _CAP = REFINE_CAP
     _TRIAL_CAP = TRIAL_CAP
@@ -385,8 +747,11 @@ class ShiftInvertOperator:
         self.factor_seconds = time.time() - t0
         band_bytes = sum(t.numel() * t.element_size() for t in vars(blu).values()
                          if isinstance(t, torch.Tensor))
-        self.device_op = BandedSIOp(A, M, blu, self.sigma, self._build_bcsr_ops(band_bytes),
-                                    self.antishift)
+        Cop = self._build_bcsr_ops(band_bytes)
+        Mop = None
+        if Cop is None and elements is not None and M is not None:
+            Cop, Mop = self._element_ops(elements)
+        self.device_op = BandedSIOp(A, M, blu, self.sigma, Cop, self.antishift, Mop)
         if method == "gmres":  # GMRES judges the factor itself: no calibration
             return
         self.rho, self.refine_its, self.trial_its = calibrate(
@@ -466,13 +831,33 @@ class ShiftInvertOperator:
             return BCSROperator.from_csr(A, plan)
         return BCSRShiftedOp.from_csr(A, M, self.sigma, plan)
 
+    def _element_ops(self, elements):
+        """(C, M) element operators of the refinement matvecs from
+        ``(cell_dofs, A_el, M_el, bc_mask)``: C's rows at the Dirichlet
+        DOFs the identity (A's diagonal 1, M's 0), M's zero."""
+        from lsafw_tpu_torch.ops.elementop import CElementOperator, ElementOperator
+
+        dofs, A_el, M_el, bc_mask = elements
+        dev = self.A.device
+        A_el, M_el = A_el.to(dev), M_el.to(dev)
+        dofs = torch.as_tensor(dofs, device=dev)
+        mask = torch.as_tensor(np.asarray(bc_mask, dtype=bool) if not isinstance(
+            bc_mask, torch.Tensor) else bc_mask, device=dev)
+        El_im = None if self.sigma.imag == 0.0 else (-self.sigma.imag) * M_el
+        logger.info("Refinement matvecs on the element operators (%d cells, %d DOFs each)",
+                    A_el.shape[0], A_el.shape[1])
+        return (CElementOperator(A_el - self.sigma.real * M_el, El_im, dofs, self._n, mask, 1.0),
+                ElementOperator(M_el, dofs, self._n, mask, 0.0))
+
     def figures(self) -> dict:
         """The operator's figures: factor seconds, contraction, trial GCR
-        iterations, refinement cap, applies, pivoted, fused matvecs, and for
+        iterations, refinement cap, applies, pivoted, fused matvecs (the
+        S operator or, with ``elements``, the element operators), and for
         ``"gmres"`` the GMRES steps and cycles of all its solves."""
         return dict(factor_s=self.factor_seconds, rho=self.rho, trial_its=self.trial_its,
                     refine_its=self.refine_its, applies=self.applies, pivoted=self.pivoted,
                     fused=self.device_op is not None and self.device_op.Cop is not None,
+                    elements=self.device_op is not None and self.device_op.Mop is not None,
                     gmres_its=sum(self.gmres_its), gmres_cycles=sum(self.gmres_cycles),
                     gmres_solves=len(self.gmres_its))
 
@@ -810,6 +1195,7 @@ class EigenSolver:
         self._filter_degree = 30
         self._shell: tuple | None = None
         self._v0: np.ndarray | None = None
+        self._elements = None
 
     def _warn_if_not_hermitian(self) -> None:
         for name, mat in (("A", self.A), ("M", self.M)):
@@ -846,6 +1232,18 @@ class EigenSolver:
         name = getattr(pc, "value", str(pc)).lower()
         self._si_method = name if name in ("lu", "banded") else "gmres"
 
+    def set_elements(self, ctx, A_el, M_el, bc_mask, dofs=None) -> None:
+        """The per-cell element matrices of (A, M) (for instance
+        ``LinearizedNavierStokesAssembler.element_matrices()``): the
+        shift-invert transforms take them as their refinement matvecs where
+        the fused S operator does not fit its budget
+        (:class:`ShiftInvertOperator`'s ``elements``).  ``dofs`` defaults to
+        the context's mixed cell DOF map; pass the extended map where facet
+        blocks are appended."""
+        if dofs is None:
+            dofs = ctx.mixed_cell_dofs
+        self._elements = (dofs, A_el, M_el, bc_mask)
+
     def set_filter_degree(self, degree: int) -> None:
         """The Chebyshev filter's degree (FILTER)."""
         self._filter_degree = int(degree)
@@ -861,7 +1259,8 @@ class EigenSolver:
             nu = self._antishift if self._antishift is not None else target
         method = "gmres" if self._st_type is STType.PRECOND else self._si_method
         op = ShiftInvertOperator(self.A, self.M, target, method=method,
-                                 inner_tol=min(cfg.atol * 1e-2, 1e-10), antishift=nu)
+                                 inner_tol=min(cfg.atol * 1e-2, 1e-10),
+                                 elements=self._elements, antishift=nu)
         result = krylov_schur(
             op.apply, n, nev=cfg.num_eig, ncv=min(cfg.ncv, n),
             which=EpsWhich.LARGEST_MAGNITUDE,  # largest theta = closest to the shift

@@ -676,18 +676,14 @@ def solve(matvec: Matvec, b: torch.Tensor, *, ksp_type: KSPType | str = KSPType.
     raise ValueError(ksp)
 
 
-def solve_csr(A, b: torch.Tensor, pc_arr: torch.Tensor | None = None, *,
-              ksp_type: str = "gmres", pc_kind: str = "none", tol: float = 1e-10,
-              maxiter: int = 1000, restart: int = 30) -> SolveResult:
-    """Sparse solve of the CSRMatrix ``A`` with a preconditioner given as
-    (``pc_kind``, ``pc_arr``) (:func:`~lsafw_tpu_torch.solver.precond.apply_pc`:
-    ``"none"``, ``"jacobi"``, ``"bjacobi"``); BiCG and LSQR take A's
-    transpose.  The products with A (and A^T) run through S
-    (:func:`~lsafw_tpu_torch.ops.bcsr.matvec_of`)."""
+def solve_csr(A, b: torch.Tensor, M: Callable | None = None, *, ksp_type: str = "gmres",
+              tol: float = 1e-10, maxiter: int = 1000, restart: int = 30) -> SolveResult:
+    """Sparse solve of the CSRMatrix ``A`` with the preconditioner apply
+    ``M`` (a closure of :mod:`~lsafw_tpu_torch.solver.precond`, or None);
+    BiCG and LSQR take A's transpose.  The products with A (and A^T) run
+    through S (:func:`~lsafw_tpu_torch.ops.bcsr.matvec_of`)."""
     from lsafw_tpu_torch.ops.bcsr import matvec_of
-    from lsafw_tpu_torch.solver.precond import apply_pc
 
-    M = None if pc_kind == "none" else (lambda x: apply_pc(pc_kind, pc_arr, x))
     rmatvec = None
     if KSPType.from_string(ksp_type) in (KSPType.BICG, KSPType.LSQR):
         rmatvec = matvec_of(A.transpose())

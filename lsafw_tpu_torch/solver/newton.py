@@ -39,7 +39,7 @@ from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
 from lsafw_tpu_torch.solver.band import factor_auto, mark_bf16_unstable, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
 from lsafw_tpu_torch.solver.linear import KSPType, SolveResult, solve_csr
-from lsafw_tpu_torch.solver.precond import block_jacobi_array
+from lsafw_tpu_torch.solver.precond import block_jacobi
 from lsafw_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -200,8 +200,8 @@ class NewtonSolver:
 
     def _krylov_solve(self, J: CSRMatrix, b: torch.Tensor, it: int) -> torch.Tensor:
         """The Krylov inner solve: block-Jacobi(64) and ``solve_csr``."""
-        res = solve_csr(J, b, block_jacobi_array(J, 64), ksp_type=self._linear_solver,
-                        pc_kind="bjacobi", tol=self._linear_tol, maxiter=5000)
+        res = solve_csr(J, b, M=block_jacobi(J, 64), ksp_type=self._linear_solver,
+                        tol=self._linear_tol, maxiter=5000)
         self.stats["krylov_its"] = self.stats.get("krylov_its", 0) + res.iterations
         if not res.converged:
             logger.warning("Inner %s solve stalled (res=%.2e) at Newton it %d",

@@ -48,32 +48,26 @@ class PreconditionerType(Enum):
         return cls(value.lower().strip())
 
 
-def jacobi_array(A: CSRMatrix) -> torch.Tensor:
-    """diag(A)^-1, with 1 where the diagonal is 0."""
-    d = A.diagonal()
-    return torch.where(d != 0, 1.0 / torch.where(d == 0, torch.ones_like(d), d),
-                       torch.ones_like(d))
-
-
 def jacobi(A: CSRMatrix) -> Callable[[torch.Tensor], torch.Tensor]:
     """Pointwise Jacobi M^-1 = diag(A)^-1 (1 where the diagonal is 0)."""
-    inv = jacobi_array(A)
+    d = A.diagonal()
+    inv = torch.where(d != 0, 1.0 / torch.where(d == 0, torch.ones_like(d), d),
+                      torch.ones_like(d))
 
     def apply(x):
-        return inv * x
+        return inv.to(x.dtype) * x
 
     return apply
 
 
-def block_jacobi_array(A: CSRMatrix, block_size: int = 64) -> torch.Tensor:
-    """The (nb, bs, bs) inverted block diagonal over contiguous DOF blocks.
-
-    The blocks are gathered on the data's device and inverted in one
-    batched call.  Rows with a zero diagonal (the pressure block of a
-    saddle-point operator) and the padding rows become identity rows and
-    columns, as PETSc's zero-pivot shift would keep them nonsingular; a
-    batch with a singular block takes the pseudo-inverse of every block,
-    as the reference does."""
+def block_jacobi(A: CSRMatrix, block_size: int = 64) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Dense block-Jacobi over contiguous DOF blocks: the (nb, bs, bs)
+    block diagonal is gathered on the data's device and inverted in one
+    batched call, and an apply is one batched product.  Rows with a zero
+    diagonal (the pressure block of a saddle-point operator) and the
+    padding rows become identity rows and columns, as PETSc's zero-pivot
+    shift would keep them nonsingular; a batch with a singular block takes
+    the pseudo-inverse of every block, as the reference does."""
     n, bs = A.shape[0], block_size
     nb = -(-n // bs)
     ix = A.idx()
@@ -91,36 +85,12 @@ def block_jacobi_array(A: CSRMatrix, block_size: int = 64) -> torch.Tensor:
     inv, info = torch.linalg.inv_ex(blocks)
     if bool((info != 0).any()):
         inv = torch.linalg.pinv(blocks)
-    return inv
-
-
-def block_jacobi(A: CSRMatrix, block_size: int = 64) -> Callable[[torch.Tensor], torch.Tensor]:
-    """Dense block-Jacobi over contiguous DOF blocks (closure form of
-    :func:`block_jacobi_array` with :func:`apply_pc`)."""
-    inv = block_jacobi_array(A, block_size)
 
     def apply(x):
-        return apply_pc("bjacobi", inv, x)
+        xp = torch.nn.functional.pad(x, (0, nb * bs - n)).reshape(nb, bs, 1)
+        return torch.bmm(inv.to(x.dtype), xp).reshape(-1)[:n]
 
     return apply
-
-
-def apply_pc(kind: str, arr: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
-    """Apply a preconditioner given as (kind, array): ``"none"``,
-    ``"jacobi"`` (the inverse diagonal) or ``"bjacobi"`` (the inverted
-    blocks, one batched product)."""
-    if kind == "none" or arr is None:
-        return x
-    if arr.dtype != x.dtype:
-        arr = arr.to(x.dtype)
-    if kind == "jacobi":
-        return arr * x
-    if kind == "bjacobi":
-        nb, bs, _ = arr.shape
-        n = x.shape[0]
-        xp = torch.nn.functional.pad(x, (0, nb * bs - n)).reshape(nb, bs, 1)
-        return torch.bmm(arr, xp).reshape(-1)[:n]
-    raise ValueError(kind)
 
 
 def _host_lu(A: CSRMatrix) -> Callable[[torch.Tensor], torch.Tensor]:

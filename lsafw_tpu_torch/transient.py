@@ -60,7 +60,8 @@ class TransientGrowthSolver(_EnergyPair):
     """Optimal-growth solver over the (A, M) eigensystem pair.
 
     Arguments as :class:`~lsafw_tpu_torch.resolvent.ResolventSolver`'s
-    (``method`` defaults to ``"banded"``, ``device`` to ``"cuda"``); the
+    (``method`` defaults to ``"banded"``, ``device`` to ``"cuda"``; the
+    forward propagator takes ``elements`` as the direct operator does); the
     propagators are built per (horizon, n_steps) in :meth:`solve`.  After
     a solve, ``operators`` holds the figures of the horizon's two
     factors and ``applies`` its T applies.
@@ -69,6 +70,7 @@ class TransientGrowthSolver(_EnergyPair):
     def __init__(self, A: CSRMatrix, M: CSRMatrix, num_velocity_dofs: int, dirichlet_mask, *,
                  method: str = "banded", elements=None, device="cuda") -> None:
         super().__init__(A, M, num_velocity_dofs, dirichlet_mask, method, device)
+        self._elements = elements
         self._prop_cache: dict = {}
 
     def _propagators(self, dt: float):
@@ -77,7 +79,8 @@ class TransientGrowthSolver(_EnergyPair):
         s = 2.0 / float(dt)
         key = round(s, 12)
         if key not in self._prop_cache:
-            fw = ShiftInvertOperator(self.A, self.M, s, method=self.method, antishift=s)
+            fw = ShiftInvertOperator(self.A, self.M, s, method=self.method, antishift=s,
+                                     elements=self._elements)
             ad = ShiftInvertOperator(self._At, self._Mt, s, method=self.method)
             self._prop_cache[key] = (fw, ad)
         fw, ad = self._prop_cache[key]

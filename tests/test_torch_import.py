@@ -64,7 +64,9 @@ def test_import_loads_no_jax_and_no_jax_package():
         "lsafw_tpu_torch.models.membrane, lsafw_tpu_torch.span, lsafw_tpu_torch.wnl, "
         "lsafw_tpu_torch.solver.timestepping, lsafw_tpu_torch.floquet, lsafw_tpu_torch.scm, "
         "lsafw_tpu_torch.hill, lsafw_tpu_torch.solver.ilu, lsafw_tpu_torch.solver.amg, "
-        "lsafw_tpu_torch.solver.pmg\n"
+        "lsafw_tpu_torch.solver.pmg, lsafw_tpu_torch.ops.stencil, lsafw_tpu_torch.ops.stencil_nd, "
+        "lsafw_tpu_torch.ops.elementop, lsafw_tpu_torch.solver.power, "
+        "lsafw_tpu_torch.solver.multigrid, lsafw_tpu_torch.solver.multigrid_nd\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -72,7 +74,10 @@ def test_import_loads_no_jax_and_no_jax_package():
     assert "lsafw_tpu_torch.solver.band_cuda" in out
     assert {"lsafw_tpu_torch.solver.linear", "lsafw_tpu_torch.solver.precond",
             "lsafw_tpu_torch.solver.ilu", "lsafw_tpu_torch.solver.amg",
-            "lsafw_tpu_torch.solver.pmg"} <= set(out)
+            "lsafw_tpu_torch.solver.pmg", "lsafw_tpu_torch.ops.stencil",
+            "lsafw_tpu_torch.ops.stencil_nd", "lsafw_tpu_torch.ops.elementop",
+            "lsafw_tpu_torch.solver.power", "lsafw_tpu_torch.solver.multigrid",
+            "lsafw_tpu_torch.solver.multigrid_nd"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
 
 
@@ -253,3 +258,32 @@ def test_scm_and_hill_refuse_the_cpu_by_default(monkeypatch):
         hill_floquet(ctx, M, M, [np.zeros(n)], 1.0, method="gmres", device="cpu")
     model = SelfConsistentModel(ctx, mesh, bcs, bcs, 10.0, mass=M, device="cpu")
     assert model.linear_solver == model.si_method == "banded"
+
+
+def test_structured_constructors_refuse_the_cpu_by_default(monkeypatch):
+    """The functions that make device state from numpy (the stencil
+    operators from numpy CSR data, ``ell_of_csr``) default to the card:
+    without one they raise unless ``device="cpu"`` is passed; given
+    tensors they follow the tensors' device."""
+    from lsafw_tpu_torch.fem.spaces import make_scalar_space
+    from lsafw_tpu_torch.meshing.mesh import rectangle_mesh, unit_cube
+    from lsafw_tpu_torch.models.membrane import assemble_membrane_evp
+    from lsafw_tpu_torch.ops.stencil import build_stencil_operator
+    from lsafw_tpu_torch.ops.stencil_nd import build_stencil_nd
+    import scipy.sparse as sp
+
+    mesh, mesh3 = rectangle_mesh((0.0, 0.0), (1.0, 1.0), 2, 2), unit_cube(1)
+    (K, _, _), (K3, _, _) = (assemble_membrane_evp(m, device="cpu") for m in (mesh, mesh3))
+    blocks = [(make_scalar_space(mesh, "p2"), 1)]
+    blocks3 = [(make_scalar_space(mesh3, "p2"), 1)]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_stencil_operator(K.pattern, K.data.numpy(), blocks)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_stencil_nd(K3.pattern, K3.data.numpy(), blocks3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        teigen.ell_of_csr(sp.identity(3, format="csr"))
+    assert build_stencil_operator(K.pattern, K.data.numpy(), blocks,
+                                  device="cpu").coeffs.device.type == "cpu"
+    assert build_stencil_nd(K3.pattern, K3.data, blocks3).coeffs.device.type == "cpu"
+    assert teigen.ell_of_csr(sp.identity(3, format="csr"), device="cpu")[0].device.type == "cpu"
