@@ -23,7 +23,8 @@ non-zero):
      B = 9 (the two meshes' B at that nb).  Pivot-free on a random band
      scaled by 2e-3, pivoted on a random band that needs pivoting within
      and across block rows, factored on the card by the port's
-     ``_pfactor`` (each pair is timed once); the gather G against
+     ``_pfactor``, each drawn by the card's generator (6 s; drawn on the
+     host, 71 s; each pair is timed once); the gather G against
      ``x[idx]`` at the probes' shapes (``run_a``: x 2^17 f32, idx
      (1024, 16); ``pallas_two_pass``: x (4096, 128) f32, 2^18 x 128
      lane-unique indices), exact; G's permute-in and permute-out in every
@@ -163,8 +164,9 @@ non-zero):
      quotient) within 1e-6 of G, its state at T and its gain-operator
      image within 1e-6 of the banded ones;
   7b. (after 6c, on phase 6's mesh, 175,491 DOFs) phase 7 at full width
-     without the sweep, the norm and the host LU: the Re = 40 baseflow,
-     the resolvent at omega = 0.75 (k = 1; the default plan's pivot-free
+     without the sweep, the norm and the host LU: the Re = 40 baseflow
+     (one banded Newton from phase 6's Re = 47 baseflow, a cut in depth
+     from the ramp), the resolvent at omega = 0.75 (k = 1; the default plan's pivot-free
      complex64 band) and, cut in depth, G(2) with 16 steps (phase 7's dt),
      with phase 7's gates; then
      phase 4's K1/K2 checks and times on the transient's real pivoted
@@ -196,7 +198,9 @@ non-zero):
      width without the host LU: the quasi-3D band's complex64 storage is
      over the default ``LSAFW_BAND_MEM_GB`` of 12, so the beta stages set
      it to that storage plus 1 GB (printed with the reckoning), and
-     ``find_critical_re`` brackets (46, 48) with 46 < Re_c < 48; phase
+     ``find_critical_re`` brackets (46, 48) with 46 < Re_c < 48 (its first
+     baseflow one banded Newton from phase 6's, a cut in depth from the
+     ramp); phase
      4's K1/K2 checks and times run on the beta = 1.5 factor;
   9. (after phase 8, on phase 3's mesh, with the nonlinear problem's BCs)
      nonlinear time stepping (``solver.timestepping.UnsteadySolver``, the
@@ -211,7 +215,9 @@ non-zero):
      from w + 1e-5 v; the probe's frequency within 3% of sigma_i, its
      growth rate within 10% + 2e-3 of sigma_r, the envelope's growth, a
      finite state); 9c ``examples/floquet_cycle.py``'s saturated cycle
-     (1,750 steps of 0.2 on from 9b; the last quarter's amplitude within 5%
+     (steps of 0.2 from 9b's state, its perturbation scaled to a 2-norm of
+     5: at least 1,000, until saturated, 1,750 at most; the last quarter's
+     amplitude within 5%
      of the one before, omega_sat > sigma_i, then 40 snapshots of T/40,
      the orbit closure <= 1e-2) and the device operations of one step
      under the profiler; 9d the Floquet multipliers on 40 prestored real
@@ -230,11 +236,12 @@ non-zero):
      9d factor.
 
   10. (after phase 8b) the lid-driven cube of ``tests/benchmark/test_cavity3d.py``
-     at the reference's 20^3 (``unit_cube(20)``, 216,024 DOFs, B = 86 at
-     nb = 128; one pressure DOF pinned, as ``examples/cube.py`` pins it),
-     under its own budgets (``CUBE_ENV``: the real pivoted Newton factor,
-     31.71 GB, and the pivoted complex64 eigen factor, 63.33 GB, each band
-     at full width in f32): the banded Newton baseflow at Re = 100 (ramped,
+     on ``unit_cube(16)`` (112,724 DOFs; a cut in scale from the reference's
+     20^3, 216,024 DOFs and B = 86 at nb = 128, whose widths phase 2's wide
+     factors keep; one pressure DOF pinned, as ``examples/cube.py`` pins
+     it), under its own budgets (``CUBE_ENV``, sized for the 20^3 factors:
+     the real pivoted Newton factor, 31.71 GB, and the pivoted complex64
+     eigen factor, 63.33 GB): the banded Newton baseflow at Re = 100 (ramped,
      2 steps, a depth cut from the test's 3; tol 1e-9), the eigensystem
      and four pairs nearest -0.2+0.3j
      (ncv 24), each a stage, with the test's gates (four pairs, every
@@ -399,6 +406,23 @@ SPMV_REL_TOL = 1e-12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_MARKS: list = []  # (phase, time.time() at its start), for the closing breakdown
+
+
+def mark(phase: str) -> None:
+    """Note that ``phase`` starts now, in the log too (so that a run cut
+    short still shows where its time went); ``phase_seconds`` splits the
+    run by these marks."""
+    _MARKS.append((phase, time.time()))
+    log(f"chip_smoke: phase {phase} starts at {_MARKS[-1][1] - _MARKS[0][1]:.1f} s")
+
+
+def phase_seconds(t_end: float) -> dict:
+    """Seconds from each mark to the next (the last to ``t_end``), in order."""
+    ends = [t for _, t in _MARKS[1:]] + [t_end]
+    return {p: round(e - t, 1) for (p, t), e in zip(_MARKS, ends)}
 
 
 def card() -> str:
@@ -636,64 +660,55 @@ def kind_name(b) -> str:
 
 
 def random_band(B: int, nb: int, rows_total: int, nblk: int, device, real: bool = False,
-                bf16: bool = False, on_device: bool = False):
+                bf16: bool = False):
     """A random factored pivot-free band and Dinv (scaled by 2e-3 so the
-    recursion stays bounded); ``bf16``: the band rounded to bf16 storage;
-    ``on_device``: drawn by the card's generator (a wide band's gigabytes)."""
+    recursion stays bounded), drawn by the device's generator (a wide
+    band's gigabytes); ``bf16``: the band rounded to bf16 storage."""
     import torch
     from lsafw_tpu_torch.solver import band_cuda as bc
 
-    rng = np.random.default_rng(0)
     g = torch.Generator(device=device).manual_seed(0)
+    dtype = torch.float32 if real else torch.complex64
 
     def rand(shape, scale):
-        if on_device:
-            return torch.randn(shape, generator=g, device=device,
-                               dtype=torch.float32 if real else torch.complex64) * scale
-        z = rng.standard_normal(shape + (1 if real else 2,), dtype=np.float32) * np.float32(scale)
-        t = torch.from_numpy(z[..., 0] if real else z)
-        return (t if real else torch.view_as_complex(t)).to(device)
+        return torch.randn(shape, generator=g, device=device, dtype=dtype) * scale
 
-    eye = torch.eye(nb, dtype=torch.float32 if real else torch.complex64, device=device)
+    eye = torch.eye(nb, dtype=dtype, device=device)
     band = rand((rows_total, 2 * B + 1, nb, nb), 2e-3)
     return SimpleNamespace(band=bc.narrow(band) if bf16 else band,
                            dinv=(rand((nblk, nb, nb), 2e-3) + eye).contiguous())
 
 
 def random_pivoted(B: int, nb: int, nblk: int, device, real: bool = False,
-                   on_device: bool = False, scale: float = 0.005):
-    """A random band that needs pivoting, factored on the card by the
-    port's ``_pfactor``.  The matrix is a row permutation of I + s N
-    (N standard normal, zero in the band's two outermost slots; s =
-    ``scale``): half the rows of each even block row trade places with
-    rows of the next block row, and the rows inside each diagonal block
-    are shuffled.  So the panel LU pivots within and across block rows,
-    and the factor is well conditioned: f32 solves agree with f64 to
-    about 3e-7 (a CPU run at B = 7, 24 block rows).  ``on_device``: drawn
-    by the card's generator."""
+                   scale: float = 0.005):
+    """A random band that needs pivoting, drawn by the device's generator
+    and factored on it by the port's ``_pfactor``.  The matrix is a row
+    permutation of I + s N (N standard normal, zero in the band's two
+    outermost slots; s = ``scale``): half the rows of each even block row
+    trade places with rows of the next block row, and the rows inside each
+    diagonal block are shuffled.  So the panel LU pivots within and across
+    block rows, and the factor is well conditioned: f32 solves agree with
+    f64 to about 3e-7 (a CPU run at B = 7, 24 block rows)."""
     import torch
     from lsafw_tpu_torch.solver import band as tband
 
-    gen_dev = device if on_device else "cpu"
-    g = torch.Generator(device=gen_dev).manual_seed(0)
+    g = torch.Generator(device=device).manual_seed(0)
     rows_total, R = nblk + B, 2 * B + 1
 
     def noise():
-        return torch.randn((rows_total, R, nb, nb), generator=g, device=gen_dev) * scale
+        return torch.randn((rows_total, R, nb, nb), generator=g, device=device) * scale
 
     band = noise() if real else torch.complex(noise(), noise())
     band[:, 0] = 0
     band[:, 2 * B] = 0
-    band[:, B] += torch.eye(nb, device=gen_dev)
-    band = band.to(device)
+    band[:, B] += torch.eye(nb, device=device)
     for K in range(0, nblk - 1, 2):
-        a, a2 = (torch.randperm(nb, generator=g, device=gen_dev)[:nb // 2].to(device)
-                 for _ in range(2))
+        a, a2 = (torch.randperm(nb, generator=g, device=device)[:nb // 2] for _ in range(2))
         row_a, row_b = band[K, :, a].clone(), band[K + 1, :, a2].clone()
         band[K, :, a] = torch.cat([torch.zeros_like(row_b[:1]), row_b[:-1]])  # one slot right
         band[K + 1, :, a2] = torch.cat([row_a[1:], torch.zeros_like(row_a[:1])])  # one slot left
     for K in range(nblk):
-        band[K] = band[K][:, torch.randperm(nb, generator=g, device=gen_dev).to(device)]
+        band[K] = band[K][:, torch.randperm(nb, generator=g, device=device)]
     L2, L1inv, Uinv, perms = tband._pfactor(band, nblk, 0.0)
     return SimpleNamespace(band=band, L2=L2, L1inv=L1inv, Uinv=Uinv, perms=perms)
 
@@ -2052,9 +2067,11 @@ def gate_growth_modes(what: str, res, M, mask, nu: int) -> None:
 
 def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = False,
                   cross_check: bool = False, time_factors: list | None = None,
-                  horizon: tuple = (HORIZON, CN_STEPS)) -> dict:
+                  horizon: tuple = (HORIZON, CN_STEPS), w0=None) -> dict:
     """Phase 7 / 7b: the Re = 40 baseflow (ramped banded Newton, 4 steps,
-    tol 1e-9) and (A, M) on ``case``; ``ResolventSolver(method="banded")``
+    tol 1e-9; with ``w0``, the baseflow of another Re on the same mesh, one
+    banded Newton from it instead, warm-started along the branch as
+    ``find_critical_re`` does) and (A, M) on ``case``; ``ResolventSolver(method="banded")``
     over ``sweep`` (k = 1), at OMEGA_CHECK with ``k`` gains and, with
     ``norm``, its ``resolvent_norm`` at Z_CHECK;
     ``TransientGrowthSolver(method="banded").solve(*horizon)`` (default
@@ -2063,9 +2080,11 @@ def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = F
     on the host LU (asked for, counted), held to the banded answers.
     ``time_factors`` receives the transient's forward factor."""
     import torch
-    from lsafw_tpu_torch.models.navier_stokes import LinearizedNavierStokesAssembler
+    from lsafw_tpu_torch.models.navier_stokes import (LinearizedNavierStokesAssembler,
+                                                      StationaryNavierStokesAssembler)
     from lsafw_tpu_torch.resolvent import ResolventSolver
     from lsafw_tpu_torch.solver.baseflow import BaseFlowSolver
+    from lsafw_tpu_torch.solver.newton import NewtonSolver
     from lsafw_tpu_torch.transient import TransientGrowthSolver
 
     what = f"phase {phase}"
@@ -2075,8 +2094,15 @@ def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = F
     nu, mask = spaces.num_velocity_dofs, np.asarray(case["bcs_pert"].dirichlet_mask)
     with plain_loops_forbidden():
         with stage("baseflow", stages):
-            solver = BaseFlowSolver(case["ctx"], case["mesh"], case["bcs_base"], re=NONMODAL_RE)
-            w = solver.solve(ramp=True, steps=4, tol=1e-9, max_it=40, linear_solver="banded")
+            if w0 is None:
+                solver = BaseFlowSolver(case["ctx"], case["mesh"], case["bcs_base"],
+                                        re=NONMODAL_RE)
+                w = solver.solve(ramp=True, steps=4, tol=1e-9, max_it=40, linear_solver="banded")
+            else:
+                res = NewtonSolver(StationaryNavierStokesAssembler(
+                    case["ctx"], case["mesh"], case["bcs_base"]), linear_solver="banded").solve(
+                    torch.as_tensor(w0, device=dev), NONMODAL_RE, tol=1e-9, max_it=40)
+                w, solver = res.w, SimpleNamespace(newton_results=[res])
         with stage("assemble", stages):
             A, M = LinearizedNavierStokesAssembler(w, case["ctx"], NONMODAL_RE, case["bcs_pert"],
                                                    case["mesh"]).assemble_eigensystem()
@@ -2163,11 +2189,20 @@ def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = F
             z_lu = ts_lu._march_adjoint(ad_lu, s, ts_lu._mass(qT), n_steps)
             return qT, z_lu, float(qT @ ts_lu._mass(qT))
 
+        job_s: list = [0.0] * 3
+
+        def timed(i, fn):
+            t_job = time.time()
+            out = fn()
+            job_s[i] = time.time() - t_job
+            return out
+
         # the three host-LU checks side by side: SuperLU releases the GIL
         with host_lu_counted() as hl, ThreadPoolExecutor(max_workers=3) as pool:
-            jobs = (pool.submit(lambda: resolvent_lu().solve(OMEGA_CHECK, k=2).gains),
-                    pool.submit(lambda: resolvent_lu().resolvent_norm(Z_CHECK, tol=1e-9)),
-                    pool.submit(transient_lu))
+            jobs = (pool.submit(timed, 0, lambda: resolvent_lu().solve(OMEGA_CHECK, k=2).gains),
+                    pool.submit(timed, 1, lambda: resolvent_lu().resolvent_norm(Z_CHECK,
+                                                                                 tol=1e-9)),
+                    pool.submit(timed, 2, transient_lu))
             g_lu, n_lu, (qT, z_lu, G_lu) = (job.result() for job in jobs)
         rel_g = float(np.abs(modes.gains - g_lu).max() / np.abs(g_lu).max())
         rel_n, rel_G = abs(rnorm - n_lu) / n_lu, abs(growth.gains[0] - G_lu) / G_lu
@@ -2175,7 +2210,9 @@ def nonmodal_path(case, phase: str, dev, *, sweep=(), k: int = 1, norm: bool = F
         rel_q = float(np.abs(qT.cpu().numpy() - growth.finals[0]).max()
                       / np.abs(growth.finals[0]).max())
         log(f"{what}: the host LU, asked for ({hl['host_lu']} host LU factors, "
-            f"{time.time() - t0:.2f} s): gains {g_lu.tolist()} (rel {rel_g:.1e}), norm {n_lu:.10f} "
+            f"{time.time() - t0:.2f} s; the gains, the norm and the transient "
+            f"{', '.join(f'{x:.2f}' for x in job_s)} s side by side): gains {g_lu.tolist()} "
+            f"(rel {rel_g:.1e}), norm {n_lu:.10f} "
             f"(rel {rel_n:.1e}); the banded optimum's energy at T under the host-LU propagator "
             f"{G_lu:.10f} (rel {rel_G:.1e}), its state at T rel {rel_q:.1e}, the gain "
             f"operator's image rel {rel_z:.1e}")
@@ -2420,16 +2457,20 @@ def span_path(case, p2d: dict, phase: str, dev, *, cross_check: bool = False,
     return out
 
 
-def wnl_path(case, phase: str, dev, *, cross_check: bool = False) -> dict:
+def wnl_path(case, phase: str, dev, *, cross_check: bool = False, w0=None) -> dict:
     """Phase 8 / 8b, WNL stage: ``find_critical_re`` over the phase's
     bracket (tol 1e-3; each baseflow, Newton and eigensolve a stage), then
     ``weakly_nonlinear`` at the Re_c it returns (the sensitivity solver's
     direct, adjoint and du/dRe solves and the two forced solves, each a
     stage), with test_wnl.py's gates, the forced solves' residuals on the
     card's CSR and a^H M q1 = 1; with ``cross_check`` the two forced solves
-    again on the host LU (asked for, counted), in two threads."""
+    again on the host LU (asked for, counted), in two threads.  With ``w0``
+    (the baseflow of another Re on the same mesh), the bracket's first
+    baseflow is one banded Newton from it instead of the ramp, as
+    ``find_critical_re`` warm-starts its later ones."""
     import torch
     from lsafw_tpu_torch import wnl
+    from lsafw_tpu_torch.models.navier_stokes import StationaryNavierStokesAssembler
     from lsafw_tpu_torch.ops.sparse import spmv
 
     what = f"phase {phase} WNL"
@@ -2447,7 +2488,16 @@ def wnl_path(case, phase: str, dev, *, cross_check: bool = False) -> dict:
         def solve(self, **kw):
             state["re"] = self._re
             with stage(f"baseflow Re={self._re:.4f}", stages):
-                return super().solve(**kw)
+                if w0 is None:
+                    return super().solve(**kw)
+                res = saved["NewtonSolver"](
+                    StationaryNavierStokesAssembler(case["ctx"], case["mesh"], case["bcs_base"]),
+                    linear_solver=kw["linear_solver"]).solve(
+                    torch.as_tensor(w0, device=dev), self._re, tol=kw["tol"], max_it=kw["max_it"])
+            if not res.converged:
+                raise RuntimeError(f"{what}: the Newton from w0 to Re = {self._re:g} did not "
+                                   f"converge ({res.residual_norm:.2e})")
+            return res.w
 
     class Newton(saved["NewtonSolver"]):
         def solve(self, w0, re, **kw):
@@ -2583,6 +2633,18 @@ def wnl_path(case, phase: str, dev, *, cross_check: bool = False) -> dict:
 UNSTEADY_RE = 60.0  # tests/benchmark/test_unsteady.py:29, examples/floquet_cycle.py:37
 DNS_TARGET, DNS_EPS, DNS_DT, DNS_STEPS = 0.05 + 0.75j, 1e-5, 0.25, 360  # test_unsteady.py
 SAT_DT, SAT_STEPS = 0.2, 1750  # examples/floquet_cycle.py: dt 0.2, t_sat = 350
+# 9c's cut in depth: the march starts from 9b's last state with its
+# perturbation scaled to a 2-norm of SAT_NORM (9b leaves it near 1e-3, where
+# the example starts, and the example spends about 200 of its 350 time
+# units growing to the cycle's 2-norm of about 30; from 5 the growth takes
+# about 40) and runs in chunks of SAT_CHUNK steps, stopping after at least
+# SAT_MIN steps (t = 200: about the 150 time units the example marches on
+# the cycle; on an H100 the saturated frequency came 1.0% above that of
+# the example's march after 625 steps, 0.65% after 1,000, the orbit closing
+# to 4.8e-4 against the example's 2.9e-3) once the last quarter's
+# amplitude is within SAT_SETTLED of the quarter before (the gate allows
+# 5%), at SAT_STEPS at most
+SAT_NORM, SAT_CHUNK, SAT_MIN, SAT_SETTLED = 5.0, 125, 1000, 0.01
 N_SNAPS, FLOQUET_K = 40, 5  # examples/floquet_cycle.py
 SPAN_FLOQUET_BETA, SPAN_FLOQUET_K = 1.6, 3  # mode A's wavenumber; secondary_instability.py's k
 FORCED_EPS, FORCED_PER = 1e-6, 64  # tests/benchmark/test_resolvent_dns.py
@@ -2593,6 +2655,36 @@ TRIP_KEY = ("pivoted.f32x2", "RealPivotedBandedLU", "c128.f32x2")
 # the stages that may build a plan: the first on the 2D pattern's real and
 # complex plans (cached since phase 3 unless evicted) and on the quasi-3D one
 P9_BUILDS = {"9a forced DNS": 1, "9b eigen": 1, "9e spanwise floquet": 1}
+
+
+def quarters(sig: np.ndarray) -> tuple[float, float, float]:
+    """The peak |signal| over its last quarter and over the quarter before,
+    and their difference relative to the first: 9c's saturation measure."""
+    q4 = len(sig) // 4
+    a_last, a_prev = float(np.abs(sig[-q4:]).max()), float(np.abs(sig[-2 * q4:-q4]).max())
+    return a_last, a_prev, abs(a_last - a_prev) / a_last
+
+
+def saturate(us, q0, probe: int, wp: float, t0: float):
+    """9c's march from ``q0`` at ``t0`` in chunks of ``SAT_CHUNK`` steps of
+    ``SAT_DT``, until the probe's signal (less ``wp``) is saturated to
+    ``SAT_SETTLED`` after ``SAT_MIN`` steps, or ``SAT_STEPS``: the chunks'
+    ``UnsteadyResult`` joined.  ``us`` keeps its chord factor across chunks,
+    and a theta step reads only the state, so the chunks march as one run."""
+    import torch
+    from lsafw_tpu_torch.solver.timestepping import UnsteadyResult
+
+    q, t, ts, probes, stats = q0, t0, [], [], []
+    while len(stats) < SAT_STEPS:
+        r = us.run(q, SAT_DT, min(SAT_CHUNK, SAT_STEPS - len(stats)), probe_dofs=[probe], t0=t)
+        q, t = r.q, float(r.t[-1])
+        ts.append(r.t)
+        probes.append(r.probes)
+        stats += r.stats
+        if not bool(torch.isfinite(q).all()) or (len(stats) >= SAT_MIN and quarters(
+                np.concatenate(probes)[:, 0] - wp)[2] < SAT_SETTLED):
+            break
+    return UnsteadyResult(np.concatenate(ts), np.concatenate(probes), q, stats)
 
 
 def probe_dof(spaces) -> int:
@@ -2672,8 +2764,10 @@ def unsteady_path(case, p7: dict, dev, keep: list | None = None) -> dict:
     0.05+0.75j, num_eig 2, ncv 30, atol 1e-9; the march from w + 1e-5 v,
     v = Re(v_hat) normalised, dt 0.25, 360 steps, refactor every 50,
     Newton to 1e-10; the probe v at (2.5, 0)); 9c the saturated cycle
-    (``examples/floquet_cycle.py``: on from 9b's state at dt 0.2, refactor
-    every 10, Newton to 1e-9, t_sat = 350; then N = 40 steps of T/40,
+    (``examples/floquet_cycle.py``: at dt 0.2, refactor every 10, Newton
+    to 1e-9, t_sat = 350 at most; from 9b's state with its perturbation
+    scaled to ``SAT_NORM``, until saturated, :func:`saturate`; then N = 40
+    steps of T/40,
     refactoring every step, stored as the snapshots); 9d the 2D Floquet
     multipliers on the prestored factors (k = 5), one inexact trip against
     the prestored one and one step against a host SuperLU (asked for, one
@@ -2750,11 +2844,14 @@ def unsteady_path(case, p7: dict, dev, keep: list | None = None) -> dict:
         sigma_r_fit = float(np.polyfit(t[half], np.log(env[half]), 1)[0])
         grow = env[half][-1] / (np.exp(sigma.real * (t[half][-1] - t[half][0])) * env[half][0])
 
+        pert = dns.q - w
+        norm9b = float(torch.linalg.vector_norm(pert))
         with stage("9c saturation", stages):
             us = UnsteadySolver(ctx, mesh, bcs, UNSTEADY_RE, newton_tol=1e-9, refactor_every=10,
                                 device=dev)
-            sat = us.run(dns.q, SAT_DT, SAT_STEPS, probe_dofs=[probe], t0=float(t[-1]))
+            sat = saturate(us, w + (SAT_NORM / norm9b) * pert, probe, wp, float(t[-1]))
         stats["9c saturation"] = us.stats
+        sat_steps = len(sat.stats)
         done("9c saturation")
         newton_sat = [s.newton_iters for s in sat.stats]
         q, _ = us.step(sat.q, SAT_DT)  # a refactoring step; the next reuses its factor
@@ -2762,7 +2859,7 @@ def unsteady_path(case, p7: dict, dev, keep: list | None = None) -> dict:
         del us
         ssig = sat.probes[:, 0] - wp
         q4 = len(ssig) // 4
-        a_last, a_prev = np.abs(ssig[-q4:]).max(), np.abs(ssig[-2 * q4:-q4]).max()
+        a_last, a_prev, _ = quarters(ssig)
         omega_sat = dominant_frequency(sat.t[-2 * q4:], ssig[-2 * q4:])
         period = 2 * np.pi / omega_sat
         dt_f = period / N_SNAPS
@@ -2839,12 +2936,14 @@ def unsteady_path(case, p7: dict, dev, keep: list | None = None) -> dict:
         f"{0.1 * abs(sigma.real) + 2e-3:.2e}); envelope growth over the fit window "
         f"{grow:.3f} of e^(sigma_r t) (limit 0.5); Newton corrections a step "
         f"{np.mean([s.newton_iters for s in dns.stats]):.2f}")
-    log(f"{what}c: {SAT_STEPS} steps of dt {SAT_DT}: amplitude of the last quarter {a_last:.6f}, "
+    log(f"{what}c: {sat_steps} steps of dt {SAT_DT} (at most {SAT_STEPS}; from 9b's state, its "
+        f"perturbation's 2-norm {norm9b:.3e} scaled to {SAT_NORM:g}; stopped at {SAT_SETTLED:g} "
+        f"after {SAT_MIN} steps): amplitude of the last quarter {a_last:.6f}, "
         f"the quarter before {a_prev:.6f} (rel {abs(a_last - a_prev) / a_last:.2e}, limit 0.05); "
         f"omega_sat {omega_sat:.6f} (sigma_i {sigma.imag:.6f}), period {period:.6f}; Newton "
         f"corrections a step {np.mean(newton_sat):.2f}; orbit closure over {N_SNAPS} steps of "
         f"{dt_f:.6f}: {closure:.3e} (limit 1e-2)")
-    per_step = stages["9c saturation"]["seconds"] / SAT_STEPS * 1e3
+    per_step = stages["9c saturation"]["seconds"] / sat_steps * 1e3
     log(f"{what}c: one saturated step on a chord factor under the profiler: {step_ops} device "
         f"operations, {step_wall:.2f} ms wall, the card busy {step_busy:.2f} ms "
         f"({100 * step_busy / step_wall:.1f}%); the march {per_step:.2f} ms a step")
@@ -2934,15 +3033,19 @@ PHASE2_WIDE = {128: (86, 96), 256: (43, 48)}
 # columns) and the main path's pivoted c64
 WIDE_MODES = (("pivot_free", False), ("pivot_free", True), ("pivoted", False), ("pivoted", True))
 S3D_ROW_LENS = (60, 131)  # nonzeros a row: 95 on average, as the cube's 20,448,316 / 216,024
-# tests/benchmark/test_cavity3d.py at examples/cube.py's 20^3 (BASELINE.md:20)
-CUBE_N, CUBE_RE, CUBE_TARGET, CUBE_NEV, CUBE_NCV = 20, 100.0, -0.2 + 0.3j, 4, 24
+# tests/benchmark/test_cavity3d.py on unit_cube(16): a cut in scale for the
+# script's budget from examples/cube.py's 20^3 (BASELINE.md:20), whose
+# factors took 130 s of the phase's 150 (an H100 at 700 W); B = 86 at 20^3
+# stays in phase 2's wide factors (PHASE2_WIDE)
+CUBE_N, CUBE_RE, CUBE_TARGET, CUBE_NEV, CUBE_NCV = 16, 100.0, -0.2 + 0.3j, 4, 24
 # the baseflow's ramp: 2 steps (examples/cube.py's), a depth cut from
 # test_cavity3d.py's 3 for the script's budget
 CUBE_RAMP = 2
-# the phase's own budgets: the real pivoted Newton factor (21.29 GB band and
-# 10.41 GB of pivoted extras, 31.71 GB) and the pivoted complex64 eigen factor
-# (42.58 GB band and 20.75 GB of extras, 63.33 GB), each band at full width in
-# f32.  The pivot-free complex64 factor (42.58 GB alone) contracts by 0.243
+# the phase's own budgets, sized for the cube at 20^3: the real pivoted Newton
+# factor (21.29 GB band and 10.41 GB of pivoted extras, 31.71 GB) and the
+# pivoted complex64 eigen factor (42.58 GB band and 20.75 GB of extras, 63.33
+# GB), each band at full width in f32.  At 20^3 the pivot-free complex64
+# factor (42.58 GB alone) contracts by 0.243
 # at B = 86 on an H100: 36 GCR iterations an apply, residuals 5.6e-7, the
 # eigenvectors polluted at the target and at the offset shift (290 s)
 CUBE_ENV = {"LSAFW_PIVOT_MEM_GB": "70", "LSAFW_BAND_MEM_GB": "45"}
@@ -2968,9 +3071,8 @@ def wide_kernels(dev, errs: dict) -> list:
     out = []
     for nb2, (B, nblk) in PHASE2_WIDE.items():
         for mode, real in WIDE_MODES:
-            f = (random_pivoted(B, nb2, nblk, dev, real, on_device=True,
-                                scale=0.005 * (7 / B) ** 0.5) if mode == "pivoted"
-                 else random_band(B, nb2, nblk + B, nblk, dev, real, on_device=True))
+            f = (random_pivoted(B, nb2, nblk, dev, real, scale=0.005 * (7 / B) ** 0.5)
+                 if mode == "pivoted" else random_band(B, nb2, nblk + B, nblk, dev, real))
             for seed, kind in enumerate(kinds(f)):
                 b = rhs(kind, nblk, nb2, dev, 3 + seed)
                 what = f"phase 2 wide B={B} nblk={nblk}"
@@ -3265,7 +3367,8 @@ def cube_path(dev, errs: dict) -> dict:
         log(f"{what}: baseflow peak {above:.2f} GB above its start against the real pivoted "
             f"factor's reckoned {rk['real'] + rk['real_extra']:.2f} GB")
         # K1/K2 pivoted f32 x1 at the cube's B, on the last Newton factor
-        kernels = band_kernels([(", 216k lid cube Newton (phase 10)", last.pop("factor"))], errs,
+        size = f"{ctx.spaces.num_dofs / 1e3:.0f}k lid cube"
+        kernels = band_kernels([(f", {size} Newton (phase 10)", last.pop("factor"))], errs,
                                dev, only=("f32x1",), plain_reps=1)
         torch.cuda.empty_cache()
         with plain_loops_forbidden():
@@ -3279,7 +3382,7 @@ def cube_path(dev, errs: dict) -> dict:
     log_eigen(f"{what}: eigen", sig, res, es)
     log(f"{what}: eigen peak {eig['peak_gb'] - eig['resident_gb']:.2f} GB above its start against "
         f"the pivoted complex64 factor's reckoned {rk['c64'] + rk['c64_extra']:.2f} GB")
-    # the factor class the budget gives: at 20^3 the pivoted one
+    # the factor class the budget gives: the pivoted one (at 20^3 too)
     pivot_gb = float(CUBE_ENV["LSAFW_PIVOT_MEM_GB"])
     expect = "PivotedBandedLU" if rk["c64"] + rk["c64_extra"] <= pivot_gb else "BandedLU"
     gate_eigen_stage(f"{what} eigen", eig, (expect,))
@@ -3289,9 +3392,9 @@ def cube_path(dev, errs: dict) -> dict:
                            f"sigma {sig} (every real part < 0), residuals {res} (<= 1e-8), "
                            f"{paired} complex modes paired with their conjugates (>= 2)")
     op = es.operator
-    kernels += band_kernels([(", 216k lid cube eigen (phase 10)", op.device_op.blu)], errs, dev,
+    kernels += band_kernels([(f", {size} eigen (phase 10)", op.device_op.blu)], errs, dev,
                             plain_reps=1)
-    kernels += spmv_timed(op.device_op.Cop, A, M, dev, ", 216k lid cube (phase 10)")
+    kernels += spmv_timed(op.device_op.Cop, A, M, dev, f", {size} (phase 10)")
     del es, op
     out = dict(stages=stages, kernels=kernels, sigma=sig, dofs=ctx.spaces.num_dofs, B=rk["B"],
                launches={k: sum(s_["launches"][k] for s_ in stages.values()) for k in counts()})
@@ -3735,6 +3838,8 @@ def scm_path(dev, errs: dict) -> dict:
         log(f"{what}: {ph} {a['n']} {kind} stages, {a['seconds']:.2f} s, {a['solves']} band "
             f"solves, factor classes {sorted(a['classes'])}, peak {a['peak']:.3f} GB above a "
             f"stage's start")
+    slow = sorted(((st["seconds"], name) for name, st in stages.items()), reverse=True)[:6]
+    log(f"{what}: the slowest stages: " + ", ".join(f"{n} {sec:.2f} s" for sec, n in slow))
     eig = [figures[k] for k in figures if k.startswith("11a eigen")]
     log(f"{what} 11a: {len(eig)} eigensolves, factors {sum(f['factor_s'] for f in eig):.2f} s, "
         f"contraction max {max(f['rho'] for f in eig):.2e}, applies "
@@ -4907,10 +5012,12 @@ def main() -> int:
     from lsafw_tpu_torch.solver import band as tband
 
     t_start = time.time()
+    mark("1")
     dev = torch.device(DEVICE)
     name_power = card()
     log(f"phase 1: card {name_power}; torch {torch.__version__} cuda {torch.version.cuda}")
     build_all()
+    mark("2")
     errs: dict = {}  # launch key ("K1.pivoted.c64", ...) -> max abs error over phases 2 and 4
     if "--phase13" in sys.argv[1:]:  # phases 3 and 13 alone, no result lines
         from lsafw_tpu_torch.solver.pmg import build_pmg_pc
@@ -4937,6 +5044,7 @@ def main() -> int:
             errs[key_of(k, f, kind)] = max(errs.get(key_of(k, f, kind), 0.0), a)
 
     for (nb2, storage), shapes in PHASE2_SHAPES.items():
+        mark(f"2 nb={nb2} {storage}")
         bf16 = storage == "bf16"
         for B, nblk in shapes:
             for real in (False, True):
@@ -4958,13 +5066,16 @@ def main() -> int:
                                 k, f, kind, f", random factor B={B} nblk={nblk}",
                                 errs[key_of(k, f, kind)], ms[k], plain[k])
                     del f
+    mark("2 wide")
     wide_entries = wide_kernels(dev, errs)
+    mark("2 G")
     gi = gather_inputs(dev)
     g_errs = check_gather(gi)
     for nb2, n in ((nb, 10007), (256, 20011)):
         br, bc, perm, iperm = random_permutation(n, nb2, dev, seed=4)
         check_permutes(permute_cases(br, bc, perm, iperm, nb2),
                        f"on a random permutation at nb = {nb2}")
+    mark("2 S")
     rop = random_shifted_op(20011, dev, seed=5)
     check_spmv(spmv_cases(rop, dev), "on a random matrix")
     rop = random_shifted_op(20011, dev, seed=6, row_lens=S3D_ROW_LENS)
@@ -4978,6 +5089,7 @@ def main() -> int:
     if "--kernels" in sys.argv[1:]:
         return 0
 
+    mark("3")
     start_mesh_worker()
     forbid_host_lu()
     case = cylinder_case(dev)
@@ -4987,6 +5099,7 @@ def main() -> int:
     p3c = bf16_path(case, mp, pf)
 
     # phase 4: agreement and times
+    mark("4")
     cop = mp["op"].device_op.Cop
     cases = spmv_cases(cop, dev)
     s_errs = check_spmv(cases, "on the main path's (A, M)")
@@ -5127,10 +5240,13 @@ def main() -> int:
         f"busy {gcr_busy:.2f} ms ({100 * gcr_busy / gcr_ms:.1f}%); the baseflow launched "
         f"{mp['per_gcr']:.2f} of the port's kernels per GCR iteration")
 
+    mark("5")
     p5 = sensitivity_path(case, mp)
+    mark("12")
     p12 = krylov_path(case, mp, p3c["J"], errs, dev)
     kernels += p12.pop("kernels")
     del p12["stages"]
+    mark("13")
     p13 = structured_path(case, mp, p12.pop("pmg"), errs, dev)
     kernels += p13.pop("kernels")
     torch.cuda.empty_cache()
@@ -5138,15 +5254,18 @@ def main() -> int:
     p3 = {k: mp[k] for k in ("w", "A", "M", "sigma")}  # phase 8's 2D base and answer
     del mp, pf, p3c, cop, cases, mg, p5["stages"]
     torch.cuda.empty_cache()
+    mark("7")
     p7 = nonmodal_path(case, "7", dev, sweep=OMEGAS, k=2, norm=True, cross_check=True)
     del p7["stages"]
     torch.cuda.empty_cache()
+    mark("8")
     p8 = {"span": span_path(case, p3, "8", dev, cross_check=True)}
     torch.cuda.empty_cache()
     p8["wnl"] = wnl_path(case, "8", dev, cross_check=True)
     del p3
     torch.cuda.empty_cache()
     floquet_factors: list = []
+    mark("9")
     p9 = unsteady_path(case, p7, dev, keep=floquet_factors)
     # phase 4, continued: K1/K2 pivoted f32 (x2: the Floquet trips') on a 9d factor
     kernels += band_kernels([(", 43k phase 9d Floquet", floquet_factors[0])], errs, dev)
@@ -5155,6 +5274,7 @@ def main() -> int:
     del case, p9["stages"], p7["M"]
     torch.cuda.empty_cache()
 
+    mark("6")
     p6 = production_path(dev)
     p6b = production_rerun(p6, "6b", "pivot_free.c64.nb256", LSAFW_BAND_NB="256")
     p6c = production_rerun(p6, "6c", "pivot_free.bf16.c64", LSAFW_BAND_MEM_GB="4")
@@ -5185,8 +5305,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     transient_factors: list = []
+    mark("7b")
     p7b = nonmodal_path(case6, "7b", dev, time_factors=transient_factors,
-                        horizon=(HORIZON / 2, CN_STEPS // 2))
+                        horizon=(HORIZON / 2, CN_STEPS // 2), w0=p6d["w"])
     del p7b["stages"]
     # phase 4, continued: K1/K2 pivoted f32 on the 175k transient's real factor
     kernels += band_kernels([(", 175k phase 7b", transient_factors[0])], errs, dev, plain_reps=1)
@@ -5195,22 +5316,27 @@ def main() -> int:
     log(f"phase 7: phases 7 and 7b took {p7['seconds'] + p7b['seconds']:.1f} s (budget 150 s)")
 
     q3_factors: list = []
+    mark("8b")
     p8b = {"span": span_path(case6, p6d, "8b", dev, keep=q3_factors)}
     # phase 4, continued: K1/K2 on the 175k quasi-3D factor of beta = SPAN_BETA
     kernels += band_kernels([(", 175k phase 8b quasi-3D", q3_factors[0])], errs, dev, plain_reps=1)
+    w6 = p6d["w"]  # 8b WNL's warm start
     del q3_factors, p6d
     torch.cuda.empty_cache()
-    p8b["wnl"] = wnl_path(case6, "8b", dev)
-    del case6
+    p8b["wnl"] = wnl_path(case6, "8b", dev, w0=w6)
+    del case6, w6
     p8s = {ph: sum(p[k]["seconds"] for k in ("span", "wnl")) for ph, p in (("8", p8), ("8b", p8b))}
     log(f"phase 8: phases 8 and 8b took {p8s['8'] + p8s['8b']:.1f} s ({p8s['8']:.1f} + "
         f"{p8s['8b']:.1f} s; budget 150 s)")
     torch.cuda.empty_cache()
 
+    mark("10")
     p10 = cube_path(dev, errs)
     kernels += p10.pop("kernels")
     torch.cuda.empty_cache()
+    mark("10b")
     p10b = step_path(dev)
+    mark("10c")
     p10c = step3d_path(dev, errs)
     kernels += p10c.pop("kernels")
     p10s = " + ".join(f"{p['seconds']:.1f}" for p in (p10, p10b, p10c))
@@ -5218,8 +5344,10 @@ def main() -> int:
         f"{sum(p['seconds'] for p in (p10, p10b, p10c)):.1f} s ({p10s} s; budget 250 s); the "
         f"cylinder's diagnostics L_r {p10cyl['L']:.6f}, C_d {p10cyl['cd']:.6f}")
     torch.cuda.empty_cache()
+    mark("11")
     p11 = scm_path(dev, errs)
     kernels += p11.pop("kernels")
+    mark("kernels line")
     timed = {e["_key"] for e in kernels}
     kernels += [e for key, e in random_entries.items() if key not in timed]
     kernels += wide_entries
@@ -5247,7 +5375,10 @@ def main() -> int:
             f"{e['launches_phase9']} in phase 9, {e['launches_phase10']} in phase 10, "
             f"{e['launches_phase11']} in phase 11, {e['launches_phase12']} in phase 12, "
             f"{e['launches_phase13']} in phase 13)")
-    log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
+    t_end = time.time()
+    log(f"chip_smoke: seconds by phase, from each phase's start to the next's: "
+        f"{phase_seconds(t_end)}")
+    log(f"chip_smoke: {t_end - t_start:.1f} s in all")
 
     log(name_power)
     log(json.dumps({"kernels": kernels}))
