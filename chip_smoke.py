@@ -336,7 +336,7 @@ non-zero):
      LOBPCG with ``build_multigrid_pc`` and with phase 12's p-MG on the
      240 x 240 membrane (lambda_1 within 1e-9 of the banded SINVERT
      eigenvalue, residual <= tol, < 60 iterations), ``shift_invert_power``
-     at ``POWER_NX`` (test_power_stencil.py's gates), the 32^3 unit cube
+     at ``POWER_NX`` (test_power_stencil.py's gates), the 24^3 unit cube
      with ``build_multigrid_nd_pc`` (3 pi^2 within the 16^3 P2 error of
      scripts/torch_cube_p2_error.py, < 60 iterations; blocked m = 4: the
      6 pi^2 triple); 13c on the 43k cylinder from the examples' 11k
@@ -350,6 +350,36 @@ non-zero):
      thetas within 1e-7, the control 100x worse or converged); then G's
      permutes and K1/K2 on the phase's own factors (the truncated 43k
      band's K2 by its backward error: ``check_kernels``).
+  14. (after phase 6c; ``cli_path``) the port's command line, run in this
+     process through ``lsafw_tpu_torch.cli.main`` with host LU and the
+     torch substitution loops raising, its files in a temporary directory
+     removed at the end: 14a phase 6's production mesh written by
+     ``write_msh`` and read by ``mesh --from-file --outdir --key``, the
+     cached mesh's cells and facet tags equal to phase 6's and its
+     vertices within 6.2e-16 relative (16 significant digits); 14b
+     ``assemble --from-file`` with ``config_files/2D/cylinder``'s
+     ``bcs.toml`` and ``bcs_perturbation.toml`` at phase 6's Newton
+     parameters (Re = 47, ramp, 3 steps, tol 1e-8, 40 iterations), then
+     ``eigen --target=0.74j --si-method banded`` on its A.mtx and M.mtx:
+     both exit 0, (A, M) read back by scipy equal to phase 6's in structure
+     and within 1e-12 relative in values, sigma within 1e-8 of phase 6's,
+     the exported eigenvector's residual on the host from the files <=
+     1e-8, K1/K2 once per band solve in phase 6's modes (pivoted float32 x1
+     in the Newton, pivot-free complex64 in the eigen stage), one band plan
+     in the eigen stage with M taken on A's pattern (its log line); 14c
+     ``EigenSolver(A, None)`` on phase 3's A at 0.74j (the pencil (A, I)):
+     residual <= 1e-8, sigma within 1e-8 of scipy's ``eigs`` (from a
+     seeded random start) on one counted host LU, K1/K2 pivoted complex64
+     once per band solve, S once per matvec; 14d ``python -m
+     lsafw_tpu_torch.diagnose`` in a subprocess: exit 0, the card
+     ``nvidia-smi`` names, f64 and complex128 ok.  Phase 14's budget is 60
+     s.
+
+Phase 4's K1 timings of the pivot-free factors on f32 storage (the
+complex64 ones of phases 3b and 6, and the real one of A - Re(sigma) M
+with one and two float32 columns) also time one library call that
+computes K1: ``torch.triangular_solve`` with the unit lower factor as a
+sparse CSR tensor (cuSPARSE), held to K1 within 1e-4 (``k1_library``).
 
 The last lines are the card's name and power limit, one JSON object of
 kernel numbers, one entry per kernel, mode, storage and type and per
@@ -360,6 +390,7 @@ main-path factor (``launches``: phases 3, 3b, 3c, 6, 6b and 6c;
 the stages of phase 9; ``launches_phase10``: the stages of phases 10 to
 10c; ``launches_phase11``: the stages of phase 11; ``launches_phase12``:
 the stages of phase 12; ``launches_phase13``: the stages of phase 13;
+``launches_phase14``: the stages of phase 14;
 modes no main path
 runs carry phase 2's random factors, and the wide
 random factors have entries of their own), and
@@ -1529,7 +1560,53 @@ def main_path_factors(mp: dict, pf: dict) -> list:
     return [mp["op"].device_op.blu, pf["op"].device_op.blu, real_pivoted, real_pivot_free]
 
 
-def band_entry(k: str, f, kind: str, label: str, err: float, ms: float, plain_ms: float) -> dict:
+def k1_library(f, b, y) -> float | None:
+    """The time of one PyTorch call that computes pivot-free K1 on the
+    same inputs, or None where it fails: ``torch.triangular_solve`` with
+    the band's unit block-lower factor L (the ``band[:, :B]`` blocks; the
+    diagonal blocks are I) as a sparse CSR tensor of the band's type
+    (complex64, or float32 with b's one or two columns), which runs
+    cuSPARSE's triangular solve, analysis included.  Its result is held to
+    K1's ``y`` (rel 1e-4: two f32 substitutions in another order).  The other
+    modes have no such call: the pivoted ones permute rows within each
+    panel between block steps, and K2 applies the folded block-diagonal
+    D^-1, whose blocks are dense, before its block-upper solve."""
+    import torch
+
+    nblk, nb = b.shape[:2]
+    B = (f.band.shape[1] - 1) // 2
+    dev = b.device
+    try:
+        J = torch.arange(nblk, device=dev)[:, None] - B + torch.arange(B, device=dev)[None, :]
+        ok = J >= 0  # block (K, t) of L multiplies y_{K-B+t}
+        mask = ok[:, None, :, None].expand(nblk, nb, B, nb)
+        values = f.band[:nblk, :B].permute(0, 2, 1, 3)[mask]  # rows (K, i), columns ascending
+        cols = (J[:, None, :, None] * nb + torch.arange(nb, device=dev)).expand(
+            nblk, nb, B, nb)[mask]
+        del mask
+        per_row = (ok.sum(1) * nb).repeat_interleave(nb)
+        crow = torch.cat([per_row.new_zeros(1), per_row.cumsum(0)])
+        L = torch.sparse_csr_tensor(crow, cols, values, size=(nblk * nb, nblk * nb))
+        rhs = b.reshape(nblk * nb, -1)  # c64 (nblk, nb): one column; f32 (nblk, nb, m): m
+
+        def call():
+            return torch.triangular_solve(rhs, L, upper=False, unitriangular=True).solution
+
+        got = call().reshape(b.shape)
+        torch.cuda.synchronize()
+        err = rel_err(got, y[:nblk])[1]  # K1 also returns the band's padding rows
+        ms = cuda_ms(call, 3)
+    except Exception as exc:  # the library call is a yardstick, not a gate
+        log(f"phase 4: K1's library call (torch.triangular_solve, sparse CSR L, {kind_name(b)}) "
+            f"failed: {type(exc).__name__}: {exc}")
+        return None
+    log(f"phase 4: K1's library call, {kind_name(b)}: torch.triangular_solve on the unit lower "
+        f"factor as sparse CSR ({values.numel()} entries) {ms:.4f} ms, rel {err:.2e} from K1")
+    return ms if err <= 1e-4 else None
+
+
+def band_entry(k: str, f, kind: str, label: str, err: float, ms: float, plain_ms: float,
+               library_ms: float | None = None) -> dict:
     """A kernels-line entry of K1 or K2 on factor ``f`` (``launches`` and
     ``launches_phase5`` are filled in from ``_key`` at the end)."""
     if mode_of(f) == "pivoted":  # the XLA scans of the reference's pivoted factors
@@ -1541,17 +1618,21 @@ def band_entry(k: str, f, kind: str, label: str, err: float, ms: float, plain_ms
     return dict(name=f"{name}, {mode_name(f, kind)}{label}", route="cuda",
                 source="lsafw_tpu_torch/csrc/band_subst.cu", replaces=line, launches=0,
                 _key=key_of(k, f, kind), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def band_kernels(factors: list, errs: dict, device, *, only: tuple | None = None,
-                 plain_reps: int = 3, backward: tuple = ()) -> list:
+                 plain_reps: int = 3, backward: tuple = (), library: bool = False) -> list:
     """K1/K2 in each mode and type (or the types in ``only``) on the main
     path's own factors, given as (label, factor) pairs: held against their
     plain versions, then timed one call at a time with CUDA events (each
     band exceeds the 50 MB L2, so every call is cold) beside the plain
-    loops (``plain_reps`` calls) and the bounds.  Returns the kernels-line
-    entries."""
+    loops (``plain_reps`` calls) and the bounds; with ``library``, pivot-free
+    K1 on f32 storage (complex64, float32 x 1 and x 2) beside its library
+    call (:func:`k1_library`).
+    Returns the kernels-line entries."""
+    import torch
+
     out = []
     for label, f in factors:
         fwd, fwd_plain, bwd, bwd_plain = substitutions(f)
@@ -1568,8 +1649,11 @@ def band_kernels(factors: list, errs: dict, device, *, only: tuple | None = None
             y = fwd_plain(b)
             times = {"K1": (cuda_ms(lambda: fwd(b), 20), cuda_ms(lambda: fwd_plain(b), plain_reps)),
                      "K2": (cuda_ms(lambda: bwd(y), 20), cuda_ms(lambda: bwd_plain(y), plain_reps))}
+            lib = {"K1": k1_library(f, b, fwd(b)) if library and md == "pivot_free"
+                   and f.band.dtype in (torch.complex64, torch.float32) else None}
             for k, (ms, plain_ms) in times.items():
-                out.append(band_entry(k, f, kind, label, errs[key_of(k, f, kind)], ms, plain_ms))
+                out.append(band_entry(k, f, kind, label, errs[key_of(k, f, kind)], ms, plain_ms,
+                                      lib.get(k)))
             if kind in ("c64", "f32x1"):
                 bounds = subst_bounds(f, kind)
                 plain_solve = cuda_ms(lambda: bwd_plain(fwd_plain(b)), plain_reps)
@@ -4473,12 +4557,15 @@ STRUCT_NX = 240  # bench.py:132's 240 x 240 Taylor-Hood rectangle (520,803 DOFs)
 STRUCT_TOL = {"f64": 1e-12, "f32": 1e-5}  # against S (f64), against the f64 product (f32)
 MEMBRANE_SIGMA = 19.0 + 0.3j  # tests/unit/test_eigen.py:370
 NESTED_NX = (60, 240)  # the membranes' coarse and fine grids of 13c
-POWER_NX = 96  # power_probe.py: the largest nx (nx x 2 nx, 74,305 DOFs) at which the fixed
-# 200-step Jacobi CG converges (to the gates, at its 50-step cap; at 128 it does not)
-MG_CUBE_N = 32  # 13b's unit cube, 274,625 P2 DOFs
+# 13b's sizes, cut for the script's time limit: the membrane of the power
+# iteration at 64 x 128 (power_probe.py: 96 is the largest nx at which the
+# fixed 200-step Jacobi CG converges, 128 does not) and the unit cube at 24^3
+# (117,649 P2 DOFs, in place of 32^3's 274,625)
+POWER_NX = 64
+MG_CUBE_N = 24
 # relative P2 errors of 3 pi^2 and of the 6 pi^2 triple (its worst member) on
 # unit_cube(16), measured on the CPU by scripts/torch_cube_p2_error.py
-# (3.55e-5 and 1.86e-4; the error falls as h^4, so they bound the 32^3 ones)
+# (3.55e-5 and 1.86e-4; the error falls as h^4, so they bound the 24^3 ones)
 CUBE_ERR16 = (3.56e-5, 1.87e-4)
 
 
@@ -5002,6 +5089,214 @@ def structured_path(case, mp: dict, pmg_pc, errs: dict, dev) -> dict:
     return dict(launches=launches, seconds=seconds, kernels=kernels)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the command line and its I/O
+# ---------------------------------------------------------------------------
+
+MSH_REL = 6.2e-16  # write_msh's 16 significant digits, read back to the nearest double
+
+
+@contextmanager
+def messages(name: str):
+    """The messages logged (INFO and up) by logger ``name`` and its
+    children while the block runs (the CLI resets the handlers of the
+    package's root logger, so ``name`` is one of its children)."""
+    import logging
+
+    seen: list = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    lg = logging.getLogger(name)
+    keep, level = Keep(logging.INFO), lg.level
+    lg.addHandler(keep)
+    lg.setLevel(logging.INFO)
+    try:
+        yield seen
+    finally:
+        lg.removeHandler(keep)
+        lg.setLevel(level)
+
+
+def cli_run(argv: list, what: str) -> None:
+    """``python -m lsafw_tpu_torch <argv>`` in this process; it must exit 0."""
+    from lsafw_tpu_torch import cli
+
+    rc = cli.main([str(a) for a in argv])
+    if rc != 0:
+        raise RuntimeError(f"{what}: lsafw_tpu_torch {' '.join(map(str, argv))} exited {rc}")
+
+
+def cli_path(case6: dict, p6: dict, a43, name_power: str, dev) -> dict:
+    """Phase 14 (after phase 6c): the port's command line in this process
+    (``lsafw_tpu_torch.cli.main``), its files in a temporary directory
+    removed at the end, host LU and the torch substitution loops raising.
+    14a ``write_msh`` of phase 6's production mesh and ``mesh --from-file
+    --outdir --key``: the cached mesh's cells and facet tags equal phase
+    6's, its vertices within ``MSH_REL``; 14b ``assemble --from-file`` with
+    the production TOML files (phase 6's Newton parameters) and ``eigen
+    --target=0.74j --si-method banded`` on its A.mtx, M.mtx: (A, M) against
+    phase 6's (structure exact, values rel 1e-12), sigma within 1e-8 of
+    phase 6's, the exported eigenvector's residual on the host from the
+    files <= 1e-8, K1/K2 in phase 6's modes once per band solve, one band
+    plan in the eigen stage with M taken on A's pattern; 14c
+    ``EigenSolver(A, None)`` on phase 3's A at 0.74j (the pencil (A, I)):
+    residual <= 1e-8, sigma within 1e-8 of scipy's ``eigs`` on one counted
+    host LU, K1/K2 pivoted c64 once per band solve, S once per matvec;
+    14d ``python -m lsafw_tpu_torch.diagnose`` as a subprocess: exit 0,
+    the card ``nvidia-smi`` names, f64 and complex128 ok."""
+    import logging
+    import tempfile
+
+    import scipy.io as sio
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+    import torch
+    from lsafw_tpu_torch.meshing.io import write_msh
+    from lsafw_tpu_torch.solver import eigen as teigen
+    from lsafw_tpu_torch.solver.eigen import (
+        EigenSolver, EigensolverConfig, STType, eigen_residuals)
+    from lsafw_tpu_torch.utils.cache import CacheStore
+
+    stages: dict = {}
+    t_all = time.time()
+    cfg = PRODUCTION_CONFIG
+    mesh = case6["mesh"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp, plain_loops_forbidden():
+        d = Path(tmp)
+        msh = d / "production.msh"
+        t0 = time.time()
+        write_msh(mesh, msh)
+        t_write = time.time() - t0
+        with stage("14a", stages):
+            cli_run(["mesh", "--from-file", msh, "--outdir", d / "cache", "--key", "production"],
+                    "phase 14a")
+        got = CacheStore(d / "cache").load_mesh("production")
+        dv = np.abs(got.vertices - mesh.vertices)
+        worst = float((dv / np.maximum(np.abs(mesh.vertices), 1e-300)).max())
+        log(f"phase 14a: {mesh.num_vertices} vertices, {mesh.num_cells} cells, "
+            f"{int((mesh.facet_tags != 0).sum())} tagged facets; write_msh {t_write:.2f} s "
+            f"({msh.stat().st_size / 1e6:.1f} MB), mesh --from-file (read, spaces, context, cache) "
+            f"{stages['14a']['seconds']:.2f} s; vertices within {worst:.2e} relative (limit "
+            f"{MSH_REL:.1e}: 16 significant digits)")
+        if not (np.array_equal(got.cells, mesh.cells)
+                and np.array_equal(got.facet_tags, mesh.facet_tags) and worst <= MSH_REL):
+            raise RuntimeError(f"phase 14a: the cached mesh differs from phase 6's (vertices "
+                               f"{worst:.2e} relative)")
+
+        mats, modes = d / "mats", d / "modes"
+        with stage("14b assemble", stages):
+            cli_run(["assemble", "--from-file", msh, "--bc-config", cfg / "bcs.toml",
+                     "--perturbation-bc-config", cfg / "bcs_perturbation.toml", "--re", "47",
+                     "--ramp", "--steps", "3", "--tol", "1e-8", "--max-it", "40", "--outdir",
+                     mats], "phase 14b assemble")
+        with messages("lsafw_tpu_torch.ops.sparse") as said, stage("14b eigen", stages):
+            cli_run(["eigen", "--matdir", mats, "--target=0.74j", "--si-method", "banded",
+                     "--outdir", modes], "phase 14b eigen")
+        t0 = time.time()
+        files = {k: sp.csr_matrix(sio.mmread(mats / f"{k}.mtx")) for k in ("A", "M")}
+        t_mmread = time.time() - t0
+        for k, got in files.items():
+            ref = p6[k].to_scipy()
+            got.sort_indices()
+            ref.sort_indices()
+            same = (np.array_equal(got.indptr, ref.indptr)
+                    and np.array_equal(got.indices, ref.indices))
+            rel = float(np.abs(got.data - ref.data).max() / np.abs(ref.data).max()) if same else 1.0
+            log(f"phase 14b: {k}.mtx ({got.nnz} entries, {(mats / f'{k}.mtx').stat().st_size / 1e6:.1f}"
+                f" MB) against phase 6's: structure {'equal' if same else 'DIFFERENT'}, values "
+                f"within {rel:.2e} relative (limit 1e-12)")
+            if not (same and rel <= 1e-12):
+                raise RuntimeError(f"phase 14b: {k}.mtx differs from phase 6's {k}")
+        sigma = complex(*json.loads((modes / "eigenvalues.json").read_text())[0])
+        z = np.load(modes / "eigvec_0.npz")
+        x = z["re"] + 1j * z["im"]
+        As, Ms = files["A"], files["M"]
+        resid = float(np.linalg.norm(As @ x - sigma * (Ms @ x)) / np.linalg.norm(x))
+        asm, eig = stages["14b assemble"], stages["14b eigen"]
+        log(f"phase 14b: assemble {asm['seconds']:.2f} s, eigen {eig['seconds']:.2f} s (scipy "
+            f"mmread of both files here {t_mmread:.2f} s); sigma = {sigma.real:+.12f}"
+            f"{sigma.imag:+.12f}j, {abs(sigma - p6['sigma']):.2e} from phase 6's; residual from "
+            f"the files {resid:.2e}")
+        for what, st_ in (("phase 14b assemble", asm), ("phase 14b eigen", eig)):
+            log_stage(what, st_)
+        if abs(sigma - p6["sigma"]) > 1e-8 or not resid <= 1e-8:
+            raise RuntimeError(f"phase 14b: sigma {sigma} against phase 6's {p6['sigma']}, "
+                               f"residual {resid:.2e}")
+        gate_stage("phase 14b assemble", asm, "pivoted.f32x1", "RealPivotedBandedLU",
+                   "f64.f32x1", builds=1)
+        gate_stage("phase 14b eigen", eig, "pivot_free.c64", "BandedLU", "c128.c64", builds=1)
+        adopted = [m for m in said if m.startswith("M's pattern equals A's")]
+        log(f"phase 14b: eigen stage plans built {eig['builds']}; {adopted}")
+        if eig["builds"].get("band") != 1 or len(adopted) != 1:
+            raise RuntimeError(f"phase 14b: the eigen stage built {eig['builds']} plans, M taken "
+                               f"on A's pattern {len(adopted)} times (expected 1 band plan, 1)")
+    logging.getLogger("lsafw_tpu_torch").handlers.clear()  # the CLI's console handler
+    logging.getLogger("lsafw_tpu_torch").setLevel(logging.NOTSET)
+
+    with plain_loops_forbidden(), stage("14c", stages):
+        # atol 1e-10: at 1e-8 Krylov-Schur stops with a true residual of a few
+        # 1e-9 on this standard problem (the small cylinder's: 3.4e-9)
+        es = EigenSolver(a43, None, EigensolverConfig(num_eig=1, atol=1e-10, ncv=16))
+        es.set_st_type(STType.SINVERT)
+        es.set_target(TARGET)
+        es.set_st_pc_type("banded")
+        pairs = es.solve()
+    sigma_c = pairs[0][0]
+    resid_c = float(eigen_residuals(a43, None, pairs)[0])
+    t0 = time.time()
+    with host_lu_counted() as hl:
+        As = a43.to_scipy().astype(np.complex128)
+        lu = teigen.SparseLU((As - TARGET * sp.identity(As.shape[0], format="csr")).tocsc())
+        # ARPACK from a seeded random start, independent of the card's
+        # answer; tol 1e-10 on the shift-inverted eigenvalue is a few 1e-11
+        # on sigma (1e-12 took 15.9 s, 1e-10 11.8 s with ncv 20 or 40)
+        v0 = np.random.default_rng(14).standard_normal(As.shape[0]).astype(np.complex128)
+        host = spla.eigs(As, k=1, sigma=TARGET, ncv=20, tol=1e-10, return_eigenvectors=False,
+                         v0=v0, OPinv=spla.LinearOperator(As.shape, matvec=lu.solve,
+                                                          dtype=np.complex128))[0]
+    t_host = time.time() - t0
+    st = stages["14c"]
+    op = es.operator
+    log(f"phase 14c: EigenSolver(A, None) at {TARGET}: sigma = {sigma_c.real:+.12f}"
+        f"{sigma_c.imag:+.12f}j, residual {resid_c:.2e}, {st['seconds']:.2f} s, pivoted "
+        f"{op.pivoted}, {op.applies} applies; scipy eigs on {hl['host_lu']} host LU "
+        f"({t_host:.2f} s): {host.real:+.12f}{host.imag:+.12f}j, {abs(host - sigma_c):.2e} apart")
+    log_stage("phase 14c", st)
+    if not resid_c <= 1e-8 or abs(host - sigma_c) > 1e-8 or hl["host_lu"] != 1:
+        raise RuntimeError(f"phase 14c: sigma {sigma_c} (residual {resid_c:.2e}) against the "
+                           f"host's {host} on {hl['host_lu']} host LU")
+    gate_stage("phase 14c", st, "pivoted.c64", "PivotedBandedLU", "c128.c64", builds=1)
+    if not (st["launches"]["spmv_shifted.original"] > 0 and op.M is not None
+            and op.M.pattern is op.A.pattern):
+        raise RuntimeError(f"phase 14c: S's shifted mode not on the (A, I) pencil: "
+                           f"{nonzero(st['launches'])}")
+
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "lsafw_tpu_torch.diagnose"], capture_output=True,
+                          text=True, timeout=300, cwd=Path(__file__).resolve().parent)
+    t_diag = time.time() - t0
+    report = dict(line.split(":", 1) for line in proc.stdout.splitlines() if ":" in line)
+    report = {k.strip(): v.strip() for k, v in report.items()}
+    card_name = name_power.split(",")[0].strip()
+    log(f"phase 14d: python -m lsafw_tpu_torch.diagnose exited {proc.returncode} in {t_diag:.1f} "
+        f"s: device {report.get('device')!r}, float64 {report.get('float64')!r}, complex128 "
+        f"{report.get('complex128')!r}, nvcc {report.get('nvcc')!r}, built kernels "
+        f"{report.get('built kernels')!r}")
+    if not (proc.returncode == 0 and report.get("device") == f"{card_name} (cuda)"
+            and report.get("float64") == report.get("complex128") == "ok"):
+        raise RuntimeError(f"phase 14d: diagnose's report against the card {card_name!r}:\n"
+                           f"{proc.stdout}\n{proc.stderr[-2000:]}")
+    seconds = time.time() - t_all
+    launches = {k: sum(st_["launches"][k] for st_ in stages.values()) for k in counts()}
+    log(f"phase 14: {seconds:.1f} s (budget 60 s); stages "
+        + ", ".join(f"{k} {v['seconds']:.1f}" for k, v in stages.items())
+        + f", 14d {t_diag:.1f}; launches {nonzero(launches)}")
+    return dict(launches=launches, seconds=seconds)
+
+
 def main() -> int:
     import torch
 
@@ -5110,7 +5405,7 @@ def main() -> int:
         jac_bf16 = tband.factor_auto(p3c["rplan"], J.data, diag_slots=J.pattern.diag_slots)[0]
     kernels = band_kernels([("", f) for f in main_path_factors(mp, pf)]
                            + [(", 43k phase 3c", p3c["op"].device_op.blu),
-                              (", 43k phase 3c Jacobian", jac_bf16)], errs, dev)
+                              (", 43k phase 3c Jacobian", jac_bf16)], errs, dev, library=True)
     del jac_bf16
     launches = {k: mp["launches"][k] + pf["launches"][k] for k in sc.LAUNCHES}
 
@@ -5252,6 +5547,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     mp_launches, pf_launches, p3c_launches = mp["launches"], pf["launches"], p3c["launches"]
     p3 = {k: mp[k] for k in ("w", "A", "M", "sigma")}  # phase 8's 2D base and answer
+    a43 = p3["A"]  # phase 14c's standard problem
     del mp, pf, p3c, cop, cases, mg, p5["stages"]
     torch.cuda.empty_cache()
     mark("7")
@@ -5296,12 +5592,16 @@ def main() -> int:
     kernels += band_kernels([(", 175k phase 6", p6["op"].device_op.blu),
                              (", 175k phase 6b", p6b["op"].device_op.blu),
                              (", 175k phase 6c", p6c["op"].device_op.blu)], errs, dev,
-                            plain_reps=1)
+                            plain_reps=1, library=True)
     mains = {"3": mp_launches, "3b": pf_launches, "3c": p3c_launches, "6": p6["launches"],
              "6b": p6b["launches"], "6c": p6c["launches"]}
     case6 = p6["case"]
     p6d = {k: p6[k] for k in ("w", "A", "M", "sigma")}  # phase 8b's 2D base and answer
     del p6, p6b, p6c
+    torch.cuda.empty_cache()
+    mark("14")
+    p14 = cli_path(case6, p6d, a43, name_power, dev)
+    del a43
     torch.cuda.empty_cache()
 
     transient_factors: list = []
@@ -5365,6 +5665,7 @@ def main() -> int:
         e["launches_phase11"] = p11["launches"][key] if key else 0
         e["launches_phase12"] = p12["launches"][key] if key else 0
         e["launches_phase13"] = p13["launches"][key] if key else 0
+        e["launches_phase14"] = p14["launches"][key] if key else 0
     for e in kernels:
         log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
             f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
@@ -5374,7 +5675,7 @@ def main() -> int:
             f"{e['launches_phase7']} in phase 7, {e['launches_phase8']} in phase 8, "
             f"{e['launches_phase9']} in phase 9, {e['launches_phase10']} in phase 10, "
             f"{e['launches_phase11']} in phase 11, {e['launches_phase12']} in phase 12, "
-            f"{e['launches_phase13']} in phase 13)")
+            f"{e['launches_phase13']} in phase 13, {e['launches_phase14']} in phase 14)")
     t_end = time.time()
     log(f"chip_smoke: seconds by phase, from each phase's start to the next's: "
         f"{phase_seconds(t_end)}")

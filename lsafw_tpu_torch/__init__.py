@@ -24,7 +24,9 @@ multigrid V-cycles, LOBPCG: ``ops.stencil``, ``solver.multigrid``,
 ``solver.power``), the element operator (``ops.elementop``) and the
 nested two-grid eigen refinement (``solver.eigen.nested_eigenpair``)
 run on the same kernels wherever they gather, solve a band or multiply
-a CSR.  It imports nothing of the JAX package.
+a CSR.  ``python -m lsafw_tpu_torch`` is the reference's command line
+(``cli``: its eleven subcommands), with its file formats (``io``,
+``meshing.io``, ``utils.cache``).  It imports nothing of the JAX package.
 ``solver/direct.py`` keeps host SuperLU for
 ``linear_solver="lu"`` and the shift-invert ``method="lu"``, which run
 only when asked for.
@@ -56,4 +58,6 @@ def resolve_device(device="cuda") -> torch.device:
     return device
 
 
-__all__ = ["resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["resolve_device", "__version__"]

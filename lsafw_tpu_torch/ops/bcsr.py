@@ -38,7 +38,7 @@ import scipy.sparse as sp
 import torch
 
 from lsafw_tpu_torch.ops import spmv_cuda
-from lsafw_tpu_torch.ops.sparse import pattern_csr, per_pattern, spmv
+from lsafw_tpu_torch.ops.sparse import pattern_csr, per_pattern, shared_pattern, spmv
 from lsafw_tpu_torch.solver.band import pattern_permutation, rcm_permutation
 from lsafw_tpu_torch.utils.logging import get_logger
 
@@ -174,8 +174,13 @@ class BCSRShiftedOp:
 
     @classmethod
     def from_csr(cls, A, M, sigma: complex, plan: BCSRPlan | None = None) -> "BCSRShiftedOp":
+        """The fused operator of (A, M); a pair on two patterns is first put
+        on one (:func:`~lsafw_tpu_torch.ops.sparse.shared_pattern`), so a
+        given ``plan`` must be of a pattern the pair shares."""
         if M.pattern is not A.pattern:
-            raise ValueError("A and M must share one sparsity pattern")
+            if plan is not None:
+                raise ValueError("a plan was given for a pair on two patterns")
+            A, M = shared_pattern(A, M)
         plan = plan or plan_for_pattern(A)
         return cls(_values(plan, A.data), _values(plan, M.data), complex(sigma), plan)
 

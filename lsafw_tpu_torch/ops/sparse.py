@@ -17,7 +17,11 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from lsafw_tpu_torch import resolve_device
 from lsafw_tpu_torch.ops import spmv_cuda
+from lsafw_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 
 @dataclass(frozen=True, eq=False)
@@ -176,10 +180,88 @@ class CSRMatrix:
         """A^T on a new pattern of its own (host transpose)."""
         t = self.to_scipy().T.tocsr()
         t.sort_indices()
-        pattern = SparsityPattern(shape=t.shape, indptr=t.indptr.astype(np.int64),
-                                  indices=t.indices.astype(np.int32),
-                                  slots=np.arange(t.nnz, dtype=np.int32))
-        return CSRMatrix(pattern, torch.as_tensor(t.data, device=self.device))
+        return CSRMatrix.from_scipy(t, device=self.device)
+
+    @classmethod
+    def from_scipy(cls, m: sp.spmatrix, *, device="cuda") -> "CSRMatrix":
+        """A real scipy matrix on a pattern of its own (rows sorted,
+        duplicates summed, explicit zeros kept), its data f64 on
+        ``device``."""
+        device = resolve_device(device)
+        m = sp.csr_matrix(m)
+        m.sum_duplicates()  # also sorts the indices; zeros stay stored
+        pattern = SparsityPattern(shape=m.shape, indptr=m.indptr.astype(np.int64),
+                                  indices=m.indices.astype(np.int32),
+                                  slots=np.arange(m.nnz, dtype=np.int32))
+        return cls(pattern, torch.as_tensor(np.asarray(m.data, dtype=np.float64), device=device))
+
+
+def same_structure(p: SparsityPattern, q: SparsityPattern) -> bool:
+    """Whether two patterns hold the same entries in the same slots."""
+    return p is q or (p.shape == q.shape and np.array_equal(p.indptr, q.indptr)
+                      and np.array_equal(p.indices, q.indices))
+
+
+def _slot_keys(pattern: SparsityPattern) -> np.ndarray:
+    """(nnz,) int64 row * (ncols + 1) + column of every stored entry."""
+    return pattern.row_ids.astype(np.int64) * (pattern.shape[1] + 1) + pattern.indices
+
+
+def shared_pattern(A: CSRMatrix, M: CSRMatrix) -> tuple[CSRMatrix, CSRMatrix]:
+    """(A, M) on one pattern object, as the band plans, S's fused operator
+    and the refinement need them.  A pair that shares a pattern comes back
+    as it is.  Where M's pattern holds A's entries in A's slots (a pair
+    read back from two ``.mtx`` files) and has every diagonal slot, M is
+    put on A's pattern object, so that every plan cached for A's pattern
+    serves the pair.  Otherwise
+    both are scattered onto their union pattern with every diagonal slot:
+    the union of indicator patterns (ones, which cannot cancel, unlike
+    A + M's values), so that no slot of either matrix is dropped."""
+    if M.pattern is A.pattern:
+        return A, M
+    if A.shape != M.shape:
+        raise ValueError(f"A {A.shape} and M {M.shape} differ in shape")
+    if same_structure(A.pattern, M.pattern) and _has_diagonal(A.pattern):
+        logger.info("M's pattern equals A's (n=%d, nnz=%d): M taken on A's pattern.",
+                    A.shape[0], A.pattern.nnz)
+        return A, CSRMatrix(A.pattern, M.data)
+    n = A.shape[0]
+    union = (pattern_csr(A.pattern) + pattern_csr(M.pattern)
+             + sp.identity(n, dtype=np.int8, format="csr")).tocsr()
+    union.sort_indices()
+    U = SparsityPattern(shape=union.shape, indptr=union.indptr.astype(np.int64),
+                        indices=union.indices.astype(np.int32),
+                        slots=np.arange(union.nnz, dtype=np.int32))
+    keys = _slot_keys(U)
+
+    def onto(X: CSRMatrix) -> CSRMatrix:
+        at = torch.as_tensor(np.searchsorted(keys, _slot_keys(X.pattern)), device=X.device)
+        data = torch.zeros(U.nnz, dtype=X.data.dtype, device=X.device)
+        return CSRMatrix(U, data.index_copy_(0, at, X.data))
+
+    logger.info("A (nnz=%d) and M (nnz=%d) on different patterns: both scattered onto their "
+                "union with the diagonal (nnz=%d).", A.pattern.nnz, M.pattern.nnz, U.nnz)
+    return onto(A), onto(M)
+
+
+def _has_diagonal(pattern: SparsityPattern) -> bool:
+    try:
+        pattern.diag_slots
+    except ValueError:
+        return False
+    return True
+
+
+def identity_mass(A: CSRMatrix) -> tuple[CSRMatrix, CSRMatrix]:
+    """(A, I) on one pattern: the identity on A's diagonal slots (on the
+    union of A's pattern and the diagonal where A lacks some of it), for a
+    standard problem taken as the pencil (A, I)."""
+    if not _has_diagonal(A.pattern):
+        eye = CSRMatrix.from_scipy(sp.identity(A.shape[0], format="csr"), device=A.device)
+        return shared_pattern(A, eye)
+    data = torch.zeros(A.pattern.nnz, dtype=torch.float64, device=A.device)
+    data[torch.as_tensor(A.pattern.diag_slots, device=A.device)] = 1.0
+    return A, CSRMatrix(A.pattern, data)
 
 
 def transpose_pair(A: CSRMatrix, M: CSRMatrix) -> tuple[CSRMatrix, CSRMatrix]:
@@ -192,9 +274,8 @@ def transpose_pair(A: CSRMatrix, M: CSRMatrix) -> tuple[CSRMatrix, CSRMatrix]:
     pattern is), both matrices come back on the *original* pattern object:
     the RCM ordering depends only on the structure, so the adjoint shares
     every plan cached for the pattern.  Otherwise they get a new pattern.
-    A pair on two patterns is transposed matrix by matrix."""
-    if M.pattern is not A.pattern:
-        return A.transpose(), M.transpose()
+    A pair on two patterns is first put on one (:func:`shared_pattern`)."""
+    A, M = shared_pattern(A, M)
     pat = A.pattern
     ids = sp.csr_matrix((np.arange(1, pat.nnz + 1, dtype=np.int64), pat.indices, pat.indptr),
                         shape=pat.shape).T.tocsr()  # 1-based slot ids: no 0 to prune

@@ -28,12 +28,14 @@ of a Navier-Stokes pencil has, raises :class:`FactorUnusable`), SHELL
 FILTER (:class:`ChebyshevFilterOperator`, a Chebyshev polynomial of a
 Hermitian A, eigenvalues as Rayleigh quotients).
 
-With M = None the operator is C = A - sigma I, at a real shift (the
-theta-stepper's and the Floquet trip's implicit matrices, at sigma = 0):
+With M = None the operator is C = A - sigma I.  At a real shift (the
+theta-stepper's and the Floquet trip's implicit matrices, at sigma = 0)
 the band factor is real, the refinement matvecs run through S on A's
 own values (one real matrix; a complex x takes S's real-on-complex
 mode), and a complex128 right-hand side goes through the real factor as
-two f32 columns in one band pass.
+two f32 columns in one band pass.  At a complex shift it is the pencil
+(A, I) with I on A's diagonal slots.  A and M on two patterns are put on
+one first (:func:`~lsafw_tpu_torch.ops.sparse.shared_pattern`).
 
 Eigenvalue back-transform: theta = 1/(lambda - sigma), so
 lambda = sigma + 1/theta; Cayley: lambda = (sigma theta + nu)/(theta - 1).
@@ -62,7 +64,7 @@ from lsafw_tpu_torch.ops.bcsr import (
     operator_for_budget,
     plan_for_pattern,
 )
-from lsafw_tpu_torch.ops.sparse import CSRMatrix, spmv
+from lsafw_tpu_torch.ops.sparse import CSRMatrix, identity_mass, shared_pattern, spmv
 from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
 from lsafw_tpu_torch.solver.linear import gmres, power_norm
@@ -707,6 +709,15 @@ class ShiftInvertOperator:
     misses raises :class:`FactorUnusable`.  ``gmres_its`` and
     ``gmres_cycles`` record each solve.
 
+    The banded and GMRES methods factor C on one pattern shared by A and
+    M (:func:`~lsafw_tpu_torch.ops.sparse.shared_pattern`): an M whose
+    pattern equals A's in content (a pair read from two ``.mtx`` files)
+    is taken on A's pattern object, so that A's cached plans serve;
+    otherwise both are scattered onto their union pattern with every
+    diagonal slot.  M = None at a complex shift is the pencil (A, I), I on
+    A's diagonal slots (S's shifted mode carries its refinement matvecs);
+    at a real shift it stays the real factor of A - sigma I.
+
     ``elements``: optional ``(cell_dofs, A_el, M_el, bc_mask)``, the
     per-cell element matrices of (A, M).  Where the fused operator's
     values do not fit :func:`bcsr_budget`, the banded and GMRES methods
@@ -724,8 +735,12 @@ class ShiftInvertOperator:
                  elements=None, antishift: complex | None = None) -> None:
         if method not in ("banded", "lu", "gmres"):
             raise NotImplementedError(f"shift-invert method {method!r} is not ported")
-        self.A, self.M = A, M
         self.sigma = complex(sigma)
+        if method != "lu" and M is not None:
+            A, M = shared_pattern(A, M)
+        elif method != "lu" and self.sigma.imag != 0.0:
+            A, M = identity_mass(A)
+        self.A, self.M = A, M
         self.antishift = None if antishift is None else complex(antishift)
         self.method = method
         self._n = A.shape[0]
@@ -790,18 +805,14 @@ class ShiftInvertOperator:
         """Factor C = A - sigma M on the shared pattern of A and M through
         ``factor_auto``: pivoted within its memory budget, else pivot-free
         with the saddle regularization of the zero pressure diagonals.  A
-        real shift factors one real band."""
+        real shift factors one real band (M = None: A - sigma I)."""
         A, M = self.A, self.M
-        if M is None:
-            if self.sigma.imag != 0.0:
-                raise NotImplementedError("M = None takes a real shift on the banded method")
+        if M is None:  # a real shift: __init__ gave a complex one the identity M
             dre = A.data.clone()
             dre[A.idx()["diag_slots"]] -= self.sigma.real
             blu, self.pivoted = factor_auto(plan_for_csr(A, real=True), dre,
                                             diag_slots=A.pattern.diag_slots)
             return blu
-        if M.pattern is not A.pattern:
-            raise NotImplementedError("A and M must share one sparsity pattern")
         dre = A.data - self.sigma.real * M.data
         if self.sigma.imag == 0.0:
             blu, self.pivoted = factor_auto(plan_for_csr(A, real=True), dre,

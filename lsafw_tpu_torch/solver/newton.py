@@ -15,7 +15,10 @@ Residual and Jacobian are assembled on the device.  Inner solves:
   its memory budget) takes the reference's retry rung: the failed band
   is freed, the pattern marked :func:`~lsafw_tpu_torch.solver.band.mark_bf16_unstable`,
   and the step is solved again on a budget-clipped f32 plan; a failure
-  there, or on an f32 band, raises.
+  there, or on an f32 band, raises :class:`BandedStepMissed` (a
+  ``RuntimeError``: no banded solve returns past its tolerance).  A
+  caller for which a missed step is a failed trial, as the
+  self-consistent model's damping ladder, catches it.
 * ``linear_solver="lu"``: host SuperLU.
 * any other name: that Krylov type of :mod:`~lsafw_tpu_torch.solver.linear`
   (``"gmres"``, ``"bcgs"``, ...) on the device through
@@ -152,6 +155,17 @@ class NewtonResult:
     history: list[float]
 
 
+class BandedStepMissed(RuntimeError):
+    """A banded Newton step whose refinement missed the inexact-Newton
+    acceptance (relative residual 1e-3), with its ``residual`` and
+    refinement ``iterations``."""
+
+    def __init__(self, residual: float, iterations: int) -> None:
+        super().__init__(f"banded Newton step failed: relative residual {residual:.2e} after "
+                         f"{iterations} refinement iterations")
+        self.residual, self.iterations = residual, iterations
+
+
 class NewtonSolver:
     """Newton with adjustable damping; inner solves ``"banded"`` (device),
     ``"lu"`` (host) or a Krylov type (device, block-Jacobi)."""
@@ -193,9 +207,7 @@ class NewtonSolver:
             res = banded_solve(J, b, self._band_plan, tol=self._linear_tol, stats=self.stats)
             x = _accepted(res)
         if x is None:
-            raise RuntimeError(
-                f"banded Newton step failed: relative residual {res.residual:.2e} after "
-                f"{res.iterations} refinement iterations")
+            raise BandedStepMissed(res.residual, res.iterations)
         return x
 
     def _krylov_solve(self, J: CSRMatrix, b: torch.Tensor, it: int) -> torch.Tensor:

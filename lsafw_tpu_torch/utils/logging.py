@@ -1,11 +1,28 @@
-"""Logging utilities: package loggers and a wall-clock stage timer."""
+"""Logging utilities: package loggers, their console set-up and a
+wall-clock stage timer."""
 
 from __future__ import annotations
 
 import logging
+import sys
 import time
 from contextlib import contextmanager
 from typing import Iterator
+
+
+_FMT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
+
+
+def setup_logging(verbose: bool = False) -> None:
+    """One console handler (stderr) on the package's root logger
+    ``lsafw_tpu_torch``, at INFO (DEBUG with ``verbose``); other loggers
+    are left as they are."""
+    root = logging.getLogger("lsafw_tpu_torch")
+    root.setLevel(logging.DEBUG if verbose else logging.INFO)
+    root.handlers.clear()
+    console = logging.StreamHandler(sys.stderr)
+    console.setFormatter(logging.Formatter(_FMT))
+    root.addHandler(console)
 
 
 def get_logger(name: str) -> logging.Logger:

@@ -3,6 +3,7 @@ JAX package, no module of it imports them, and its entry points run on
 the CPU only when asked to."""
 
 import ast
+import functools
 import subprocess
 import sys
 from pathlib import Path
@@ -55,8 +56,11 @@ def test_forbidden_matches_exact_names():
     assert not _forbidden("lsafw_tpu_torch") and not _forbidden("lsafw_tpu_torch.solver")
 
 
-def test_import_loads_no_jax_and_no_jax_package():
-    """In a fresh interpreter (this process already holds jax)."""
+@functools.cache
+def _fresh_modules() -> list[str]:
+    """``sys.modules`` of a fresh interpreter (this process already holds
+    jax) that imported the port's entry modules, the command line and its
+    I/O: one interpreter for both import tests below."""
     code = (
         "import sys, lsafw_tpu_torch, lsafw_tpu_torch.interop, lsafw_tpu_torch.solver.eigen, "
         "lsafw_tpu_torch.solver.baseflow, lsafw_tpu_torch.sensitivity, lsafw_tpu_torch.resolvent, "
@@ -66,11 +70,18 @@ def test_import_loads_no_jax_and_no_jax_package():
         "lsafw_tpu_torch.hill, lsafw_tpu_torch.solver.ilu, lsafw_tpu_torch.solver.amg, "
         "lsafw_tpu_torch.solver.pmg, lsafw_tpu_torch.ops.stencil, lsafw_tpu_torch.ops.stencil_nd, "
         "lsafw_tpu_torch.ops.elementop, lsafw_tpu_torch.solver.power, "
-        "lsafw_tpu_torch.solver.multigrid, lsafw_tpu_torch.solver.multigrid_nd\n"
+        "lsafw_tpu_torch.solver.multigrid, lsafw_tpu_torch.solver.multigrid_nd, "
+        "lsafw_tpu_torch.cli, lsafw_tpu_torch.io, lsafw_tpu_torch.meshing.io, "
+        "lsafw_tpu_torch.utils.cache, lsafw_tpu_torch.utils.capture, lsafw_tpu_torch.diagnose\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         cwd=PKG.parent, check=True, timeout=120).stdout.split()
+    return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=PKG.parent, check=True, timeout=120).stdout.split()
+
+
+def test_import_loads_no_jax_and_no_jax_package():
+    """In a fresh interpreter (this process already holds jax)."""
+    out = _fresh_modules()
     assert "lsafw_tpu_torch.solver.band_cuda" in out
     assert {"lsafw_tpu_torch.solver.linear", "lsafw_tpu_torch.solver.precond",
             "lsafw_tpu_torch.solver.ilu", "lsafw_tpu_torch.solver.amg",
@@ -79,6 +90,19 @@ def test_import_loads_no_jax_and_no_jax_package():
             "lsafw_tpu_torch.solver.power", "lsafw_tpu_torch.solver.multigrid",
             "lsafw_tpu_torch.solver.multigrid_nd"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
+
+
+def test_cli_and_io_load_no_jax_nor_the_optional_libraries():
+    """The command line and its I/O load no JAX, nothing of the JAX package,
+    and neither matplotlib nor h5py (only ``--plot`` and ``.xdmf`` files
+    import them, and the card's machine has neither), in a fresh
+    interpreter (with the port's other entry modules)."""
+    out = _fresh_modules()
+    assert {"lsafw_tpu_torch.cli", "lsafw_tpu_torch.io", "lsafw_tpu_torch.meshing.io",
+            "lsafw_tpu_torch.utils.cache", "lsafw_tpu_torch.utils.capture",
+            "lsafw_tpu_torch.diagnose"} <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+    assert [m for m in out if m.split(".")[0] in ("matplotlib", "h5py")] == []
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")))
