@@ -2,11 +2,14 @@
 
 Per-cell element matrices are computed for all cells at once with
 ``torch.einsum`` on the device, then scattered into the shared CSR
-pattern with one f64 ``index_add_``.  Cells are affine simplices: every
-bilinear term is a contraction of a static reference tensor (basis
-tabulations precontracted over quadrature) with a per-cell geometry
-factor, e.g. the viscous matrix ``K0[t,s,i,j] . G[c,t,s]`` with
-``G = detJ * Jinv Jinv^T``.
+pattern with one f64 ``index_add_``.  On affine cells (simplices, and
+parallelogram / parallelepiped quads and hexes) every bilinear term is a
+contraction of a static reference tensor (basis tabulations
+precontracted over quadrature) with a per-cell geometry factor, e.g. the
+viscous matrix ``K0[t,s,i,j] . G[c,t,s]`` with ``G = detJ * Jinv Jinv^T``.
+A :class:`SpaceContext` on quads and hexes takes the geometry of the
+multilinear Q1 map per quadrature point instead (detJ (nc, nq), Jinv
+(nc, nq, tdim, gdim)), and the scalar kernels contract it pointwise.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from lsafw_tpu_torch import resolve_device
+from lsafw_tpu_torch.fem.elements import ElementFamily, make_element
 from lsafw_tpu_torch.fem.quadrature import QuadratureRule, quadrature_rule
 from lsafw_tpu_torch.fem.spaces import FunctionSpace, FunctionSpaces
 from lsafw_tpu_torch.meshing.mesh import CellType, Mesh
@@ -28,24 +32,85 @@ from lsafw_tpu_torch.ops.sparse import (
     spmv,
 )
 
+TENSOR_CELLS = (CellType.QUADRILATERAL, CellType.HEXAHEDRON)
+
 
 def affine_geometry(mesh: Mesh) -> tuple[np.ndarray, np.ndarray]:
-    """(|detJ|, Jinv) of the affine map of every simplex cell."""
+    """(|detJ|, Jinv) of the affine map of every cell.
+
+    Simplices: J's columns are the edge vectors v_i - v_0.  Quads and
+    hexes are affine exactly when they are parallelograms /
+    parallelepipeds: J's columns are then the axis edges of the binary
+    vertex order (quad (0,0),(1,0),(0,1),(1,1): v1, v2; hex (di, dj, dk)
+    with k fastest: v4, v2, v1); callers check that property with
+    :func:`is_parallelogram_cells` or take :func:`nonaffine_geometry`."""
+    v = mesh.vertices[mesh.cells]  # (nc, nverts, gdim)
+    if mesh.cell_type is CellType.QUADRILATERAL:
+        J = np.stack([v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]], axis=2)
+    elif mesh.cell_type is CellType.HEXAHEDRON:
+        J = np.stack([v[:, 4] - v[:, 0], v[:, 2] - v[:, 0], v[:, 1] - v[:, 0]], axis=2)
+    else:
+        J = np.transpose(v[:, 1:] - v[:, :1], (0, 2, 1))  # (nc, gdim, tdim)
     if mesh.tdim != mesh.gdim:
         raise NotImplementedError("Embedded manifolds not supported.")
-    if mesh.cell_type in (CellType.QUADRILATERAL, CellType.HEXAHEDRON):
-        raise NotImplementedError("only simplex cells are ported")
-    v = mesh.vertices[mesh.cells]  # (nc, nverts, gdim)
-    J = np.transpose(v[:, 1:] - v[:, :1], (0, 2, 1))  # (nc, gdim, tdim)
     return np.abs(np.linalg.det(J)), np.linalg.inv(J)
 
 
+def is_parallelogram_cells(mesh: Mesh, tol: float = 1e-12) -> bool:
+    """Whether every tensor-product cell's multilinear map is affine
+    (parallelogram quads, parallelepiped hexes); true for simplices."""
+    v = mesh.vertices[mesh.cells]
+    scale = max(float(np.abs(v).max()), 1.0)
+    if mesh.cell_type is CellType.QUADRILATERAL:
+        return bool(np.abs(v[:, 3] - v[:, 1] - v[:, 2] + v[:, 0]).max() <= tol * scale)
+    if mesh.cell_type is CellType.HEXAHEDRON:
+        a, b, c = v[:, 4] - v[:, 0], v[:, 2] - v[:, 0], v[:, 1] - v[:, 0]
+        corners = [(di, dj, dk) for di in (0, 1) for dj in (0, 1) for dk in (0, 1)]
+        return all(np.abs(v[:, m] - (v[:, 0] + di * a + dj * b + dk * c)).max() <= tol * scale
+                   for m, (di, dj, dk) in enumerate(corners))
+    return True
+
+
+def nonaffine_geometry(mesh: Mesh, points: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Per-quadrature-point (|detJ| (nc, nq), Jinv (nc, nq, tdim, gdim))
+    of the multilinear Q1 geometry map of quad / hex cells."""
+    tab = make_element(ElementFamily.Q1, mesh.cell_type).tabulate(points)  # grad (nq, nv, tdim)
+    J = np.einsum("cvg,qvt->cqgt", mesh.vertices[mesh.cells], tab.grad)
+    return np.abs(np.linalg.det(J)), np.linalg.inv(J)
+
+
+def _metric(detJ: torch.Tensor, Jinv: torch.Tensor) -> torch.Tensor:
+    """G = detJ Jinv Jinv^T: (nc, t, s) per cell, or (nc, nq, t, s) per
+    quadrature point."""
+    return detJ[..., None, None] * torch.einsum("...td,...sd->...ts", Jinv, Jinv)
+
+
+class _ContextBase:
+    """What the contexts share: ``phi_u``/``dphi_u`` name the primary basis
+    (velocity of a mixed space, or the one basis of a single space), so
+    the scalar element kernels take either context."""
+
+    @property
+    def is_affine(self) -> bool:
+        """One Jacobian per cell (simplices, parallelogram tensor cells),
+        or one per quadrature point (quads, hexes of a SpaceContext)."""
+        return self.detJ.ndim == 1
+
+    def phys_grad_u(self) -> torch.Tensor:
+        """(nc, nq, nu_el, gdim) physical gradients of the primary basis."""
+        if not self.is_affine:
+            return torch.einsum("qit,cqtd->cqid", self.dphi_u, self.Jinv)
+        return torch.einsum("qit,ctd->cqid", self.dphi_u, self.Jinv)
+
+
 @dataclass(eq=False)
-class AssemblyContext:
+class AssemblyContext(_ContextBase):
     """Static per-(mesh, spaces) assembly data of the mixed
     velocity-pressure space, as f64 tensors on one device: tabulations,
     geometry factors, precontracted reference tensors and the shared
-    mixed sparsity pattern."""
+    mixed sparsity pattern.  The mixed kernels take one Jacobian per
+    cell: quads and hexes must be parallelograms / parallelepipeds (the
+    Q2/Q1 Taylor-Hood pair on structured channel grids)."""
 
     rule: QuadratureRule
     spaces: FunctionSpaces
@@ -70,6 +135,11 @@ class AssemblyContext:
     ) -> "AssemblyContext":
         device = resolve_device(device)
         mesh = spaces.velocity.mesh
+        if mesh.cell_type in TENSOR_CELLS and not is_parallelogram_cells(mesh):
+            raise NotImplementedError(
+                "Mixed spaces on curvilinear quad/hex cells need per-quadrature-point "
+                "geometry in the NS kernels; only parallelogram/parallelepiped tensor cells "
+                "are supported (or use simplices).")
         rule = quadrature_rule(mesh.cell_type, quad_degree or spaces.quad_degree)
         tab_u = spaces.velocity.element.tabulate(rule.points)
         tab_p = spaces.pressure.element.tabulate(rule.points)
@@ -95,7 +165,7 @@ class AssemblyContext:
             M0=torch.einsum("q,qi,qj->ij", w, phi_u, phi_u),
             K0=torch.einsum("q,qit,qjs->tsij", w, dphi_u, dphi_u),
             B0=torch.einsum("q,qk,qjt->tkj", w, phi_p, dphi_u),
-            metric=detJ_t[:, None, None] * torch.einsum("ctd,csd->cts", Jinv_t, Jinv_t),
+            metric=_metric(detJ_t, Jinv_t),
         )
 
     @property
@@ -114,18 +184,16 @@ class AssemblyContext:
     def ndofs_el(self) -> int:
         return self.nu_el * self.gdim + self.np_el
 
-    def phys_grad_u(self) -> torch.Tensor:
-        """(nc, nq, nu_el, gdim) physical velocity-basis gradients."""
-        return torch.einsum("qit,ctd->cqid", self.dphi_u, self.Jinv)
-
 
 @dataclass(eq=False)
-class SpaceContext:
-    """Assembly context of a single scalar or blocked-vector space on
-    simplices (e.g. the P1 pressure space of an L2 projection, the
-    membrane's P2 space): the ``phi_u``/``M0``/``K0``/``metric`` names of
-    :class:`AssemblyContext` hold this space's basis and geometry, so the
-    scalar element kernels take either context."""
+class SpaceContext(_ContextBase):
+    """Assembly context of a single scalar or blocked-vector space (e.g.
+    the P1 pressure space of an L2 projection, the membrane's P2 or Q2
+    space, the elasticity displacement): the ``phi_u``/``M0``/``K0``/
+    ``metric`` names of :class:`AssemblyContext` hold this space's basis
+    and geometry, so the scalar element kernels take either context.  On
+    quads and hexes the geometry is per quadrature point, always (the
+    multilinear map is not affine in general)."""
 
     rule: QuadratureRule
     space: FunctionSpace
@@ -134,12 +202,12 @@ class SpaceContext:
     w: torch.Tensor  # (nq,)
     phi_u: torch.Tensor  # (nq, ndofs_el)
     dphi_u: torch.Tensor  # (nq, ndofs_el, tdim)
-    detJ: torch.Tensor  # (nc,)
-    Jinv: torch.Tensor  # (nc, tdim, gdim)
+    detJ: torch.Tensor  # (nc,), or (nc, nq) on quads / hexes
+    Jinv: torch.Tensor  # (nc, tdim, gdim), or (nc, nq, tdim, gdim)
     cell_dofs: torch.Tensor  # (nc, ndofs_el * bs) int64
     M0: torch.Tensor  # (ndofs_el, ndofs_el)
     K0: torch.Tensor  # (tdim, tdim, ndofs_el, ndofs_el)
-    metric: torch.Tensor  # (nc, tdim, tdim)
+    metric: torch.Tensor  # (nc, tdim, tdim), or (nc, nq, tdim, tdim)
 
     @classmethod
     def build(cls, space: FunctionSpace, quad_degree: int | None = None, *,
@@ -148,7 +216,8 @@ class SpaceContext:
         mesh = space.mesh
         rule = quadrature_rule(mesh.cell_type, quad_degree or 2 * space.element.degree)
         tab = space.element.tabulate(rule.points)
-        detJ, Jinv = affine_geometry(mesh)
+        detJ, Jinv = (nonaffine_geometry(mesh, rule.points) if mesh.cell_type in TENSOR_CELLS
+                      else affine_geometry(mesh))
         pattern = build_sparsity(space.cell_dofs, shape=(space.num_dofs, space.num_dofs))
 
         def f64(a):
@@ -162,8 +231,12 @@ class SpaceContext:
             cell_dofs=torch.as_tensor(np.asarray(space.cell_dofs, dtype=np.int64), device=device),
             M0=torch.einsum("q,qi,qj->ij", w, phi, phi),
             K0=torch.einsum("q,qit,qjs->tsij", w, dphi, dphi),
-            metric=detJ_t[:, None, None] * torch.einsum("ctd,csd->cts", Jinv_t, Jinv_t),
+            metric=_metric(detJ_t, Jinv_t),
         )
+
+    @property
+    def gdim(self) -> int:
+        return self.space.mesh.gdim
 
     def scatter(self, element_mats: torch.Tensor) -> CSRMatrix:
         """Per-cell element matrices -> the space's CSR matrix."""
@@ -182,12 +255,18 @@ class SpaceContext:
 
 
 def mass_scalar(ctx: AssemblyContext | SpaceContext) -> torch.Tensor:
-    """(nc, nu_el, nu_el) element mass matrices: detJ * M0."""
+    """(nc, nu_el, nu_el) element mass matrices: detJ * M0, or on
+    per-point geometry the pointwise |detJ| contraction."""
+    if not ctx.is_affine:
+        return torch.einsum("q,cq,qi,qj->cij", ctx.w, ctx.detJ, ctx.phi_u, ctx.phi_u)
     return ctx.detJ[:, None, None] * ctx.M0[None]
 
 
 def stiffness_scalar(ctx: AssemblyContext | SpaceContext) -> torch.Tensor:
-    """(nc, nu_el, nu_el) element Laplacian: metric . K0."""
+    """(nc, nu_el, nu_el) element Laplacian: metric . K0, or on per-point
+    geometry the contraction at each quadrature point."""
+    if not ctx.is_affine:
+        return torch.einsum("q,qit,cqts,qjs->cij", ctx.w, ctx.dphi_u, ctx.metric, ctx.dphi_u)
     return torch.einsum("cts,tsij->cij", ctx.metric, ctx.K0)
 
 

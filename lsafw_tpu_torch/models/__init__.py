@@ -1,1 +1,7 @@
-"""models layer of the PyTorch port."""
+"""models layer of the PyTorch port: the physics assemblers (flow, solid,
+membrane, DG) composed from the batched element kernels of
+:mod:`lsafw_tpu_torch.fem.assembly`."""
+
+from lsafw_tpu_torch.models.elasticity import ElasticityEigenAssembler
+
+__all__ = ["ElasticityEigenAssembler"]

@@ -340,6 +340,23 @@ def _complex_data(data_re: torch.Tensor, data_im: torch.Tensor | None) -> torch.
     return torch.complex(data_re.to(torch.float64), data_im.to(torch.float64))
 
 
+def _complex_csr_factor(cls, C: sp.spmatrix, *, nb: int, chunk: int, delta: float,
+                        perm: np.ndarray | None, plan: BandPlan | None, device):
+    """``cls.factor`` of a complex scipy matrix on ``device``: plan its
+    pattern (or reuse ``plan``, made for the same CSR order), carry its
+    values over as f64 (re, im) and factor them there."""
+    from lsafw_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    C = C.tocsr()
+    if plan is None:
+        plan = BandPlan.build(C, nb=nb, chunk=chunk, perm=perm)
+    data = np.asarray(C.data, dtype=np.complex128)
+    return cls.factor(plan, torch.as_tensor(np.ascontiguousarray(data.real), device=device),
+                      torch.as_tensor(np.ascontiguousarray(data.imag), device=device),
+                      delta=delta)
+
+
 def _ridge_scale(D: torch.Tensor) -> torch.Tensor:
     """Mean |Re| of a diagonal block's diagonal: the unit of ``delta``."""
     return D.diagonal().real.abs().mean() + 1e-30
@@ -488,6 +505,15 @@ class BandedLU(_PermutedSolve):
     def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
         return band_cuda.solve_banded(self.band, self.dinv, bp)
 
+    @classmethod
+    def from_complex_csr(cls, C: sp.spmatrix, *, nb: int = 128, chunk: int = 128,
+                         delta: float = 0.0, perm: np.ndarray | None = None,
+                         plan: BandPlan | None = None, device="cuda") -> "BandedLU":
+        """Host convenience: plan (or reuse ``plan``) and factor the complex
+        scipy matrix ``C`` on ``device``."""
+        return _complex_csr_factor(cls, C, nb=nb, chunk=chunk, delta=delta, perm=perm,
+                                   plan=plan, device=device)
+
 
 @dataclass(eq=False)
 class RealBandedLU(_PermutedSolve):
@@ -626,6 +652,15 @@ class PivotedBandedLU(_PermutedSolve):
 
     def _substitute(self, bp: torch.Tensor) -> torch.Tensor:
         return band_cuda.solve_pivoted(self.band, self.L2, self.L1inv, self.Uinv, self.perms, bp)
+
+    @classmethod
+    def from_complex_csr(cls, C: sp.spmatrix, *, nb: int = 128, chunk: int = 128,
+                         delta: float = 0.0, perm: np.ndarray | None = None,
+                         plan: BandPlan | None = None, device="cuda") -> "PivotedBandedLU":
+        """Host convenience: plan (or reuse ``plan``) and factor the complex
+        scipy matrix ``C`` on ``device``."""
+        return _complex_csr_factor(cls, C, nb=nb, chunk=chunk, delta=delta, perm=perm,
+                                   plan=plan, device=device)
 
 
 @dataclass(eq=False)

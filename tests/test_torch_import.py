@@ -72,7 +72,8 @@ def _fresh_modules() -> list[str]:
         "lsafw_tpu_torch.ops.elementop, lsafw_tpu_torch.solver.power, "
         "lsafw_tpu_torch.solver.multigrid, lsafw_tpu_torch.solver.multigrid_nd, "
         "lsafw_tpu_torch.cli, lsafw_tpu_torch.io, lsafw_tpu_torch.meshing.io, "
-        "lsafw_tpu_torch.utils.cache, lsafw_tpu_torch.utils.capture, lsafw_tpu_torch.diagnose\n"
+        "lsafw_tpu_torch.utils.cache, lsafw_tpu_torch.utils.capture, lsafw_tpu_torch.diagnose, "
+        "lsafw_tpu_torch.models, lsafw_tpu_torch.models.dg, lsafw_tpu_torch.meshing.adapt\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -105,6 +106,16 @@ def test_cli_and_io_load_no_jax_nor_the_optional_libraries():
     assert [m for m in out if m.split(".")[0] in ("matplotlib", "h5py")] == []
 
 
+def test_tensor_cells_elasticity_dg_and_adapt_load_no_jax():
+    """The elasticity model, SIPG DG, mesh adaptation and the periodic
+    folds load no JAX and nothing of the JAX package, in a fresh
+    interpreter (with the port's other entry modules)."""
+    out = _fresh_modules()
+    assert {"lsafw_tpu_torch.models.elasticity", "lsafw_tpu_torch.models.dg",
+            "lsafw_tpu_torch.meshing.adapt", "lsafw_tpu_torch.fem.bcs"} <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+
+
 @pytest.mark.parametrize("path", sorted(p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")))
 def test_no_module_imports_jax_or_the_jax_package(path):
     tree = ast.parse((PKG / path).read_text())
@@ -133,6 +144,38 @@ def test_default_device_entry_points_refuse_the_cpu(monkeypatch):
                        device="cpu")
     assert res.converged and abs(res.eigenvalues[0] - 8.0) < 1e-10
     assert np.isfinite(res.eigenvectors).all()
+
+
+def test_tensor_cells_elasticity_and_dg_refuse_the_cpu_by_default(monkeypatch):
+    """A hex space's context, the elasticity assembler, SIPG DG and the
+    band plan's host entry default to the card: without one they raise
+    unless ``device="cpu"`` is passed."""
+    import scipy.sparse as sp
+
+    from lsafw_tpu_torch.fem.assembly import SpaceContext
+    from lsafw_tpu_torch.fem.spaces import make_vector_space
+    from lsafw_tpu_torch.meshing.mesh import CellType, box_mesh
+    from lsafw_tpu_torch.models import ElasticityEigenAssembler
+    from lsafw_tpu_torch.models.dg import assemble_dg_poisson
+    from lsafw_tpu_torch.solver.band import BandedLU, PivotedBandedLU
+
+    space = make_vector_space(box_mesh((0, 0, 0), (1, 1, 1), 1, 1, 1, CellType.HEXAHEDRON), "q1")
+    C = sp.identity(4, dtype=np.complex128, format="csr") * (2 + 1j)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: SpaceContext.build(space),
+                 lambda: ElasticityEigenAssembler(space, young_modulus=1.0, poisson_ratio=0.3,
+                                                  density=1.0),
+                 lambda: assemble_dg_poisson(unit_square(2)),
+                 lambda: BandedLU.from_complex_csr(C, nb=4, chunk=1),
+                 lambda: PivotedBandedLU.from_complex_csr(C, nb=4, chunk=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    K = ElasticityEigenAssembler(space, young_modulus=1.0, poisson_ratio=0.3, density=1.0,
+                                 device="cpu").assemble_stiffness()
+    assert K.device == torch.device("cpu")
+    x = BandedLU.from_complex_csr(C, nb=4, chunk=1, device="cpu").solve(
+        torch.ones(4, dtype=torch.complex128))
+    assert torch.allclose(x, torch.full((4,), 1 / (2 + 1j), dtype=torch.complex128))
 
 
 def test_sensitivity_refuses_the_cpu_by_default(monkeypatch):
