@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels  # phases 1 and 2 only, no result lines
     python3 chip_smoke.py --phase13  # phases 1, 3 and 13 only, no result lines
     python3 chip_smoke.py --phase15  # phases 1 and 15 only, no result lines
+    python3 chip_smoke.py --phase16  # phases 1, 3 and 16 only, no result lines
 
 Phases, one or more lines each (a failure raises and the exit code is
 non-zero):
@@ -411,6 +412,25 @@ non-zero):
      ``factor_auto`` picked at the real shift (logged), S once per matvec.
      Then K1/K2 on the 16 x 4 plate's, the Q1-hex plate's and the
      channel's factors and S at their shapes.  Phase 15's budget is 60 s.
+  16. (after phase 13, on phase 3's (A, M) and sigma; ``phase16_path``)
+     scale-out on torch.distributed: 16a a world of one over NCCL (a
+     ``file://`` store in a temporary folder): ``shard_csr`` of A against
+     S's own matvec (rel <= 1e-12), one all_reduce and one all_gather on
+     CUDA tensors, ``is_rank0``; then two ranks spawned on this card over
+     gloo (NCCL takes one rank a device), (A, M) handed over in a
+     temporary ``.npz``, each rank with host LU and the torch loops on
+     CUDA tensors raising: 16b ``sharded_si_eigensolve`` at 0.74j, nev 1,
+     ncv 16, tol 1e-10, exact SPIKE over two segments at the port's nb,
+     sigma within 1e-8 of phase 3's and a backward error <= 1e-8 from the
+     returned vector; 16c the truncated-SPIKE FGMRES path, sigma within
+     1e-8 of 16b's.  In each rank and path K1/K2 once per segment solve in
+     the mode ``factor_auto`` logged, G's permutes once each, S once per
+     local matvec.  Which gloo collectives take CUDA tensors is logged, as
+     is the distance to ``scripts/data/sharded_pipeline_43k.json``.
+     Phase 16's budget is 45 s.  Then K1/K2 and G's permutes on rank 0's
+     segment factor and S on its rows of the pencil (x the whole padded
+     vector), rebuilt in this process by the ranks' own builders, each
+     against its plain version at those shapes (``rank_kernels``).
 
 Phase 4's K1 timings of the pivot-free factors on f32 storage (the
 complex64 ones of phases 3b and 6, and the real one of A - Re(sigma) M
@@ -431,7 +451,7 @@ the stages of phase 9; ``launches_phase10``: the stages of phases 10 to
 10c; ``launches_phase11``: the stages of phase 11; ``launches_phase12``:
 the stages of phase 12; ``launches_phase13``: the stages of phase 13;
 ``launches_phase14``: the stages of phase 14; ``launches_phase15``: the
-stages of phase 15;
+stages of phase 15; ``launches_phase16``: phase 16, both ranks summed;
 modes no main path
 runs carry phase 2's random factors, and the wide
 random factors have entries of their own), and
@@ -1567,17 +1587,21 @@ def spmv_library(A, M, sigma, device, s_real: float = CN_SHIFT) -> dict:
             "shifted_real_mass": lambda: (lambda m: (spmv(A, xr) - s_real * m, m))(spmv(M, xr))}
 
 
-def spmv_work(mode: str, order: str, n: int, nnz: int, ntiles: int) -> tuple[float, float]:
+def spmv_work(mode: str, order: str, n: int, nnz: int, ntiles: int,
+              nx: int | None = None) -> tuple[float, float]:
     """(bytes, f64 operations) S must move and do: columns and values,
-    row pointers, S's tiles, x once, the permutation in the original
-    order, the outputs (complex multiply-add of a real value 4 flops)."""
+    row pointers, S's tiles, x once (``nx`` entries of it, default n),
+    the permutation in the original order, the outputs (complex
+    multiply-add of a real value 4 flops)."""
+    nx = n if nx is None else nx
     structure = (n + 1) * 8 + nnz * 4 + (ntiles + 1) * 12 + (n * 4 if order == "original" else 0)
-    return {"real": (structure + nnz * 8 + 2 * n * 8, 2 * nnz),
-            "shifted": (structure + 2 * nnz * 8 + 2 * n * 16, 8 * nnz + 8 * n),
-            "shifted_mass": (structure + 2 * nnz * 8 + 3 * n * 16, 8 * nnz + 8 * n),
-            "mass": (structure + nnz * 8 + 2 * n * 16, 4 * nnz),
-            "shifted_real": (structure + 2 * nnz * 8 + 2 * n * 8, 4 * nnz + 2 * n),
-            "shifted_real_mass": (structure + 2 * nnz * 8 + 3 * n * 8, 4 * nnz + 2 * n)}[mode]
+    return {"real": (structure + nnz * 8 + (n + nx) * 8, 2 * nnz),
+            "shifted": (structure + 2 * nnz * 8 + (n + nx) * 16, 8 * nnz + 8 * n),
+            "shifted_mass": (structure + 2 * nnz * 8 + (2 * n + nx) * 16, 8 * nnz + 8 * n),
+            "mass": (structure + nnz * 8 + (n + nx) * 16, 4 * nnz),
+            "shifted_real": (structure + 2 * nnz * 8 + (n + nx) * 8, 4 * nnz + 2 * n),
+            "shifted_real_mass": (structure + 2 * nnz * 8 + (2 * n + nx) * 8,
+                                  4 * nnz + 2 * n)}[mode]
 
 
 def check_spmv(cases: dict, what: str) -> dict:
@@ -6059,6 +6083,450 @@ def phase15_path(dev, errs: dict) -> dict:
     return dict(launches=launches, seconds=seconds, kernels=kernels, results=p15)
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: scale-out on torch.distributed
+# ---------------------------------------------------------------------------
+
+P16_SPIKES = ("exact", "truncated")  # 16b, then 16c, in the same two ranks
+P16_RANKS = 2
+P16_CHUNK = 4  # scripts/dev_sharded_pipeline.py:258-260's chunk; the port's nb (band_nb())
+P16_TIMEOUT = 300.0  # the ranks' wait (a hung collective fails the phase, not the script's limit)
+SHARDED_RECORD = DATA / "sharded_pipeline_43k.json"  # the reference's 8-device 43k record
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def gloo_probe(dev) -> dict:
+    """Which gloo collectives take a CUDA tensor as they are (the port
+    stages the others through the host, ``parallel/collectives.py``):
+    each the port uses tried once on every rank, f64 and complex128."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for name in ("all_reduce", "all_gather"):
+        for dt in (torch.float64, torch.complex128):
+            t = torch.ones(4, dtype=dt, device=dev)
+            try:
+                if name == "all_reduce":
+                    dist.all_reduce(t)
+                else:
+                    dist.all_gather([torch.empty_like(t) for _ in range(dist.get_world_size())], t)
+                out[f"{name}.{str(dt).split('.')[-1]}"] = "native"
+            except Exception as e:  # noqa: BLE001  (what gloo refuses is the finding)
+                out[f"{name}.{str(dt).split('.')[-1]}"] = f"refused: {str(e).splitlines()[0][:90]}"
+    return out
+
+
+@contextmanager
+def collective_seconds(dev):
+    """Wall seconds and calls of the port's collectives while the block
+    runs; the stream is synchronised (untimed) before each, so that the
+    kernels queued before it are not counted as its time."""
+    from lsafw_tpu_torch.parallel import collectives, sharded
+    from lsafw_tpu_torch.solver import band_sharded
+
+    seen = {"calls": 0, "seconds": 0.0}
+    sites = [(collectives, "all_reduce"), (collectives, "all_gather"), (sharded, "all_gather"),
+             (band_sharded, "all_gather")]
+    saved = [getattr(m, n) for m, n in sites]
+
+    def timed(fn):
+        def call(*args, **kw):
+            _sync(dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            seen["seconds"] += time.perf_counter() - t0
+            seen["calls"] += 1
+            return out
+
+        return call
+
+    for (m, n), fn in zip(sites, saved):
+        setattr(m, n, timed(fn))
+    try:
+        yield seen
+    finally:
+        for (m, n), fn in zip(sites, saved):
+            setattr(m, n, fn)
+
+
+def phase16_rank(rank: int, world: int, folder: str, dev: str, queue) -> None:
+    """One rank of 16b/16c: join the gloo group, install phase 3's guards
+    (host LU raises; the torch substitution loops raise on a CUDA tensor),
+    and run ``sharded_si_eigensolve`` on phase 3's (A, M) at 0.74j once per
+    SPIKE path, each with its launch counts zeroed just before and read
+    just after; sends its figures (rank 0 its eigenvectors too) back."""
+    import traceback
+
+    try:
+        import scipy.sparse as sp
+        import torch
+        from lsafw_tpu_torch.parallel import (
+            device_mesh, initialize_distributed, sharded_si_eigensolve)
+        from lsafw_tpu_torch.solver.band import band_nb
+
+        forbid_host_lu()
+        initialize_distributed(f"file://{folder}/store", world, rank, backend="gloo",
+                               device=dev)
+        mesh = device_mesh()
+        probe = gloo_probe(mesh.device) if mesh.device.type == "cuda" else {}
+        if rank == 0:
+            log(f"phase 16b rank 0: gloo collectives on CUDA tensors: {probe}")
+        z = np.load(Path(folder) / "pencil.npz")
+        A, M = (sp.csr_matrix((z[f"{m}_data"], z[f"{m}_indices"], z[f"{m}_indptr"]),
+                              shape=tuple(z["shape"])) for m in "AM")
+        out = dict(rank=rank, probe=probe, runs={})
+        for spike in P16_SPIKES:
+            reset_counts()
+            if mesh.device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(mesh.device)
+            _sync(mesh.device)
+            t0 = time.time()
+            with plain_loops_forbidden(), band_solves() as solves, \
+                    collective_seconds(mesh.device) as coll:
+                res = sharded_si_eigensolve(A, M, complex(z["target"]), mesh, nev=1, ncv=16,
+                                            tol=1e-10, nb=band_nb(), chunk=P16_CHUNK,
+                                            spike=spike)
+                _sync(mesh.device)
+            run = dict(seconds=time.time() - t0, launches=counts(), solves=dict(solves),
+                       collectives=dict(coll),
+                       sigma=complex(res.eigenvalues[0]), spike=res.spike,
+                       degraded=res.degraded, calibration=res.calibration_residual,
+                       stats=res.stats, converged=bool(res.converged),
+                       peak_gb=(torch.cuda.max_memory_allocated(mesh.device) / 1e9
+                                if mesh.device.type == "cuda" else 0.0))
+            if rank == 0:
+                run["x"] = res.eigenvectors[0]
+            out["runs"][spike] = run
+        torch.distributed.destroy_process_group()
+        queue.put(out)
+    except BaseException:
+        queue.put(dict(rank=rank, error=traceback.format_exc()))
+        raise
+
+
+@contextmanager
+def phase16_ranks(A, M, target: complex, dev: str, world: int = P16_RANKS):
+    """Spawn ``world`` ranks of :func:`phase16_rank` on this card with (A, M)
+    in a temporary ``.npz``, and yield a function that waits for their
+    figures (rank order): the ranks start while the block runs (16a).  A
+    rank that fails or does not answer within ``P16_TIMEOUT`` fails the
+    phase; every rank is stopped when the block ends."""
+    import queue as queue_mod
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as folder:
+        arrays = {"shape": np.array(A.shape), "target": np.array(complex(target))}
+        for name, S in (("A", A.to_scipy()), ("M", M.to_scipy())):
+            arrays.update({f"{name}_data": S.data, f"{name}_indices": S.indices,
+                           f"{name}_indptr": S.indptr})
+        np.savez(Path(folder) / "pencil.npz", **arrays)
+        ctx = multiprocessing.get_context("spawn")
+        q = ctx.Queue()
+        procs = [ctx.Process(target=phase16_rank, args=(r, world, folder, dev, q))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+
+        def collect() -> list:
+            outs, t_end = [], time.time() + P16_TIMEOUT
+            while len(outs) < world:
+                try:
+                    outs.append(q.get(timeout=max(t_end - time.time(), 0.1)))
+                except queue_mod.Empty:
+                    raise RuntimeError(f"phase 16b: {world - len(outs)} of {world} ranks did not "
+                                       f"answer within {P16_TIMEOUT:.0f} s") from None
+                if "error" in outs[-1]:
+                    raise RuntimeError(f"phase 16b: rank {outs[-1]['rank']} failed:\n"
+                                       f"{outs[-1]['error']}")
+            return sorted(outs, key=lambda o: o["rank"])
+
+        try:
+            yield collect
+        finally:
+            for p in procs:
+                p.join(10)
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+
+
+def world_of_one(A, dev) -> dict:
+    """16a: a world of one over NCCL (a ``file://`` store): ``shard_csr`` of
+    phase 3's A against S's own matvec of A (rel <= 1e-12), one
+    ``all_reduce`` and one ``all_gather`` on CUDA tensors, ``is_rank0``;
+    its launches counted."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from lsafw_tpu_torch.ops.bcsr import BCSROperator
+    from lsafw_tpu_torch.parallel import (
+        device_mesh, initialize_distributed, is_rank0, launch, shard_csr, shard_vector)
+    from lsafw_tpu_torch.parallel.collectives import all_gather, all_reduce
+    from lsafw_tpu_torch.parallel.sharded import gather_vector
+
+    ref = BCSROperator.from_csr(A)
+    x = torch.randn(A.shape[0], dtype=torch.float64, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(16))
+    y_ref = ref.matvec(x)
+    with tempfile.TemporaryDirectory() as folder:
+        reset_counts()
+        t0 = time.time()
+        initialize_distributed(f"file://{folder}/store", 1, 0, backend="nccl", device=dev)
+        try:
+            mesh = device_mesh()
+            backend = dist.get_backend()
+            op = shard_csr(A, mesh)
+            y = gather_vector(op.matvec(shard_vector(x.cpu().numpy(), mesh)), op.n, mesh)
+            err = rel_err(torch.as_tensor(y, device=dev), y_ref)[1]
+            z = torch.arange(6, dtype=torch.float64, device=dev).to(torch.complex128) * (1 + 1j)
+            red, gat = all_reduce(z, mesh.group), all_gather(z, mesh.group)
+            _sync(dev)
+            launches = counts()
+            ok = (bool(torch.equal(red, z)) and bool(torch.equal(gat, z)) and red.is_cuda
+                  and gat.is_cuda and is_rank0() and mesh.size == 1)
+        finally:
+            dist.destroy_process_group()
+            launch._DEVICE.clear()
+    seconds = time.time() - t0
+    log(f"phase 16a: a world of one over {backend} (file:// store): shard_csr of phase 3's A "
+        f"against S's own matvec rel {err:.2e}, all_reduce / all_gather on complex128 CUDA "
+        f"tensors {'exact' if ok else 'WRONG'}, is_rank0 {is_rank0()}; {seconds:.2f} s; launches "
+        f"{nonzero(launches)}")
+    if not (err <= 1e-12 and ok and backend == "nccl"):
+        raise RuntimeError(f"phase 16a: rel {err:.2e}, collectives ok {ok}, backend {backend}")
+    if launches["spmv_real"] != 1:
+        raise RuntimeError(f"phase 16a: {launches['spmv_real']} S launches for one local matvec")
+    return dict(launches=launches, seconds=seconds)
+
+
+def backward_error(A, M, lam: complex, x: np.ndarray) -> float:
+    """||A x - lam M x|| / ((a + |lam| m) ||x||), the residual on the host,
+    a and m the largest row 2-norms of A and M (``EigenSolver.backward_errors``)."""
+    from lsafw_tpu_torch.solver.eigen import eigen_residuals, largest_row_norm
+
+    scale = largest_row_norm(A) + abs(lam) * largest_row_norm(M)
+    return float(eigen_residuals(A, M, [(lam, x)])[0]) / scale
+
+
+def rank_spmv_timed(cop, dev, label: str) -> list:
+    """S on a rank's ``ShardedPencil`` operand (its rows of C = A - sigma
+    M and of M in the segments' order, global column ids): (A - sigma M) x
+    and M x on the whole npad-long complex128 x, as the rank's matvec and
+    mass apply take it after the all-gather; held against the plain
+    version, timed with L2 evicted beside torch's sparse CSR product of
+    the same rows (cuSPARSE), bounded by its bytes with x counted at the
+    columns the rows reference."""
+    import torch
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+
+    csr, s = cop.csr, cop.sigma
+    n, nnz = csr.n, int(csr.crow[csr.n])
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.complex(*(torch.randn(csr.ncols, generator=g, device=dev, dtype=torch.float64)
+                        for _ in range(2)))
+    cases = {("shifted", "rank"): (lambda: sc.csr_shifted_spmv(csr, cop.vA, cop.vM, x, s),
+                                   lambda: sc.csr_spmv_plain(csr, cop.vA, x, cop.vM, s)),
+             ("mass", "rank"): (lambda: sc.csr_spmv(csr, cop.vM, x),
+                                lambda: sc.csr_spmv_plain(csr, cop.vM, x))}
+    errs = check_spmv(cases, f"on{label.lstrip(',')}")
+    crow, col = csr.crow[: n + 1], csr.col[:nnz].long()
+    lib_A, lib_M = (torch.sparse_csr_tensor(crow, col, v[:nnz], size=(n, csr.ncols))
+                    for v in (cop.vA, cop.vM))
+    xs = torch.stack([x.real, x.imag], dim=1)
+
+    def product(S):
+        y = S @ xs
+        return torch.complex(y[:, 0], y[:, 1])
+
+    libs = {"shifted": lambda: product(lib_A) - s * product(lib_M), "mass": lambda: product(lib_M)}
+    nx = int(torch.unique(col).numel())
+    ntiles = csr.tile_row.numel() - 1
+    names = {"shifted": "shifted", "mass": "mass"}
+    lines = {"shifted": "lsafw_tpu/ops/bcsr.py:615", "mass": "lsafw_tpu/ops/bcsr.py:622"}
+    out = []
+    for (mode, _), (kern, plain) in cases.items():
+        bound_ms, bound_by = bound(*spmv_work(mode, "permuted", n, nnz, ntiles, nx),
+                                   FP64_FLOPS_PER_S)
+        e = dict(name=f"csr_tiled_spmv_kernel (S), {names[mode]}{label}",
+                 route="cuda", source="lsafw_tpu_torch/csrc/spmv_gather.cu", replaces=lines[mode],
+                 launches=0, _key=S_KEYS[mode], max_abs_err=errs[(mode, "rank")],
+                 ms=cold_ms(kern), plain_ms=cold_ms(plain), bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=cold_ms(libs[mode]))
+        log(f"phase 16: S {mode} on{label.lstrip(',')}: {e['ms']:.4f} ms cold, bound "
+            f"{bound_ms:.4f} ms ({100 * bound_ms / e['ms']:.1f}%), cuSPARSE {e['library_ms']:.4f} ms, plain "
+            f"{e['plain_ms']:.4f} ms; {nnz} nonzeros in {ntiles} tiles, x read at {nx} of "
+            f"{csr.ncols} columns")
+        out.append(e)
+    return out
+
+
+def rank_kernels(A, M, target: complex, errs: dict, dev) -> list:
+    """K1/K2 and G's permutes on rank 0's segment factor of 16b/16c and S
+    on its ``ShardedPencil`` operand, each against its plain version at the
+    shapes the ranks gave them.  Both are rebuilt here by the ranks' own code
+    (``ShardedBandedPrecond.build``, ``ShardedPencil.build``) on a mesh of
+    ``P16_RANKS`` ranks seen from rank 0, without a process group (neither
+    build runs a collective).  Returns the kernels-line entries."""
+    import torch
+    from lsafw_tpu_torch.parallel.sharded import DeviceMesh, ShardedPencil
+    from lsafw_tpu_torch.solver.band import band_nb
+    from lsafw_tpu_torch.solver.band_sharded import SegmentPlan, ShardedBandedPrecond
+
+    t0 = time.time()
+    As, Ms = A.to_scipy(), M.to_scipy()
+    Cs = (As.astype(np.complex128) - complex(target) * Ms).tocsr()
+    mesh = DeviceMesh(None, 0, P16_RANKS, torch.device(dev))
+    plan = SegmentPlan.build(Cs, P16_RANKS, nb=band_nb(), chunk=P16_CHUNK)
+    pc = ShardedBandedPrecond.build(Cs, mesh, chunk=P16_CHUNK, plan=plan)
+    cop = ShardedPencil.build(As, Ms, target, pc.perm_pad, pc.npad, pc.rows, mesh)
+    _sync(dev)
+    log(f"phase 16: rank 0's segment factor ({type(pc.seg).__name__}, {pc.seg_rows} rows, nb "
+        f"{pc.nb}, B {pc.B}) and its {pc.seg_rows} x {pc.npad} S operand rebuilt in "
+        f"{time.time() - t0:.2f} s")
+    kernels = band_kernels([(f", rank 0's {pc.seg_rows}-row segment of the 43k pencil "
+                             f"(phase 16)", pc.seg)], errs, dev, plain_reps=1)
+    kernels += rank_spmv_timed(cop, dev, f", rank 0's {pc.seg_rows} x {pc.npad} block of the 43k "
+                               f"pencil (phase 16)")
+    kernels += segment_permutes(pc.seg, dev, f", rank 0's {pc.seg_rows}-row segment (phase 16)")
+    return kernels
+
+
+def segment_permutes(f, dev, label: str) -> list:
+    """G's permute-in (complex128 to complex64) and permute-out (back) of
+    a segment solve on the segment factor's own permutation, each against
+    its plain version (bit for bit), timed with L2 evicted, bounded by
+    its bytes."""
+    import torch
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+
+    n, npad = f.iperm.numel(), f.perm.numel()
+    g = torch.Generator(device=dev).manual_seed(17)
+    br = torch.randn(n, generator=g, device=dev, dtype=torch.float64)
+    bc = torch.complex(br, torch.randn(n, generator=g, device=dev, dtype=torch.float64))
+    cases = permute_cases(br, bc, f.perm, f.iperm, f.band.shape[2],
+                          keys={("in", "c128.c64"), ("out", "c64.c128")})
+    check_permutes(cases, f"on{label.lstrip(',')}")
+    nbytes = {"in": npad * 4 + n * 16 + npad * 8, "out": n * 4 + n * 8 + n * 16}
+    out = []
+    for (form, types), (kern, plain) in cases.items():
+        bound_ms, bound_by = bound(nbytes[form], 0, FP32_FLOPS_PER_S)
+        e = dict(name=f"permute_{form}_kernel (G, permute-{form}), "
+                      f"{types.replace('.', ' to ')}{label}", route="cuda",
+                 source="lsafw_tpu_torch/csrc/spmv_gather.cu",
+                 replaces="scripts/dev_pallas_gather.py:55", launches=0,
+                 _key=f"permute_{form}.{types}", max_abs_err=0.0, ms=cold_ms(kern),
+                 plain_ms=cold_ms(plain), bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        log(f"phase 16: G permute-{form} {types} on{label.lstrip(',')}: {e['ms']:.4f} ms cold, "
+            f"plain {e['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms")
+        out.append(e)
+    return out
+
+
+def phase16_path(A, M, sigma3: complex, dev, errs: dict) -> dict:
+    """Phase 16: 16a (a world of one over NCCL), then two ranks spawned on
+    this card over gloo (NCCL refuses two ranks on one device) running
+    ``sharded_si_eigensolve`` on phase 3's (A, M) at 0.74j, nev 1, ncv 16,
+    tol 1e-10, two segments at the port's nb: 16b the exact SPIKE, 16c the
+    truncated SPIKE FGMRES.  Gates: 16b's sigma within 1e-8 of phase 3's,
+    its backward error <= 1e-8 on the host from the returned vector (the
+    original order), the ranks' host LU and torch loops on CUDA tensors 0
+    (both raise), in each rank K1 and K2 once per segment solve in the mode
+    ``factor_auto`` logged, G's permute-in and -out once each, S once per
+    local matvec; 16c's sigma within 1e-8 of 16b's.  Logged: the SPIKE path,
+    the calibration residual, the segment factor's mode, B and bw, the
+    couplings dropped, the strips' solves and seconds, applies, refinement
+    steps, each rank's peak device memory, every stage's seconds, the
+    gloo collectives that take CUDA tensors, and the distance to the
+    reference's 8-device record (its baseflow differs: not gated)."""
+    from lsafw_tpu_torch.ops import spmv_cuda as sc
+
+    t0 = time.time()
+    with phase16_ranks(A, M, TARGET, str(dev)) as collect:  # the ranks start beside 16a
+        p16a = world_of_one(A, dev)
+        t1 = time.time()
+        ranks = collect()
+    t_ranks = time.time() - t1
+    log(f"phase 16b: {P16_RANKS} ranks spawned on one card over gloo (NCCL takes one rank a "
+        f"device); gloo on CUDA tensors: {ranks[0]['probe']}")
+    launches = dict(p16a["launches"])
+    sig = {}
+    for spike in P16_SPIKES:
+        what = "phase 16b" if spike == "exact" else "phase 16c"
+        for o in ranks:
+            r = o["runs"][spike]
+            st = r["stats"]
+            for k, v in r["launches"].items():
+                launches[k] += v
+            mode = "pivoted" if st["pivoted"] else "pivot_free"
+            cls = "PivotedBandedLU" if st["pivoted"] else "BandedLU"
+            solves = r["solves"].get(cls, 0)
+            log(f"{what} rank {o['rank']}: {r['spike']} SPIKE (degraded {r['degraded']}), "
+                f"calibration residual {r['calibration']}, sigma "
+                f"{r['sigma'].real:+.12f}{r['sigma'].imag:+.12f}j; segment {st['seg_rows']} of "
+                f"{st['npad']} rows, {mode} c64 factor at nb {st['nb']}, B {st['B']}, bw "
+                f"{st.get('bw', '-')}, {st['dropped']} couplings dropped, factor "
+                f"{st['factor_seconds']:.2f} s; strips {st.get('strip_solves', 0)} segment "
+                f"solves in {st.get('strip_seconds', 0.0):.2f} s; {st['applies']} applies, "
+                f"{st['refinements']} refinement steps, {st['fgmres_its']} FGMRES iterations, "
+                f"worst inner residual {st['worst_inner']:.1e}; {st['matvecs']} local matvecs, "
+                f"{sum(r['solves'].values())} segment solves; peak device memory "
+                f"{r['peak_gb']:.3f} GB; seconds: plan {st['plan_seconds']:.2f}, build "
+                f"{st.get('build_seconds', st['factor_seconds']):.2f}, calibration "
+                f"{st.get('calibration_seconds', 0.0):.2f}, Krylov-Schur "
+                f"{st['krylov_seconds']:.2f}, all {r['seconds']:.2f}, in "
+                f"{r['collectives']['calls']} collectives {r['collectives']['seconds']:.2f}; "
+                f"launches {nonzero(r['launches'])}")
+            gate_band_launches(f"{what} rank {o['rank']}", r["launches"], f"{mode}.c64", solves)
+            pin, pout = r["launches"]["permute_in.c128.c64"], r["launches"]["permute_out.c64.c128"]
+            s_all = sum(r["launches"][m + o_] for m in sc.SPMV_KEYS for o_ in ("", ".original"))
+            if not (pin == pout == solves == sum(r["solves"].values()) > 0):
+                raise RuntimeError(f"{what} rank {o['rank']}: permutes {pin}/{pout} for "
+                                   f"{solves} segment solves ({r['solves']})")
+            if not s_all == st["matvecs"] > 0:
+                raise RuntimeError(f"{what} rank {o['rank']}: {s_all} S launches for "
+                                   f"{st['matvecs']} local matvecs")
+            if r["sigma"] != ranks[0]["runs"][spike]["sigma"]:
+                raise RuntimeError(f"{what}: the ranks' sigma differ: {r['sigma']} against "
+                                   f"{ranks[0]['runs'][spike]['sigma']}")
+        sig[spike] = ranks[0]["runs"][spike]["sigma"]
+    x = ranks[0]["runs"]["exact"]["x"]
+    bwd = backward_error(A, M, sig["exact"], x)
+    rec = json.loads(SHARDED_RECORD.read_text())
+    s_rec = complex(rec["sigma_re"], rec["sigma_im"])
+    exact = ranks[0]["runs"]["exact"]
+    log(f"phase 16b: sigma {sig['exact'].real:+.12f}{sig['exact'].imag:+.12f}j, "
+        f"{abs(sig['exact'] - sigma3):.1e} from phase 3's; backward error {bwd:.2e}; host LU "
+        f"calls 0 and torch loops on CUDA tensors 0 in every rank (both raise there); the "
+        f"reference's {rec['n_dev']}-device record {s_rec:.10f} is "
+        f"{abs(sig['exact'] - s_rec):.2e} away (another baseflow: logged, not gated)")
+    if exact["spike"] != "exact":
+        log(f"phase 16b: the exact SPIKE degraded to the truncated path (calibration residual "
+            f"{exact['calibration']}): a finding for ROADMAP queue 3")
+    if not (abs(sig["exact"] - sigma3) <= 1e-8 and bwd <= 1e-8):
+        raise RuntimeError(f"phase 16b: sigma {sig['exact']} against phase 3's {sigma3}, "
+                           f"backward error {bwd:.2e}")
+    log(f"phase 16c: truncated SPIKE sigma {sig['truncated'].real:+.12f}"
+        f"{sig['truncated'].imag:+.12f}j, {abs(sig['truncated'] - sig['exact']):.1e} from 16b's")
+    if not abs(sig["truncated"] - sig["exact"]) <= 1e-8:
+        raise RuntimeError(f"phase 16c: sigma {sig['truncated']} against 16b's {sig['exact']}")
+    seconds = time.time() - t0
+    log(f"phase 16: {seconds:.1f} s (16a {p16a['seconds']:.1f} s while the ranks start, then "
+        f"{t_ranks:.1f} s for the ranks; budget 45 s); launches {nonzero(launches)}")
+    t1 = time.time()
+    kernels = rank_kernels(A, M, TARGET, errs, dev)
+    log(f"phase 16: K1/K2, S and G at a rank's shapes, checked and timed in "
+        f"{time.time() - t1:.1f} s")
+    return dict(launches=launches, seconds=seconds, sigma=sig, kernels=kernels)
+
+
 def main() -> int:
     import torch
 
@@ -6090,6 +6558,20 @@ def main() -> int:
         for e in p13["kernels"]:
             log(f"phase 13: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound "
                 f"{e['bound_ms']:.4f} ms, {p13['launches'][e['_key']]} launches in phase 13")
+        log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
+        return 0
+    if "--phase16" in sys.argv[1:]:  # phases 3 and 16 alone, no result lines
+        forbid_host_lu()
+        case = cylinder_case(dev)
+        with plain_loops_forbidden():
+            mp = main_path(case)
+        mark("16")
+        p16 = phase16_path(mp["A"], mp["M"], mp["sigma"], dev, errs)
+        for e in p16["kernels"]:
+            log(f"phase 16: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
+                f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} "
+                f"ms, bound {e['bound_ms']:.4f} ms ({e['bound_by']}), max abs err "
+                f"{e['max_abs_err']:.2e}, {p16['launches'][e['_key']]} launches in phase 16")
         log(f"chip_smoke: {time.time() - t_start:.1f} s in all")
         return 0
     if "--phase15" in sys.argv[1:]:  # phase 15 alone after the build, no result lines
@@ -6324,6 +6806,9 @@ def main() -> int:
     p13 = structured_path(case, mp, p12.pop("pmg"), errs, dev)
     kernels += p13.pop("kernels")
     torch.cuda.empty_cache()
+    mark("16")
+    p16 = phase16_path(mp["A"], mp["M"], mp["sigma"], dev, errs)
+    kernels += p16.pop("kernels")
     mp_launches, pf_launches, p3c_launches = mp["launches"], pf["launches"], p3c["launches"]
     p3 = {k: mp[k] for k in ("w", "A", "M", "sigma")}  # phase 8's 2D base and answer
     a43 = p3["A"]  # phase 14c's standard problem
@@ -6454,6 +6939,7 @@ def main() -> int:
         e["launches_phase13"] = p13["launches"][key] if key else 0
         e["launches_phase14"] = p14["launches"][key] if key else 0
         e["launches_phase15"] = p15["launches"][key] if key else 0
+        e["launches_phase16"] = p16["launches"][key] if key else 0
     for e in kernels:
         log(f"phase 4: {e['name']}: {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
             f"{e['library_ms'] if e['library_ms'] is None else round(e['library_ms'], 4)} ms, "
@@ -6464,7 +6950,7 @@ def main() -> int:
             f"{e['launches_phase9']} in phase 9, {e['launches_phase10']} in phase 10, "
             f"{e['launches_phase11']} in phase 11, {e['launches_phase12']} in phase 12, "
             f"{e['launches_phase13']} in phase 13, {e['launches_phase14']} in phase 14, "
-            f"{e['launches_phase15']} in phase 15)")
+            f"{e['launches_phase15']} in phase 15, {e['launches_phase16']} in phase 16)")
     t_end = time.time()
     log(f"chip_smoke: seconds by phase, from each phase's start to the next's: "
         f"{phase_seconds(t_end)}")

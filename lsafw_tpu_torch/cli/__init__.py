@@ -24,7 +24,12 @@ Differences from the reference, by design:
   the SCM's mean) runs on the band factor, and ``--si-method`` (``lu``,
   ``banded``, ``gmres``) defaults to ``banded``; the host ``lu`` runs only
   when named.
-* ``--distributed`` exits 1: the multi-process runtime is not ported.
+* ``--distributed`` joins the process group of a ``torch.distributed``
+  launch (``torchrun``'s environment; ``parallel.initialize_distributed``),
+  after the device check.  No subcommand calls a sharded solver, so rank 0
+  runs the subcommand alone and the other ranks return 0 once they have
+  joined: replicated on every rank, it would compute the same result N
+  times and N writers would race on its output files and cache.
 
 Every other error exits 1 with the error logged, as the reference's
 commands do.  ``--plot`` (matplotlib) and ``.xdmf`` exports (h5py) import
@@ -388,7 +393,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
                         help="the device the solvers run on (default: cuda; no fallback)")
     parser.add_argument("--distributed", action="store_true",
-                        help="the multi-process runtime (not ported: exits 1)")
+                        help="join the torch.distributed process group of a multi-process "
+                        "launch (torchrun)")
     sub = parser.add_subparsers(dest="command", required=True)
 
     p = sub.add_parser("mesh", help="generate or import and tag a mesh")
@@ -486,15 +492,17 @@ def main(argv: list[str] | None = None) -> int:
 
     args = _parser().parse_args(argv)
     setup_logging(verbose=args.verbose)
-    if args.distributed:
-        logger.error("--distributed: the multi-process runtime is not ported yet (ROADMAP.md, "
-                     "queue 1 item 8)")
-        return 1
     if args.platform == "cuda" and not torch.cuda.is_available():
         logger.error("--platform cuda: no CUDA device (torch.cuda.is_available() is False); "
                      "pass --platform cpu to run on the CPU")
         return 1
     args.device = torch.device(args.platform)
+    if args.distributed:
+        from lsafw_tpu_torch.parallel import initialize_distributed, is_rank0
+
+        initialize_distributed(device=args.device)
+        if not is_rank0():  # rank 0 runs the subcommand and writes its files alone
+            return 0
     try:
         return args.fn(args)
     except Exception as exc:  # fail fast with exit 1, as the reference does

@@ -97,6 +97,18 @@ def banded_lu_from_numpy(band_re, band_im, dinv_r, dinv_i, perm, iperm, n: int, 
                     _int(iperm, np.int32, device), int(n), int(nb), int(B))
 
 
+def segment_lus_from_numpy(band_re, band_im, dinv_r, dinv_i, nb: int, B: int, *,
+                           device="cuda") -> list[BandedLU]:
+    """The stacked segment factors of a JAX ``ShardedBandedPrecond``
+    ((D, rows, 2B+1, nb, nb) (re, im) bands and (D, nblk_seg, nb, nb)
+    diagonal inverses) as one port BandedLU per segment, each on the
+    identity order of its segment's rows (as the reference plans them)."""
+    rows = np.arange(np.asarray(dinv_r).shape[1] * nb)
+    return [banded_lu_from_numpy(band_re[j], band_im[j], dinv_r[j], dinv_i[j], rows, rows,
+                                 rows.size, nb, B, device=device)
+            for j in range(np.asarray(dinv_r).shape[0])]
+
+
 def real_banded_lu_from_numpy(band, dinv, perm, iperm, n: int, nb: int, B: int, *,
                               device="cuda") -> RealBandedLU:
     """A factored real band (f32 or bf16) as the port's RealBandedLU,

@@ -314,7 +314,9 @@ class TiledCSR:
     int64 row pointers, ``col`` (nnz,) int32 column ids, the tile plan
     ``tile_row`` int32 / ``tile_ptr`` int64 (:func:`plan_tiles`), ``src``
     (the value refill's slot map, int32, padded) and ``out`` (n,) int32:
-    row r's result lands in y[out[r]] (None: y[r])."""
+    row r's result lands in y[out[r]] (None: y[r]).  ``ncols``: the
+    length of x where it differs from n (a block of rows of a larger
+    square matrix, as one rank holds: ``parallel/sharded.py``)."""
 
     crow: torch.Tensor
     col: torch.Tensor
@@ -322,13 +324,15 @@ class TiledCSR:
     tile_ptr: torch.Tensor
     src: torch.Tensor
     out: torch.Tensor | None = None
+    ncols: int | None = None
 
     @classmethod
-    def build(cls, indptr, cols, src, tiles, device, out=None) -> "TiledCSR":
+    def build(cls, indptr, cols, src, tiles, device, out=None,
+              ncols: int | None = None) -> "TiledCSR":
         """The operands of host arrays on ``device``: row pointers ``indptr``,
         column ids ``cols``, ``src`` (each slot's index into the CSR data
-        its value comes from), ``tiles`` (:func:`plan_tiles`) and ``out``,
-        the arrays the kernel copies stored as it needs."""
+        its value comes from), ``tiles`` (:func:`plan_tiles`), ``out`` and
+        ``ncols``, the arrays the kernel copies stored as it needs."""
         nnz = len(cols)
         return cls(crow=_padded_tensor(indptr, torch.int64, device),
                    col=_padded_tensor(cols, torch.int32, device),
@@ -336,7 +340,8 @@ class TiledCSR:
                    tile_ptr=torch.as_tensor(tiles[1], dtype=torch.int64, device=device),
                    src=torch.as_tensor(np.concatenate([src, np.zeros(_padded(nnz) - nnz, np.int64)]),
                                        dtype=torch.int32, device=device),  # the pad reads entry 0
-                   out=None if out is None else _padded_tensor(out, torch.int32, device))
+                   out=None if out is None else _padded_tensor(out, torch.int32, device),
+                   ncols=ncols)
 
     @property
     def n(self) -> int:
@@ -388,8 +393,9 @@ def _check_spmv(csr: TiledCSR, va, vm, x) -> None:
     for v in (va, vm):
         if v is not None and (v.dtype != torch.float64 or v.shape != csr.col.shape):
             raise ValueError("S takes f64 values, one per column index")
-    if x.dtype not in _SPMV_FN or x.shape != (n,):
-        raise ValueError(f"S takes an f64 or complex128 x of shape ({n},), got {x.dtype} "
+    nx = n if csr.ncols is None else csr.ncols
+    if x.dtype not in _SPMV_FN or x.shape != (nx,):
+        raise ValueError(f"S takes an f64 or complex128 x of shape ({nx},), got {x.dtype} "
                          f"{tuple(x.shape)}")
     copied = [(csr.col, _padded(nnz)), (va, _padded(nnz)), (vm, _padded(nnz)),
               (csr.crow, -(-(n + 1) // 2) * 2), (csr.out, _padded(n))]

@@ -165,6 +165,7 @@ class BandPlan:
         chunk: int = 128,
         perm: np.ndarray | None = None,
         max_bytes: int | None = None,
+        min_B: int | None = None,
         real: bool = False,
         force_f32: bool = False,
     ) -> "BandPlan":
@@ -174,7 +175,9 @@ class BandPlan:
         first asks for bf16 storage (2 or 4 bytes), and where even that
         does not fit, clips B; ``force_f32`` clips B at f32 storage
         instead.  Entries outside a clipped band are dropped: the factor
-        then preconditions the band-truncated operator."""
+        then preconditions the band-truncated operator.  ``min_B`` widens
+        B to at least that many blocks, so that independently planned
+        segments share one geometry (``solver/band_sharded.py``)."""
         t0 = time.time()
         csr = csr.tocsr()
         n = csr.shape[0]
@@ -192,6 +195,8 @@ class BandPlan:
         pj = iperm[csr.indices.astype(np.int64)]
         bw = int(np.abs(pi - pj).max()) if len(pi) else 0
         B = max(1, -(-bw // nb))
+        if min_B is not None:
+            B = max(B, min_B)
         nblk = -(-n // nb)
         nblk_pad = -(-nblk // chunk) * chunk
         band_dtype = "f32"

@@ -67,7 +67,7 @@ from lsafw_tpu_torch.ops.bcsr import (
 from lsafw_tpu_torch.ops.sparse import CSRMatrix, identity_mass, shared_pattern, spmv
 from lsafw_tpu_torch.solver.band import factor_auto, plan_for_csr
 from lsafw_tpu_torch.solver.direct import SparseLU
-from lsafw_tpu_torch.solver.linear import gmres, power_norm
+from lsafw_tpu_torch.solver.linear import _cgs2, _norm, _reduce, gmres, power_norm
 from lsafw_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -1071,15 +1071,13 @@ def _select_order(theta: np.ndarray, which: EpsWhich, target: complex | None) ->
     return np.argsort(_sort_key(which, target)(theta), kind="stable")
 
 
-def _arnoldi_step(V: torch.Tensor, w: torch.Tensor, j: int):
-    """CGS2: orthogonalize w against V[0..j]; returns (h, beta, w/beta)."""
-    Vj = V[: j + 1]
-    h1 = Vj.conj() @ w
-    w = w - Vj.T @ h1
-    h2 = Vj.conj() @ w
-    w = w - Vj.T @ h2
-    beta = float(torch.linalg.vector_norm(w))
-    return (h1 + h2).cpu().numpy(), beta, w / max(beta, 1e-300)
+def _arnoldi_step(V: torch.Tensor, w: torch.Tensor, j: int, group=None):
+    """CGS2 (:func:`~lsafw_tpu_torch.solver.linear._cgs2`): orthogonalize
+    w against V[0..j]; returns (h, beta, w/beta).  With ``group`` the rows
+    are distributed and the products summed."""
+    h, w, beta = _cgs2(V[: j + 1], w, group)
+    beta = float(beta)
+    return h.cpu().numpy(), beta, w / max(beta, 1e-300)
 
 
 def krylov_schur(
@@ -1095,18 +1093,29 @@ def krylov_schur(
     v0: np.ndarray | None = None,
     seed: int = 7,
     device="cuda",
+    group=None,
 ) -> KrylovSchurResult:
     """Krylov-Schur iteration (Stewart 2002) with a device basis and host
-    Schur bookkeeping."""
-    ncv = min(ncv or min(max(2 * nev + 1, 20), n), n)
+    Schur bookkeeping.
+
+    ``group`` (a ``torch.distributed`` process group; the reference's
+    ``basis_sharding``) distributes the basis by rows: ``n``, ``v0`` and
+    ``apply_op``'s vectors are this rank's rows, the Gram-Schmidt
+    projections and norms are summed over the group's ranks, the Schur
+    bookkeeping is replicated on every rank, and the eigenvectors
+    returned are this rank's rows of the globally normalised vectors.
+    Without ``v0`` every rank draws its rows from the same seed."""
+    device = resolve_device(device)
+    n_all = n if group is None else int(_reduce(torch.tensor(n, device=device), group))
+    ncv = min(ncv or min(max(2 * nev + 1, 20), n_all), n_all)
     if ncv <= nev:
         raise ValueError(f"ncv={ncv} must exceed nev={nev}")
     rng = np.random.default_rng(seed)
     if v0 is None:
         v0 = rng.standard_normal(n) + 1j * rng.standard_normal(n)
     v0 = np.asarray(v0, dtype=np.complex128)
-    v0 = v0 / np.linalg.norm(v0)
-    device = resolve_device(device)
+    v0 = v0 / (np.linalg.norm(v0) if group is None
+               else _norm(torch.as_tensor(v0, device=device), group))
     V = torch.zeros((ncv + 1, n), dtype=torch.complex128, device=device)
     V[0] = torch.as_tensor(v0, device=device)
     H = np.zeros((ncv + 1, ncv), dtype=np.complex128)
@@ -1115,7 +1124,7 @@ def krylov_schur(
     n_ops = 0
     for restart in range(max_restarts):
         for j in range(k, ncv):
-            h, beta, V[j + 1] = _arnoldi_step(V, apply_op(V[j]), j)
+            h, beta, V[j + 1] = _arnoldi_step(V, apply_op(V[j]), j, group)
             H[: j + 1, j] = h
             H[j + 1, j] = beta
             H[j + 2:, j] = 0.0
@@ -1152,8 +1161,13 @@ def krylov_schur(
         if nconv >= nev or restart == max_restarts - 1:
             m_ext = min(max(nconv, nev), sdim)
             Yd = torch.as_tensor(Y[:, :m_ext], device=device)
-            X = (V[:ncv].T @ Yd).T.cpu().numpy()
-            X = X / np.maximum(np.linalg.norm(X, axis=1, keepdims=True), 1e-300)
+            Xd = (V[:ncv].T @ Yd).T
+            X = Xd.cpu().numpy()
+            if group is None:
+                norms = np.linalg.norm(X, axis=1, keepdims=True)
+            else:
+                norms = _reduce((Xd.abs() ** 2).sum(1), group).sqrt().cpu().numpy()[:, None]
+            X = X / np.maximum(norms, 1e-300)
             logger.info("Krylov-Schur: %d/%d converged after %d restarts (%d op applies)",
                         nconv, nev, restart + 1, n_ops)
             return KrylovSchurResult(

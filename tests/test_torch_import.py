@@ -73,7 +73,8 @@ def _fresh_modules() -> list[str]:
         "lsafw_tpu_torch.solver.multigrid, lsafw_tpu_torch.solver.multigrid_nd, "
         "lsafw_tpu_torch.cli, lsafw_tpu_torch.io, lsafw_tpu_torch.meshing.io, "
         "lsafw_tpu_torch.utils.cache, lsafw_tpu_torch.utils.capture, lsafw_tpu_torch.diagnose, "
-        "lsafw_tpu_torch.models, lsafw_tpu_torch.models.dg, lsafw_tpu_torch.meshing.adapt\n"
+        "lsafw_tpu_torch.models, lsafw_tpu_torch.models.dg, lsafw_tpu_torch.meshing.adapt, "
+        "lsafw_tpu_torch.parallel, lsafw_tpu_torch.solver.band_sharded\n"
         "print('\\n'.join(sorted(sys.modules)))"
     )
     return subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -114,6 +115,33 @@ def test_tensor_cells_elasticity_dg_and_adapt_load_no_jax():
     assert {"lsafw_tpu_torch.models.elasticity", "lsafw_tpu_torch.models.dg",
             "lsafw_tpu_torch.meshing.adapt", "lsafw_tpu_torch.fem.bcs"} <= set(out)
     assert [m for m in out if _forbidden(m)] == []
+
+
+def test_parallel_loads_no_jax():
+    """``import lsafw_tpu_torch.parallel`` (the scale-out layer, with the
+    SPIKE solvers) loads no JAX and nothing of the JAX package, in a fresh
+    interpreter (with the port's other entry modules)."""
+    out = _fresh_modules()
+    assert {"lsafw_tpu_torch.parallel", "lsafw_tpu_torch.parallel.launch",
+            "lsafw_tpu_torch.parallel.partition", "lsafw_tpu_torch.parallel.sharded",
+            "lsafw_tpu_torch.parallel.collectives",
+            "lsafw_tpu_torch.solver.band_sharded"} <= set(out)
+    assert [m for m in out if _forbidden(m)] == []
+
+
+def test_parallel_refuses_the_cpu_by_default(monkeypatch, tmp_path):
+    """The mesh and the process group default to the card and raise
+    without one, before any group is joined."""
+    import torch.distributed as dist
+
+    from lsafw_tpu_torch.parallel import device_mesh, initialize_distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        device_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_distributed(f"file://{tmp_path}/store", 1, 0)
+    assert not dist.is_initialized()
 
 
 @pytest.mark.parametrize("path", sorted(p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")))
